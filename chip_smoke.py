@@ -13,12 +13,16 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                scipy's float64 L @ x on the host (L from the problem's
                float64 ELL arrays, not the window format), each within
                1e-5 * max|y|. Times: device time per call over 50 calls
-               (torch.profiler kernel durations; the wrapper's includes its
-               transpose of x), and the median latency of one call (CUDA
-               events, host launch overhead included).
+               (torch.profiler kernel durations) of the wrapper, which must
+               be one launch of the kernel and nothing else, of the plain
+               version and of the library call (torch.sparse.mm of the same
+               operator as CSR with the vertex-major x), beside the bound
+               (every input and output moved once at 3.35 TB/s); and the
+               median latency of one call (CUDA events, host launch
+               overhead included).
 4. slice    -- the main path: the port's CLI (`dots_socp_torch.cli.main`,
-               which runs the reference's `interface.run_dot_surface` with
-               the port's solver) on plane n200, ntime 31, tol 1e-4, 100
+               which runs the port's `interface.run_dot_surface` with the
+               port's solver) on plane n200, ntime 31, tol 1e-4, 100
                iterations, float32, on the card. Checks: the CG phi-solve
                with f64 refinement ran, every inner matvec launched the
                kernel, the KKT values are finite, the stop-set error at the
@@ -32,12 +36,14 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                TF32 would be ~1e-3 off).
 6. sharded_kernel -- kernel B2 at plane n200 in 2 blocked shards (the
                main path's shapes) and in 4 (the port's `build_problem`, in
-               this process): on every shard the kernel against its plain
-               version on the card, and the shards assembled through the
-               inverse window permute against the f64 ELL L @ x on the host,
-               each within 1e-5 * max|y|. The exports' all-gather is a
-               concatenation here: the phase tests the kernel, not the
-               collective. Times per shard-call as phase 3.
+               this process): on every shard the kernel, which gathers its
+               window from the shard's state and the export buffer, against
+               its plain version on the window vector, and the shards
+               assembled through the inverse window permute against the f64
+               ELL L @ x on the host, each within 1e-5 * max|y|. The
+               exports' all-gather is a concatenation here: the phase tests
+               the kernel, not the collective. Times, bound and library call
+               per shard-call as phase 3.
 7. sharded_slice -- the sharded main path: 2 ranks (spawned processes,
                torchrun's environment) run the port's CLI on plane n200,
                ntime 31, float32, --mesh_shape 1x2, 100 iterations; backend
@@ -51,9 +57,10 @@ Phases, in order; each prints one JSON line, and a failing phase raises
 Then the kernel summary line, the `nvidia-smi` name and power-limit line,
 and the result line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Only the port (`dots_socp_torch`) is imported here, and nothing imports
-jax; the port itself reuses the jax-free host modules of dots_socp_tpu
-(geometry, data loading, interface).
+Only the port (`dots_socp_torch`) is imported here. The port keeps its own
+copies of the host modules (geometry, data loading, interface), so neither
+`jax` nor the JAX package `dots_socp_tpu` is imported, here or in the ranks
+of phase 7: the script checks `sys.modules` and fails otherwise.
 """
 
 from __future__ import annotations
@@ -62,19 +69,24 @@ import json
 import multiprocessing
 import os
 import socket
-import subprocess
 import sys
 import time
 
 import numpy as np
-import scipy.sparse as sp
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 import dots_socp_torch.ops.sharded_window as sharded_window
 import dots_socp_torch.ops.window_spmv as window_spmv
 from dots_socp_torch import cli
+from dots_socp_torch.bench_kernels import (
+    device_ms,
+    ell_laplacian,
+    library_ms,
+    median_call_ms,
+    nvidia_smi_line,
+    shard_inputs,
+    window_bound,
+)
 from dots_socp_torch.ops import _build
 from dots_socp_torch.ops.laplacian import CG_COUNTERS, SpectralFactor, spectral_solve
 from dots_socp_torch.solver.problem import build_problem
@@ -98,65 +110,32 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def ell_laplacian(cg_op):
-    """The (V, V) float64 cotan Laplacian, on the host, from the CG
-    operator's padded-ELL arrays (padding slots hold 0.0)."""
-    idx = cg_op.ell_idx.cpu().numpy()
-    w = cg_op.ell_w_hi.cpu().numpy()
-    v = idx.shape[0]
-    rows = np.repeat(np.arange(v), idx.shape[1])
-    return sp.csr_matrix((w.ravel(), (rows, idx.ravel())), shape=(v, v))
-
-
 def mass_conservation_error(mu):
     """RMS over time layers of each layer's total mass minus 1."""
     mass = np.asarray(mu, dtype=np.float64).sum(axis=1)
     return float(np.sqrt(np.mean((mass - 1.0) ** 2)))
 
 
-def median_call_ms(fn, reps=REPS):
-    """Median time of one call of `fn`, from the start of its first kernel
-    to the end of its last (CUDA events around each call, synchronised
-    between calls, so the host's launch overhead is inside)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+def forbidden_imports():
+    """Modules of jax or of the JAX package that this process has imported."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "dots_socp_tpu"))
 
 
-def device_ms(fn, reps=REPS):
-    """Device time per call of `fn`: the durations of the GPU kernels it
-    launches over `reps` warm calls (torch.profiler), summed and divided by
-    `reps`; returns (total ms, {kernel name: ms})."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-    if not by_name:
-        raise RuntimeError("torch.profiler recorded no device kernels")
-    return sum(by_name.values()), by_name
+def kernel_times(kernel, plain, kernel_name):
+    """Device and call times of a wrapper and its plain version; the wrapper
+    must be one launch of `kernel_name` and nothing else (no transpose, no
+    gather)."""
+    ms_kernel, kernels = device_ms(kernel, REPS)
+    ms_plain, _ = device_ms(plain, REPS)
+    if len(kernels) != 1 or kernel_name not in next(iter(kernels)):
+        raise AssertionError(f"the wrapper launched {sorted(kernels)}, not {kernel_name} alone")
+    return {
+        "device_us": {"wrapper": ms_kernel * 1e3, "plain": ms_plain * 1e3,
+                      "by_kernel": {k[:60]: t * 1e3 for k, t in kernels.items()}},
+        "call_us": {"wrapper": median_call_ms(kernel, REPS) * 1e3,
+                    "plain": median_call_ms(plain, REPS) * 1e3},
+    }
 
 
 def phase_device():
@@ -198,22 +177,22 @@ def phase_kernel(card):
     err_kr = float(np.abs(yk - y_ref).max())
     err_pr = float(np.abs(yp - y_ref).max())
     scale = float(np.abs(y_ref).max())
-    kernel = lambda: window_spmv.window_matvec(wop, xp)
-    plain = lambda: window_spmv.window_matvec_plain(wop, xp)
-    ms_kernel, kernels = device_ms(kernel)
-    ms_plain, _ = device_ms(plain)
+    times = kernel_times(lambda: window_spmv.window_matvec(wop, xp),
+                         lambda: window_spmv.window_matvec_plain(wop, xp), "window_spmv_kernel")
+    bound = window_bound(wop, v, N_TIME + 1, v)
+    lib_ms = library_ms(wop, xp, v)
     emit("kernel", shape=[N_TIME + 1, v], meta={"tile_rows": wop.tile_rows, "width": wop.width,
-         "nnz_width": int(wop.lcol.shape[1]), "tiles": -(-v // wop.tile_rows)},
+         "nnz_width": wop.nnz_width, "nnz_pad": int(wop.lcol.shape[1]),
+         "tiles": -(-v // wop.tile_rows)},
          max_abs_err_vs_plain=err_kp, max_abs_err_kernel_vs_f64=err_kr,
-         max_abs_err_plain_vs_f64=err_pr, max_abs_y=scale,
-         device_us={"wrapper": ms_kernel * 1e3, "plain": ms_plain * 1e3,
-                    "by_kernel": {k[:60]: t * 1e3 for k, t in kernels.items()}},
-         call_us={"wrapper": median_call_ms(kernel) * 1e3, "plain": median_call_ms(plain) * 1e3},
-         card=card)
-    bound = KERNEL_TOL * scale
-    if not (err_kp <= bound and err_kr <= bound and err_pr <= bound):
-        raise AssertionError(f"window kernel disagrees: {err_kp}, {err_kr}, {err_pr} > {bound}")
-    return {"max_abs_err": err_kp, "ms": ms_kernel, "plain_ms": ms_plain}
+         max_abs_err_plain_vs_f64=err_pr, max_abs_y=scale, **times,
+         library_us=lib_ms * 1e3, bound_us=bound["ms"] * 1e3, bound=bound, card=card)
+    tol = KERNEL_TOL * scale
+    if not (err_kp <= tol and err_kr <= tol and err_pr <= tol):
+        raise AssertionError(f"window kernel disagrees: {err_kp}, {err_kr}, {err_pr} > {tol}")
+    return {"max_abs_err": err_kp, "ms": times["device_us"]["wrapper"] / 1e3,
+            "plain_ms": times["device_us"]["plain"] / 1e3, "bound_ms": bound["ms"],
+            "bound_by": bound["by"], "library_ms": lib_ms}
 
 
 def run_cli(n_space, nit, extra=()):
@@ -303,44 +282,44 @@ def phase_sharded_kernel(card, n_shards):
     lap = ell_laplacian(data.cg_op)
     v_pad = lap.shape[0]
     v_chunk = v_pad // n_shards
-    x = np.random.default_rng(2).standard_normal((N_TIME + 1, v_pad)).astype(np.float32)
-    shards = [sharded_window.shard_of(sw_all, s, "cuda") for s in range(n_shards)]
-    xs = [sharded_window.window_permute(sw, torch.from_numpy(x[:, s * v_chunk:(s + 1) * v_chunk]).cuda())
-          for s, sw in enumerate(shards)]
-    # Every shard's exports, as the all-gather would concatenate them.
-    buf = torch.cat([xl[..., sw.exp_codes] for sw, xl in zip(shards, xs)], dim=-1)
+    # Every shard's state in window order, and the exports as the all-gather
+    # would concatenate them.
+    x, shards, xs, buf = shard_inputs(sw_all, n_shards)
     y_ref = (lap @ x.astype(np.float64).T).T
     scale = float(np.abs(y_ref).max())
     per_shard, ys, err_kp = [], [], 0.0
     for sw, xl in zip(shards, xs):
         xw = sharded_window.window_vector(sw, xl, buf)
-        y_kernel = sharded_window.shard_spmv(sw, xw)
+        y_kernel = sharded_window.shard_spmv(sw, xl, buf)
         y_plain = sharded_window.sharded_window_matvec_plain(sw, xw)
         torch.cuda.synchronize()
         err_kp = max(err_kp, float((y_kernel - y_plain).abs().max()))
         ys.append(sharded_window.window_permute(sw, y_kernel, inverse=True).cpu().numpy())
-        kernel = lambda: sharded_window.shard_spmv(sw, xw)
-        plain = lambda: sharded_window.sharded_window_matvec_plain(sw, xw)
-        ms_kernel, kernels = device_ms(kernel)
-        ms_plain, _ = device_ms(plain)
+        times = kernel_times(lambda: sharded_window.shard_spmv(sw, xl, buf),
+                             lambda: sharded_window.sharded_window_matvec_plain(sw, xw),
+                             "sharded_window_spmv_kernel")
+        bound = window_bound(sw, v_chunk, N_TIME + 1,
+                             v_chunk + buf.shape[-1] + sw.win_codes.shape[0])
         per_shard.append({
-            "rows": int(sw.state_in.shape[0]), "Nw": int(sw.win_codes.shape[0]),
-            "Wb": int(sw.exp_codes.shape[0]),
-            "device_us": {"wrapper": ms_kernel * 1e3, "plain": ms_plain * 1e3,
-                          "by_kernel": {k[:60]: t * 1e3 for k, t in kernels.items()}},
-            "call_us": {"wrapper": median_call_ms(kernel) * 1e3, "plain": median_call_ms(plain) * 1e3},
+            "rows": v_chunk, "Nw": int(sw.win_codes.shape[0]), "Wb": int(sw.exp_codes.shape[0]),
+            **times, "library_us": library_ms(sw, xw, v_chunk) * 1e3,
+            "bound_us": bound["ms"] * 1e3, "bound": bound,
         })
     err_kr = float(np.abs(np.concatenate(ys, axis=-1) - y_ref).max())
     emit("sharded_kernel", shards=n_shards, shape=[N_TIME + 1, v_pad],
          meta={"tile_rows": shards[0].tile_rows, "width": shards[0].width,
-               "nnz_width": int(shards[0].lcol.shape[1]), "tiles": -(-v_chunk // shards[0].tile_rows)},
+               "nnz_width": shards[0].nnz_width, "nnz_pad": int(shards[0].lcol.shape[1]),
+               "tiles": -(-v_chunk // shards[0].tile_rows)},
          per_shard=per_shard, max_abs_err_vs_plain=err_kp, max_abs_err_kernel_vs_f64=err_kr,
          max_abs_y=scale, card=card)
-    bound = KERNEL_TOL * scale
-    if not (err_kp <= bound and err_kr <= bound):
-        raise AssertionError(f"sharded window kernel disagrees: {err_kp}, {err_kr} > {bound}")
-    mean = lambda key: float(np.mean([p["device_us"][key] for p in per_shard])) / 1e3
-    return {"max_abs_err": err_kp, "ms": mean("wrapper"), "plain_ms": mean("plain")}
+    tol = KERNEL_TOL * scale
+    if not (err_kp <= tol and err_kr <= tol):
+        raise AssertionError(f"sharded window kernel disagrees: {err_kp}, {err_kr} > {tol}")
+    mean = lambda pick: float(np.mean([pick(p) for p in per_shard])) / 1e3
+    return {"max_abs_err": err_kp, "ms": mean(lambda p: p["device_us"]["wrapper"]),
+            "plain_ms": mean(lambda p: p["device_us"]["plain"]),
+            "bound_ms": mean(lambda p: p["bound_us"]), "bound_by": per_shard[0]["bound"]["by"],
+            "library_ms": mean(lambda p: p["library_us"])}
 
 
 def _free_port() -> int:
@@ -364,6 +343,7 @@ def _slice_rank(rank, world, port, backend, results):
             **stats, "launches": sharded_window.KERNEL_LAUNCHES,
             "b1_launches": window_spmv.KERNEL_LAUNCHES, "cg": dict(vars(CG_COUNTERS)),
             "kkt": history.kkt_errors, "mass_err": mass_conservation_error(solution["mu"]),
+            "forbidden_imports": forbidden_imports(),
         }))
     except BaseException as err:  # reported to the parent, which fails
         results.put((rank, {"error": repr(err)}))
@@ -417,6 +397,8 @@ def phase_sharded_slice(card, kkt_unsharded):
             raise AssertionError(f"rank {rank}: stop-set error {stop[0]} -> {stop[-1]}: not halved")
         if not np.isfinite(out["mass_err"]):
             raise AssertionError(f"rank {rank}: mass conservation error is not finite")
+        if out["forbidden_imports"]:
+            raise AssertionError(f"rank {rank} imported {out['forbidden_imports']}")
         if not out["kkt_rel_vs_unsharded"] <= SLICE_KKT_RTOL:
             raise AssertionError(f"rank {rank}: KKT {kkt[-1]} vs unsharded {kkt_unsharded}")
     return sum(c[1]["launches"] for c in checks)
@@ -433,13 +415,13 @@ def main():
     sharded, *others = (phase_sharded_kernel(card, n) for n in SHARDS_KERNEL)
     sharded["max_abs_err"] = max(r["max_abs_err"] for r in [sharded, *others])
     sharded_launches = phase_sharded_slice(card, kkt_unsharded)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    if forbidden_imports():
+        raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
     print(json.dumps({"kernels": [{
         "name": "window_spmv",
         "route": "cuda",
         "source": "dots_socp_torch/ops/csrc/window_spmv.cu",
-        "replaces": "dots_socp_tpu/ops/pallas_spmv.py:221",
+        "replaces": "dots_socp_tpu/ops/pallas_spmv.py:333",
         "launches": launches,
         **kernel,
     }, {

@@ -10,9 +10,11 @@ space-sharded mesh of one process per shard (`parallel/`, over
 torch.distributed). Plain tensor work is PyTorch; the JAX package's Pallas
 kernel (the windowed cotan-Laplacian SpMV of the matrix-free CG phi-solve),
 in its single-device (B1) and per-shard (B2) forms, is hand-written CUDA
-C++ for Hopper (`ops/csrc/window_spmv.cu`). The jax-free host modules of
-the JAX package (geometry, data, models, config, utils, interface) are
-reused by import; nothing here imports `jax`.
+C++ for Hopper (`ops/csrc/window_spmv.cu`). The host modules (geometry,
+data, models, config, utils, interface, the CLI's parser) are the port's own
+copies of the JAX package's, under the same names; nothing here imports
+`jax` or `dots_socp_tpu`. Only the data files are shared: they are read where
+they lie (`config/path_config.toml`).
 
 Public API, the same contract as the JAX package:
   solver(n_time, geometry, device="cuda", **kw) -> (SolutionDotData, RunningHistory)

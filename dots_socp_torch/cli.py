@@ -1,8 +1,9 @@
 """Command-line interface of the port.
 
-The reference's flags (`dots_socp_tpu.cli.parse_args`) plus `--device` and
-`--dist_backend`; the solve goes through the reference's
-`interface.run_dot_surface` with the port's solver. Run as
+The flags of the JAX package's CLI (`parse_args` is the port's own copy of
+`dots_socp_tpu/cli.py::parse_args`) plus `--device` and `--dist_backend`;
+the solve goes through the port's `interface.run_dot_surface` with the
+port's solver. Run as
 
     python -m dots_socp_torch.cli --example plane --n_space 200 --ntime 31 \
         --tol 1e-4 --precision float32 --device cuda
@@ -14,21 +15,21 @@ A space-sharded solve runs one process per shard under torchrun:
 
 (`gloo` shares one card between the ranks; `nccl` needs one card per
 rank). `--num_processes`, `--process_id` and `--coordinator_address`
-replace torchrun's environment. The interface would hand --mesh_shape and
-the distributed flags to JAX, so they are handled here, before
-`run_dot_surface`. A mesh time axis > 1, --profile_dir and --snapshot are
+replace torchrun's environment. --mesh_shape and the distributed flags are
+handled here, before `run_dot_surface`: the mesh is bound into the solver
+the interface calls. A mesh time axis > 1, --profile_dir and --snapshot are
 not ported yet (ROADMAP.md) and are rejected.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import logging
 
 import torch.distributed as dist
-
-from dots_socp_tpu.cli import parse_args
+from numpy import inf as np_inf
 
 _UNPORTED = (
     ("profile_dir", "--profile_dir"),
@@ -37,8 +38,268 @@ _UNPORTED = (
 _DIST_FLAGS = ("coordinator_address", "num_processes", "process_id")
 
 
-def build_parser():
-    parser = parse_args(return_parser=True)
+class CheckArgsRangeTau(argparse.Action):
+    def __call__(self, arg_parser, namespace, values, option_string=None):
+        if not (0.0 < float(values) < 2.0):
+            raise argparse.ArgumentError(
+                self, f"tau must be in range (0.0, 2.0), but got {values}"
+            )
+        setattr(namespace, self.dest, values)
+
+
+class CheckArgsPowerPerceptual(argparse.Action):
+    def __call__(self, arg_parser, namespace, values, option_string=None):
+        if not float(values) > 0.0:
+            raise argparse.ArgumentError(
+                self, f"power_perceptual must be > 0.0, but got {values}"
+            )
+        setattr(namespace, self.dest, values)
+
+
+def parse_args(parser=None, return_parser=False):
+    """Build (and optionally return) the argument parser."""
+    if parser is None:
+        parser = argparse.ArgumentParser(
+            description="Solve dynamic optimal transport on a triangulated surface and animate the transported density."
+        )
+
+    example_group = parser.add_argument_group(
+        "Example configuration",
+        "Pick a built-in problem with --example, or supply your own mesh and "
+        "density settings with --mesh_file/--setting_file.",
+    )
+    example_group.add_argument(
+        "--example",
+        default=None,
+        type=str,
+        help="Name of a built-in problem (plane, airplane, armadillo, hand, "
+        "bunny, sphere, ring, punctured_ball, knots_3, knots_5, hills, "
+        "robot, eight, face, audi, square_regular, and their refined_* "
+        "variants)",
+    )
+    example_group.add_argument(
+        "--mesh_file", default=None, type=str, help="Path to a surface mesh in .off format"
+    )
+    example_group.add_argument(
+        "--setting_file", default=None, type=str, help="Path to a density-settings module (.py defining get_mu)"
+    )
+    example_group.add_argument(
+        "--congestion", default=0.0, type=float, help="Congestion penalty weight; 0 disables the congestion term"
+    )
+    example_group.add_argument(
+        "--ntime", default=31, type=int, help="Number of time steps on the staggered grid"
+    )
+
+    algo_group = parser.add_argument_group("Algorithm parameters")
+    algo_group.add_argument(
+        "--tau",
+        type=float,
+        default=None,
+        action=CheckArgsRangeTau,
+        help="Over-relaxation step size for the multiplier ascent, in (0, 2)",
+    )
+    algo_group.add_argument("--nit", default=10**3, type=int, help="Iteration cap for the iALM loop")
+    algo_group.add_argument(
+        "--eps",
+        default=0.0,
+        type=float,
+        help="Proximal regularization added to the phi-step Laplacian",
+    )
+    algo_group.add_argument(
+        "--tol", default=10 ** (-3), type=float, help="Relative KKT error at which the solve stops"
+    )
+    algo_group.add_argument(
+        "--time_limit",
+        default=np_inf,
+        type=float,
+        help="Abort after this many seconds, returning the best iterate",
+    )
+    algo_group.add_argument(
+        "--precision",
+        default=None,
+        choices=["float32", "float64"],
+        help="Solver dtype (default: float32)",
+    )
+    algo_group.add_argument(
+        "--laplacian_mode",
+        default=None,
+        choices=["auto", "spectral", "cg"],
+        help="Space-time Laplacian solver: dense spectral factor or "
+        "matrix-free CG (default: auto by mesh size)",
+    )
+    algo_group.add_argument(
+        "--phi_refine",
+        default="auto",
+        choices=["auto", "on", "off"],
+        help="Mixed-precision phi: f64 state.phi + f64 iterative refinement "
+        "around the f32 inner CG (auto: on for the unsharded float32 CG "
+        "path, where the f32 true-residual floor blocks tight tolerances)",
+    )
+
+    output_group = parser.add_argument_group("Output options")
+    output_group.add_argument(
+        "--show", default=False, action="store_true", help="Open an interactive window with the density animation"
+    )
+    output_group.add_argument(
+        "--save", default=False, action="store_true", help="Write the density animation to the output directory"
+    )
+    output_group.add_argument(
+        "--cmap", default=None, type=str, help="Colormap name used when rendering the density"
+    )
+    output_group.add_argument(
+        "--power_perceptual",
+        default=1.0,
+        type=float,
+        action=CheckArgsPowerPerceptual,
+        help="Exponent applied to densities before coloring (1.0 = linear)",
+    )
+    output_group.add_argument(
+        "--detail_runhist",
+        default=False,
+        action="store_true",
+        help="Validate KKT and record the objective every iteration (slow)",
+    )
+    output_group.add_argument(
+        "--show_kkt_it",
+        "--show_kkt",
+        default=False,
+        action="store_true",
+        help="Plot the KKT residuals against the iteration count",
+    )
+    output_group.add_argument(
+        "--save_kkt_it",
+        "--save_kkt",
+        default=False,
+        action="store_true",
+        help="Write the KKT-vs-iteration plot to the output directory",
+    )
+    output_group.add_argument(
+        "--show_kkt_time",
+        default=False,
+        action="store_true",
+        help="Plot the KKT residuals against wall-clock time",
+    )
+    output_group.add_argument(
+        "--save_kkt_time",
+        default=False,
+        action="store_true",
+        help="Write the KKT-vs-time plot to the output directory",
+    )
+    output_group.add_argument(
+        "-o", "--outdir", default="output/undated", type=str, help="Directory for saved animations, plots and tables"
+    )
+    output_group.add_argument(
+        "--log_file", default=None, type=str, help="Also tee the log to this file (log2table input)"
+    )
+
+    dist_group = parser.add_argument_group(
+        "Distributed execution",
+        "Place the solver on a ('time', 'space') mesh of one process per "
+        "shard (torchrun, or the same command line per process plus "
+        "--process_id).",
+    )
+    dist_group.add_argument(
+        "--mesh_shape",
+        default=None,
+        type=str,
+        help="Device mesh as TxS or a bare shard count S (= 1xS, pure "
+        "spatial sharding; a time axis > 1 is not ported); default: single "
+        "device",
+    )
+    dist_group.add_argument(
+        "--coordinator_address",
+        default=None,
+        type=str,
+        help="host:port of process 0 for torch.distributed (replaces "
+        "torchrun's MASTER_ADDR / MASTER_PORT)",
+    )
+    dist_group.add_argument(
+        "--num_processes",
+        default=None,
+        type=int,
+        help="Total process count of the multi-host run",
+    )
+    dist_group.add_argument(
+        "--process_id",
+        default=None,
+        type=int,
+        help="This process's rank in [0, num_processes)",
+    )
+
+    exp_group = parser.add_argument_group("Experimental features")
+    exp_group.add_argument(
+        "--log_level",
+        type=str,
+        choices=["debug", "kkt", "scaling", "info"],
+        default="info",
+        help="Verbosity: info < scaling < kkt < debug (each adds detail)",
+    )
+    exp_group.add_argument(
+        "--versus_exact",
+        default=False,
+        action="store_true",
+        help="After solving, measure errors against the closed-form transport "
+        "(settings module must define get_exact_transportation)",
+    )
+    exp_group.add_argument(
+        "--checkpoints",
+        default=None,
+        nargs="+",
+        type=float,
+        help="KKT levels at which intermediate solutions are snapshotted for "
+        "the --versus_exact error table",
+    )
+    exp_group.add_argument(
+        "--n_space",
+        type=int,
+        default=None,
+        help="Resolution parameter n for procedurally generated meshes "
+        "(e.g. the plane example)",
+    )
+    exp_group.add_argument(
+        "--sigma_freeze_error",
+        type=float,
+        default=None,
+        help="Freeze sigma adjustments (sticky) once the KKT stop error "
+        "first drops below this level; breaks the sigma limit cycle on "
+        "large meshes (try 20*tol). Default: never freeze",
+    )
+    exp_group.add_argument(
+        "--snapshot",
+        dest="snapshot_path",
+        type=str,
+        default=None,
+        help="Path to a .npz state snapshot: written periodically during the "
+        "solve, and resumed from if it already exists",
+    )
+    exp_group.add_argument(
+        "--snapshot_every",
+        type=float,
+        default=300.0,
+        help="Seconds between periodic snapshots (with --snapshot)",
+    )
+    exp_group.add_argument(
+        "--profile_dir",
+        type=str,
+        default=None,
+        help="Capture a device trace of the solve into this directory (not "
+        "ported yet: rejected)",
+    )
+    exp_group.add_argument(
+        "--pad_multiple",
+        type=int,
+        default=None,
+        help="Pad vertex/triangle counts to this multiple (default 8, as "
+        "the JAX package pads)",
+    )
+    exp_group.add_argument(
+        "--max_dense_vertices",
+        type=int,
+        default=None,
+        help="Largest padded vertex count solved with the dense spectral "
+        "factor; larger problems take the matrix-free CG path",
+    )
+
     parser.add_argument(
         "--device",
         default="cuda",
@@ -52,7 +313,10 @@ def build_parser():
         help="torch.distributed backend of a --mesh_shape 1xS solve (S > 1): "
         "nccl (one card per rank) or gloo (the ranks may share one card)",
     )
-    return parser
+
+    if return_parser:
+        return parser
+    return parser.parse_args()
 
 
 def device_solver(device, mesh=None):
@@ -70,8 +334,8 @@ def device_solver(device, mesh=None):
 def load_geometry(example, n_space=None):
     """The geometry the solver receives for a built-in example at
     resolution `n_space`: loaded and normalized as `main` does it."""
-    from dots_socp_tpu.data.loader import load_example
-    from dots_socp_tpu.geometry.normalize import normalize_geometry
+    from dots_socp_torch.data.loader import load_example
+    from dots_socp_torch.geometry.normalize import normalize_geometry
 
     _, geometry, _ = load_example(example, kwargs_generating_mesh={"n": n_space})
     return normalize_geometry(geometry)[0]
@@ -123,21 +387,21 @@ def main(argv=None):
     interface returns: (solution, geometry, run_history), plus the errors
     with --versus_exact. On a mesh every rank returns the whole solution;
     only rank 0 logs."""
-    from dots_socp_tpu.interface import (
+    from dots_socp_torch.interface import (
         print_example_info,
         run_dot_surface,
         run_dot_surface_versus_exact,
         set_logging_level,
     )
 
-    parser = build_parser()
+    parser = parse_args(return_parser=True)
     args = parser.parse_args(argv)
     for attr, flag in _UNPORTED:
         if getattr(args, attr, None) is not None:
             parser.error(f"{flag} is not ported to dots_socp_torch yet (see ROADMAP.md)")
     group_was_up = dist.is_initialized()
     mesh = _solver_mesh(parser, args)
-    # The interface would bring up JAX for these; the mesh above replaces them.
+    # The mesh above carries these; the interface takes none of them.
     for attr in ("mesh_shape",) + _DIST_FLAGS:
         setattr(args, attr, None)
     quiet = contextlib.ExitStack()

@@ -21,7 +21,7 @@ from dots_socp_torch.ops import resolve_device
 from dots_socp_torch.ops.laplacian import CGOperator, SpectralFactor
 from dots_socp_torch.ops.mesh_ops import SurfaceOps
 from dots_socp_torch.ops.sharded_window import ShardedWindow, sharded_window_to_torch
-from dots_socp_torch.ops.window_spmv import WindowOperator
+from dots_socp_torch.ops.window_spmv import WindowOperator, compress_rows
 from dots_socp_torch.parallel.halo import HaloTables
 from dots_socp_torch.solver.problem import ProblemConfig, ProblemData
 from dots_socp_torch.solver.state import SolverState
@@ -49,19 +49,11 @@ def _convert(nt, cls, device, dtype, skip=()):
 
 
 def _compress_tiles(a_tiles):
-    """(lcol, vals) of dense window tiles: each row's nonzeros in column
-    order, padded to the widest row with (0, 0.0)."""
+    """(lcol, vals, D) of dense window tiles: each row's nonzeros in column
+    order, padded with (0, 0.0) as the port's builders pad them."""
     a_tiles = np.asarray(a_tiles, dtype=np.float32)
-    n_rows = a_tiles.shape[0]
     rows, cols = np.nonzero(a_tiles)  # row-major: columns ascend in a row
-    counts = np.bincount(rows, minlength=n_rows)
-    d = max(int(counts.max(initial=0)), 1)
-    slots = np.arange(rows.size) - np.repeat(np.cumsum(counts) - counts, counts)
-    lcol = np.zeros((n_rows, d), dtype=np.int32)
-    vals = np.zeros((n_rows, d), dtype=np.float32)
-    lcol[rows, slots] = cols
-    vals[rows, slots] = a_tiles[rows, cols]
-    return lcol, vals
+    return compress_rows(rows, cols, a_tiles[rows, cols], a_tiles.shape[0])
 
 
 def window_from_reference(wop, device="cpu") -> WindowOperator:
@@ -72,7 +64,7 @@ def window_from_reference(wop, device="cpu") -> WindowOperator:
     sub_off = np.asarray(wop.sub_off, dtype=np.int64)
     n_tiles = sub_off.shape[0]
     group = n_tiles // starts.shape[0]
-    lcol, vals = _compress_tiles(a_tiles)
+    lcol, vals, d = _compress_tiles(a_tiles)
     f32 = lambda a: torch.as_tensor(np.array(a, dtype=np.float32), device=device)
     return WindowOperator(
         tile_start=torch.as_tensor(
@@ -88,6 +80,7 @@ def window_from_reference(wop, device="cpu") -> WindowOperator:
         defl_q_p=f32(wop.defl_q_p),
         tile_rows=a_tiles.shape[0] // n_tiles,
         width=a_tiles.shape[1],
+        nnz_width=d,
     )
 
 
@@ -100,12 +93,12 @@ def sharded_window_from_reference(swop, device="cpu") -> ShardedWindow:
     n_parts, n_tiles = sub_off.shape
     group = n_tiles // starts.shape[1]
     parts = [_compress_tiles(a) for a in a_tiles]
-    d = max(lc.shape[1] for lc, _ in parts)
-    pad = lambda a: np.pad(a, ((0, 0), (0, d - a.shape[1])))
+    dp = max(lc.shape[1] for lc, _, _ in parts)
+    pad = lambda a: np.pad(a, ((0, 0), (0, dp - a.shape[1])))
     host = ShardedWindow(
         tile_start=np.repeat(starts, group, axis=1) + sub_off,
-        lcol=np.stack([pad(lc) for lc, _ in parts]),
-        vals=np.stack([pad(v) for _, v in parts]),
+        lcol=np.stack([pad(lc) for lc, _, _ in parts]),
+        vals=np.stack([pad(v) for _, v, _ in parts]),
         exp_codes=swop.exp_codes,
         win_codes=swop.win_codes,
         state_in=swop.state_in,
@@ -117,6 +110,7 @@ def sharded_window_from_reference(swop, device="cpu") -> ShardedWindow:
         real_p=swop.real_p,
         tile_rows=a_tiles.shape[1] // n_tiles,
         width=a_tiles.shape[2],
+        nnz_width=max(d for _, _, d in parts),
     )
     return sharded_window_to_torch(host, device)
 

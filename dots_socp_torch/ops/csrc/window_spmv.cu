@@ -1,129 +1,314 @@
 // Windowed cotan-Laplacian SpMV for Hopper (sm_90a): kernels B1 and B2.
 //
-// B1 (window_spmv_kernel) replaces the TPU kernel
+// B1 (dots_window_spmv_f32) replaces the TPU kernel
 // dots_socp_tpu/ops/pallas_spmv.py::_window_kernel: y = P L P^T x, the
 // matvec of every inner iteration of the matrix-free CG phi-solve on one
-// device. B2 (sharded_window_spmv_kernel) replaces the same body under
+// device. B2 (dots_sharded_window_spmv_f32) replaces the same body under
 // shard_map in dots_socp_tpu/ops/sharded_window.py::sharded_window_matvec:
 // on one space shard, y = L_s x_w, the shard's rows of the Laplacian times
-// its window vector x_w (the shard's own values and the all-gathered
-// boundary exports of the others, gathered into extended-RCM order by the
-// wrapper). The two differ only in their bounds: B1's rows and window
-// vector both have V entries; B2's rows are the shard's v_chunk vertices
-// and its window vector has Nw >= v_chunk entries.
+// its window vector x_w = [own state ++ all-gathered exports ++ 0][codes].
+// One body serves both; B2 differs in where a window element comes from.
 //
-// What is kept: the window. Rows are cut into tiles of TV rows, and every
-// column a tile touches lies inside one window of W consecutive positions
-// of the window vector starting at tile_start[t]. A block streams its
-// tile's x window into shared memory once; every read of x for the tile's
-// rows then hits shared memory.
-//
-// What is dropped: the dense zeros. The TPU kernel multiplied dense (TV, W)
-// tiles on its matrix unit, because Mosaic has no global gather. At plane
-// n200 (V=46,431, TV=256, W=664) a row has ~7 nonzeros among 664 columns:
-// the dense tiles are ~125 MB per matvec, the nonzeros ~2.6 MB. Here each row
-// keeps only its nonzeros, as (window-local column, value) pairs padded to a
-// fixed width D with (0, 0.0).
+// What is kept of the TPU kernel: the window. Rows are cut into tiles of TV
+// rows, and every column a tile touches lies inside one window of W
+// consecutive positions of the window vector starting at tile_start[t].
+// What is dropped: the dense (TV, W) tiles (the TPU has no gather). Each row
+// keeps only its nonzeros, as (window-local column, value) pairs padded with
+// (0, 0.0) to a row width DP that is a multiple of 4.
 //
 // What bounds it on an H100: bytes, not operations (2 flops per 4-byte
-// value read). Per B1 matvec at n200: ~2.6 MB of L, ~15 MB of x windows (the
-// windows of consecutive tiles overlap, so most of it comes from L2), and
-// 5.9 MB of y; a B2 shard reads its share of each. The design reads each x
-// element of a window from device memory once per tile (coalesced 128-byte
-// rows of the vertex-major x), keeps the gather inside shared memory, and
-// writes y as coalesced 128-byte rows.
+// value). x and y must move once (rows * lanes * 4 B each) and L once
+// (rows * DP * 8 B); on top, the windows of consecutive tiles overlap, so
+// the staged bytes (tiles * W * lanes * 4 B, mostly from L2) are 2-3x the
+// size of x. The tile model picks TV so that the tiles fill the 132 SMs in one
+// wave with as few staged bytes as that allows (ops/window_spmv.py).
 //
-// Layout: one block per (tile t, group of 32 time modes). The block stages
-// x[tile_start[t] : +W, 32 modes] (vertex-major x of shape (n_cols, lanes))
-// into shared memory as win[W][32], zero past n_cols or past the last mode.
-// Warp w of n_warps then takes rows r = w, w + n_warps, ... of the tile;
-// lane l owns mode l and accumulates sum_k vals[r,k] * win[lcol[r,k]][l] in
-// FP32 on the CUDA cores. Lanes read consecutive shared-memory words (no
-// bank conflicts) and write consecutive words of y. No tensor cores, no
-// TF32, no atomics: each y entry is written by one thread.
+// Design, one block per (tile, group of 32 modes), phases staging ->
+// arithmetic -> output:
 //
-// Each warp walks its rows one after another, a chain of dependent loads,
-// so the kernel is bound by latency when a block has many rows per warp.
-// B1 runs 8 warps on 182 tiles of 256 rows (plane n200). A B2 shard has
-// 1/S of the rows, so its builder's tiles (512 rows, picked for the fewest
-// staged bytes) leave only ~23 blocks per shard at S=4: B2 runs 32 warps
-// per block, four times B1's, to cut the rows each warp walks.
+// * Modes-major in and out. x is (lanes, n_cols) as the CG holds it and y is
+//   (lanes, n_rows): no transpose before or after, one launch per matvec.
+//   A tile's window is 32 strips of W contiguous floats; its output leaves
+//   as 32 strips of TV contiguous floats.
+// * Staging. The tile's (lcol, vals) block is contiguous and 16-byte
+//   aligned: thread 0 fetches it with two bulk asynchronous copies
+//   (cp.async.bulk) that complete on an mbarrier, while every warp stages
+//   the window. The window strips start at x + m * n_cols + tile_start, and
+//   n_cols (46,431 at plane n200) is not a multiple of 4, so no strip but
+//   the first is 16-byte aligned: neither the bulk form nor 16-byte cp.async
+//   can take them, and per-strip offsets that restore the alignment put the
+//   modes of a warp's read into 8 banks instead of 32. So the strips come in
+//   through registers: a warp takes 32 consecutive floats of a strip (one
+//   coalesced 128-byte request) for 16 modes, all 16 loads in flight before
+//   the first store. The same path gathers B2's window through its codes,
+//   which removes the cat + gather launches from the wrapper. Measured per
+//   block on an H100 (phase_clocks.py, plane n200, TV = 352): the staging
+//   takes 8.0k clocks with 16 loads in flight, 7.4k with 8 and 7.7k with 4,
+//   while B2's gather, which has a dependent load first, takes 6.5k / 7.9k /
+//   11.2k at 4 shards. Variants tried and dropped staged the same tile no
+//   faster: 4-byte cp.async (a warp got one copy through per ~230 clocks),
+//   and 16-byte loads of aligned chunks with rotated stores; taking the
+//   loads or the stores out of the loop did not shorten it either. The phase
+//   is bound by the instruction stream of the block's few warps, not by L2
+//   or shared memory.
+// * Shared-memory layout win[mode][P], P = W | 1 odd. Staging writes 32
+//   consecutive words; the arithmetic reads win[lane][col], word
+//   lane * P + col, which is a different bank for every lane because P is
+//   odd. The output tile ytile[mode][TV + 1] reuses the window's memory.
+// * Lanes are modes (the 32 lanes of a warp hold the 32 modes of one row),
+//   not rows: a row's column is then one broadcast value and the window
+//   read has no bank conflict whatever the mesh ordering; lanes-as-rows
+//   would gather 32 unrelated columns from one strip and collide. A warp
+//   owns 16 consecutive rows (8 in a tile of up to 192 rows, whose block
+//   then has twice the warps to hide the staging's latency and still
+//   leaves room for a second block on the SM) and works on 4 at a time:
+//   their (column, value) pairs come from shared memory as 16-byte vector
+//   loads, the loop over the row width is unrolled (template on D; D = 7
+//   reads DP = 8), and 4 independent FMA chains are in flight. Each row is
+//   summed in slot order by one thread per mode: no atomics, no tensor
+//   cores, no TF32, so the result does not depend on scheduling or on TV.
+// * More than 32 modes: blockIdx.y walks the mode groups; the groups of one
+//   tile read the same (lcol, vals) block.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kModes = 32;          // time modes per block: one per warp lane
-constexpr int kThreadsB1 = 256;     // 8 warps
-constexpr int kThreadsB2 = 1024;    // 32 warps
+constexpr int kModes = 32;        // time modes per block: one per warp lane
+constexpr int kRowsPerWarp = 16;  // rows one warp owns: 16, or 8 in a small tile
+constexpr int kSmallTile = 192;   // up to here a block runs TV / 8 warps, else TV / 16
+constexpr int kRowBatch = 4;      // rows a warp accumulates at a time
+#ifndef DOTS_STAGE_MODES
+#define DOTS_STAGE_MODES 16
+#endif
+constexpr int kStageModes = DOTS_STAGE_MODES;  // window loads a thread keeps in flight
+constexpr int kStageSplit = kModes / kStageModes;
 constexpr int kMaxDevices = 64;
 
-// One block's tile: rows [tile * tile_rows, +tile_rows) below n_rows, the
-// window staged from the first n_cols rows of x.
-template <int kThreads>
-__device__ __forceinline__ void window_tile(
-    const float* __restrict__ x, const int* __restrict__ tile_start,
-    const int* __restrict__ lcol, const float* __restrict__ vals,
-    float* __restrict__ y, int n_rows, int n_cols, int lanes, int tile_rows,
-    int width, int nnz_width) {
-  constexpr int kWarps = kThreads / 32;
-  extern __shared__ float win[];  // [width][kModes]
+// With -DDOTS_PHASE_CLOCKS thread 0 of each of the first 1024 tiles records
+// the SM clocks from its start to the end of each phase (staged, computed,
+// output tile written, stored); phase_clocks.py builds that variant and reads
+// them back. Without it the macro is empty.
+#ifdef DOTS_PHASE_CLOCKS
+constexpr int kClockTiles = 1024;
+__device__ long long dots_phase_clocks[kClockTiles * 4];
+#define DOTS_PHASE(i)                                                          \
+  if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.x < kClockTiles)         \
+  dots_phase_clocks[blockIdx.x * 4 + (i)] = clock64() - phase_t0
+#else
+#define DOTS_PHASE(i)
+#endif
+
+struct Args {
+  const float* x;          // (lanes, n_own) own values (B1: the whole vector)
+  const float* buf;        // (lanes, n_buf) gathered exports (B2), else null
+  const int* codes;        // (n_window) window position -> source (B2), else null
+  const int* tile_start;   // (n_tiles)
+  const int* lcol;         // (n_tiles * tile_rows, dp)
+  const float* vals;       // (n_tiles * tile_rows, dp)
+  float* y;                // (lanes, n_rows)
+  int n_rows, n_own, n_buf, n_window, lanes, tile_rows, width, pitch, dp;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One row's dot product with the staged window of this lane's mode, summed
+// in slot order. D > 0: D slots unrolled, read as (D + 3) / 4 vector loads.
+// D == 0: all dp slots (padding slots hold (0, 0.0) and add nothing).
+template <int D>
+__device__ __forceinline__ float row_dot(const int* __restrict__ rc,
+                                         const float* __restrict__ rv,
+                                         const float* __restrict__ wl, int dp) {
+  float acc = 0.0f;
+  if constexpr (D > 0) {
+    constexpr int kVec = (D + 3) / 4;
+    int c[4 * kVec];
+    float v[4 * kVec];
+#pragma unroll
+    for (int q = 0; q < kVec; ++q) {
+      const int4 cc = reinterpret_cast<const int4*>(rc)[q];
+      const float4 vv = reinterpret_cast<const float4*>(rv)[q];
+      c[4 * q] = cc.x, c[4 * q + 1] = cc.y, c[4 * q + 2] = cc.z, c[4 * q + 3] = cc.w;
+      v[4 * q] = vv.x, v[4 * q + 1] = vv.y, v[4 * q + 2] = vv.z, v[4 * q + 3] = vv.w;
+    }
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc = fmaf(v[k], wl[c[k]], acc);
+  } else {
+    for (int q = 0; q < dp / 4; ++q) {
+      const int4 cc = reinterpret_cast<const int4*>(rc)[q];
+      const float4 vv = reinterpret_cast<const float4*>(rv)[q];
+      acc = fmaf(vv.x, wl[cc.x], acc);
+      acc = fmaf(vv.y, wl[cc.y], acc);
+      acc = fmaf(vv.z, wl[cc.z], acc);
+      acc = fmaf(vv.w, wl[cc.w], acc);
+    }
+  }
+  return acc;
+}
+
+// One block's tile. kFused: window elements are gathered through `codes`
+// from x and buf (B2); else the window is x[:, tile_start : tile_start + W]
+// (B1).
+template <int D, bool kFused>
+__device__ __forceinline__ void window_tile(const Args& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [mbarrier, 16 B][lcol TV*dp][vals TV*dp][window 32*P, reused as ytile 32*(TV+1)]
+  uint64_t* bar_ptr = reinterpret_cast<uint64_t*>(smem);
+  int* s_lcol = reinterpret_cast<int*>(smem + 16);
+  float* s_vals = reinterpret_cast<float*>(s_lcol + a.tile_rows * a.dp);
+  float* win = s_vals + a.tile_rows * a.dp;
+
   const int tile = blockIdx.x;
   const int mode0 = blockIdx.y * kModes;
-  const int start = tile_start[tile];
+  const int n_modes = min(kModes, a.lanes - mode0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int row0 = tile * a.tile_rows;
+  const int start = a.tile_start[tile];
+  const uint32_t bar = smem_addr(bar_ptr);
+#ifdef DOTS_PHASE_CLOCKS
+  const long long phase_t0 = clock64();
+#endif
 
-  // Stage the window. Element i is (row i / 32, mode i % 32): a warp loads
-  // one contiguous row of up to 32 modes.
-  for (int i = threadIdx.x; i < width * kModes; i += kThreads) {
-    const int v = start + i / kModes;
-    const int m = mode0 + i % kModes;
-    win[i] = (v < n_cols && m < lanes) ? x[(size_t)v * lanes + m] : 0.0f;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  const int mode = mode0 + lane;
-  const int row0 = tile * tile_rows;
-  for (int r = warp; r < tile_rows; r += kWarps) {
-    const int row = row0 + r;
-    if (row >= n_rows) break;
-    const int* rc = lcol + (size_t)row * nnz_width;
-    const float* rv = vals + (size_t)row * nnz_width;
-    float acc = 0.0f;
-    for (int k = 0; k < nnz_width; ++k) {
-      // Every lane reads the same (column, value): one broadcast load.
-      acc = fmaf(__ldg(rv + k), win[__ldg(rc + k) * kModes + lane], acc);
-    }
-    if (mode < lanes) y[(size_t)row * lanes + mode] = acc;
+  if (threadIdx.x == 0) {
+    // The tile's (lcol, vals): two contiguous, 16-byte aligned blocks.
+    const uint32_t bytes = static_cast<uint32_t>(a.tile_rows * a.dp * 4);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(2 * bytes)
+                 : "memory");
+    bulk_copy(s_lcol, a.lcol + static_cast<size_t>(row0) * a.dp, bytes, bar);
+    bulk_copy(s_vals, a.vals + static_cast<size_t>(row0) * a.dp, bytes, bar);
   }
+
+  // The window. A unit is 32 consecutive window positions (one per lane)
+  // times 16 modes; the warps share the units round-robin. A thread has its
+  // unit's 16 loads in flight before it stores the first.
+  const int n_units = ((a.width + 31) >> 5) * kStageSplit;
+  for (int u = warp; u < n_units; u += n_warps) {
+    const int j = (u / kStageSplit) * 32 + lane;
+    if (j >= a.width) continue;
+    const int pos = start + j;
+    const float* src = nullptr;  // stays null: the element is 0
+    size_t stride = a.n_own;
+    if constexpr (kFused) {
+      if (pos < a.n_window) {
+        const int code = __ldg(a.codes + pos);
+        if (code < a.n_own) {
+          src = a.x + code;
+        } else if (code < a.n_own + a.n_buf) {
+          src = a.buf + (code - a.n_own);
+          stride = a.n_buf;
+        }
+      }
+    } else {
+      if (pos < a.n_own) src = a.x + pos;
+    }
+    const int m_lo = (u % kStageSplit) * kStageModes;
+    float v[kStageModes];
+#pragma unroll
+    for (int i = 0; i < kStageModes; ++i) {
+      const bool live = src != nullptr && m_lo + i < n_modes;
+      v[i] = live ? __ldg(src + (mode0 + m_lo + i) * stride) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kStageModes; ++i) {
+      if (m_lo + i < n_modes) win[(m_lo + i) * a.pitch + j] = v[i];
+    }
+  }
+  mbarrier_wait(bar, 0);
+  __syncthreads();
+  DOTS_PHASE(0);
+
+  // Arithmetic: this warp's 16 rows, 4 at a time, lane = mode.
+  float acc[kRowsPerWarp];
+  const float* wl = win + lane * a.pitch;
+  const int rows_per_warp = a.tile_rows / n_warps;  // 8 or 16
+  const int r_lo = warp * rows_per_warp;
+#pragma unroll
+  for (int b = 0; b < kRowsPerWarp; b += kRowBatch) {
+    if (b < rows_per_warp) {  // block-uniform
+#pragma unroll
+      for (int i = 0; i < kRowBatch; ++i) {
+        const int r = r_lo + b + i;
+        acc[b + i] = row_dot<D>(s_lcol + r * a.dp, s_vals + r * a.dp, wl, a.dp);
+      }
+    }
+  }
+
+  // Output through shared memory: ytile[mode][TV + 1] over the window.
+  __syncthreads();
+  DOTS_PHASE(1);
+  float* ytile = win;
+  const int y_pitch = a.tile_rows + 1;
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    if (i < rows_per_warp) ytile[lane * y_pitch + r_lo + i] = acc[i];
+  }
+  __syncthreads();
+  DOTS_PHASE(2);
+  const int rows_here = min(a.tile_rows, a.n_rows - row0);
+  const int n_out = ((a.tile_rows + 31) >> 5) * 4;
+  for (int u = warp; u < n_out; u += n_warps) {
+    const int j = (u >> 2) * 32 + lane;
+    if (j >= rows_here) continue;
+    const int m_lo = (u & 3) * 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m_lo + i;
+      if (m < n_modes) {
+        a.y[static_cast<size_t>(mode0 + m) * a.n_rows + row0 + j] = ytile[m * y_pitch + j];
+      }
+    }
+  }
+  DOTS_PHASE(3);
 }
 
-// B1: one device, rows and window vector both V long.
-__global__ void __launch_bounds__(kThreadsB1)
-window_spmv_kernel(const float* __restrict__ x, const int* __restrict__ tile_start,
-                   const int* __restrict__ lcol, const float* __restrict__ vals,
-                   float* __restrict__ y, int n_vertices, int lanes,
-                   int tile_rows, int width, int nnz_width) {
-  window_tile<kThreadsB1>(x, tile_start, lcol, vals, y, n_vertices, n_vertices,
-                         lanes, tile_rows, width, nnz_width);
+// B1 and B2 under the names the profiler shows.
+template <int D, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads) window_spmv_kernel(const Args a) {
+  window_tile<D, false>(a);
 }
 
-// B2: one space shard, v_chunk rows over an Nw-long window vector.
-__global__ void __launch_bounds__(kThreadsB2)
-sharded_window_spmv_kernel(const float* __restrict__ xw,
-                           const int* __restrict__ tile_start,
-                           const int* __restrict__ lcol,
-                           const float* __restrict__ vals,
-                           float* __restrict__ y, int n_rows, int n_window,
-                           int lanes, int tile_rows, int width,
-                           int nnz_width) {
-  window_tile<kThreadsB2>(xw, tile_start, lcol, vals, y, n_rows, n_window,
-                         lanes, tile_rows, width, nnz_width);
+template <int D, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads) sharded_window_spmv_kernel(const Args a) {
+  window_tile<D, true>(a);
 }
 
 // Raises the kernel's dynamic shared-memory limit once per device, to the
-// widest window yet; returns the CUDA error (0 on success).
+// widest request yet; returns the CUDA error (0 on success).
 template <typename Kernel>
 cudaError_t grant_smem(Kernel kernel, int* granted, int smem) {
   int device = 0;
@@ -138,41 +323,84 @@ cudaError_t grant_smem(Kernel kernel, int* granted, int smem) {
   return cudaSuccess;
 }
 
+int threads_of(int tile_rows) {
+  return tile_rows / (tile_rows <= kSmallTile ? 8 : kRowsPerWarp) * 32;
+}
+
+template <int D, bool kFused, int kMaxThreads>
+int launch_variant(const Args& a, int n_tiles, cudaStream_t stream) {
+  static int granted[kMaxDevices] = {};  // bytes granted so far, per device
+  const int tile_floats = kModes * max(a.pitch, a.tile_rows + 1);
+  const int smem = 16 + a.tile_rows * a.dp * 8 + tile_floats * 4;
+  auto kernel = kFused ? sharded_window_spmv_kernel<D, kMaxThreads>
+                       : window_spmv_kernel<D, kMaxThreads>;
+  cudaError_t err = grant_smem(kernel, granted, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(n_tiles, (a.lanes + kModes - 1) / kModes);
+  // More warps hide more of the staging's latency, but a block of over 768
+  // threads leaves its SM no room for a second one: small tiles run a warp
+  // per 8 rows, large ones per 16.
+  const int threads = threads_of(a.tile_rows);
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tile_rows must be a multiple of 16 in [16, 512] and dp a multiple of 4 (so
+// that the block has whole warps of 8 or 16 rows and the vector loads are
+// aligned);
+// nnz is the widest row's nonzero count. The unrolled body serves the usual
+// mesh (nnz <= 7, dp = 8); any other width takes the run-time loop.
+template <bool kFused>
+int launch(Args a, int n_tiles, int nnz, void* stream) {
+  if (a.tile_rows < kRowsPerWarp || a.tile_rows > 512 || a.tile_rows % kRowsPerWarp != 0 ||
+      a.dp < 4 || a.dp % 4 != 0 || nnz > a.dp || a.width < 1 || n_tiles < 1 || a.lanes < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.pitch = a.width | 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool small = threads_of(a.tile_rows) <= 512;  // up to 128 registers each
+  if (a.dp == 8 && nnz <= 7) {
+    return small ? launch_variant<7, kFused, 512>(a, n_tiles, s)
+                 : launch_variant<7, kFused, 1024>(a, n_tiles, s);
+  }
+  return small ? launch_variant<0, kFused, 512>(a, n_tiles, s)
+               : launch_variant<0, kFused, 1024>(a, n_tiles, s);
+}
+
 }  // namespace
 
-// C entry points, bound with ctypes. x / xw and y are vertex-major
-// (rows, lanes) float32; tile_start (n_tiles,) int32; lcol / vals
-// (n_tiles*tile_rows, nnz_width). Each launches on `stream` of the current
-// device and returns cudaGetLastError() (0 on success); neither
+// C entry points, bound with ctypes. All arrays are contiguous; x, buf and y
+// are modes-major float32; tile_start (n_tiles,) and codes (n_window,) int32;
+// lcol / vals (n_tiles * tile_rows, dp). Each launches on `stream` of the
+// current device and returns cudaGetLastError() (0 on success); neither
 // synchronises.
 
-extern "C" int dots_window_spmv_f32(const float* x, const int* tile_start,
-                                    const int* lcol, const float* vals,
-                                    float* y, int n_vertices, int lanes,
-                                    int n_tiles, int tile_rows, int width,
-                                    int nnz_width, void* stream) {
-  static int granted[kMaxDevices] = {};  // bytes granted so far, per device
-  const int smem = width * kModes * (int)sizeof(float);
-  cudaError_t err = grant_smem(window_spmv_kernel, granted, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_tiles, (lanes + kModes - 1) / kModes);
-  window_spmv_kernel<<<grid, kThreadsB1, smem, (cudaStream_t)stream>>>(
-      x, tile_start, lcol, vals, y, n_vertices, lanes, tile_rows, width,
-      nnz_width);
-  return (int)cudaGetLastError();
+// B1: y (lanes, n_rows) = rows of L times x (lanes, n_cols).
+extern "C" int dots_window_spmv_f32(const float* x, const int* tile_start, const int* lcol,
+                                    const float* vals, float* y, int n_rows, int n_cols,
+                                    int lanes, int n_tiles, int tile_rows, int width, int dp,
+                                    int nnz, void* stream) {
+  Args a{x, nullptr, nullptr, tile_start, lcol, vals, y,
+         n_rows, n_cols, 0, n_cols, lanes, tile_rows, width, 0, dp};
+  return launch<false>(a, n_tiles, nnz, stream);
 }
 
-extern "C" int dots_sharded_window_spmv_f32(
-    const float* xw, const int* tile_start, const int* lcol, const float* vals,
-    float* y, int n_rows, int n_window, int lanes, int n_tiles, int tile_rows,
-    int width, int nnz_width, void* stream) {
-  static int granted[kMaxDevices] = {};
-  const int smem = width * kModes * (int)sizeof(float);
-  cudaError_t err = grant_smem(sharded_window_spmv_kernel, granted, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_tiles, (lanes + kModes - 1) / kModes);
-  sharded_window_spmv_kernel<<<grid, kThreadsB2, smem, (cudaStream_t)stream>>>(
-      xw, tile_start, lcol, vals, y, n_rows, n_window, lanes, tile_rows, width,
-      nnz_width);
-  return (int)cudaGetLastError();
+// B2: y (lanes, n_rows) = the shard's rows of L times its window vector,
+// gathered in the staging: window position p holds x[:, c] for c = codes[p]
+// < n_rows, buf[:, c - n_rows] for c < n_rows + n_buf, else 0.
+extern "C" int dots_sharded_window_spmv_f32(const float* x, const float* buf, const int* codes,
+                                            const int* tile_start, const int* lcol,
+                                            const float* vals, float* y, int n_rows, int n_buf,
+                                            int n_window, int lanes, int n_tiles, int tile_rows,
+                                            int width, int dp, int nnz, void* stream) {
+  Args a{x, buf, codes, tile_start, lcol, vals, y,
+         n_rows, n_rows, n_buf, n_window, lanes, tile_rows, width, 0, dp};
+  return launch<true>(a, n_tiles, nnz, stream);
 }
+
+#ifdef DOTS_PHASE_CLOCKS
+// Copies the first n recorded clocks (4 per tile) to the host.
+extern "C" int dots_phase_clocks_read(long long* out, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, dots_phase_clocks, n * sizeof(long long)));
+}
+#endif

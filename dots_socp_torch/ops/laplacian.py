@@ -385,7 +385,7 @@ def build_cg_operator(
     the kernel (<= 128) and the builder finds tiles; on every device (on
     the CPU its plain version runs). Otherwise the CG uses the ELL matvec.
 
-    spmv_tile_rows : rows per window tile (None: the builder picks 256/512).
+    spmv_tile_rows : rows per window tile (None: the tile model picks).
     refine : attach the float64 leaves of mixed-precision iterative
         refinement (`cg_solve`).
     shard_parts : the number of space shards of a blocked-layout problem
@@ -444,6 +444,7 @@ def build_cg_operator(
             defl_q=q,
             real=real,
             tile_rows=spmv_tile_rows,
+            n_modes=n_time + 1,
         )
         if built is None:
             log.info("sharded window SpMV: no tile candidate fits shared memory; "
@@ -451,13 +452,15 @@ def build_cg_operator(
         else:
             swindow = sharded_window_to_torch(built[0], device=device)
     elif windowed:
-        tiles = build_window_tiles(lap_space, tile_rows=spmv_tile_rows, coords=coords)
+        tiles = build_window_tiles(
+            lap_space, tile_rows=spmv_tile_rows, coords=coords, n_modes=n_time + 1
+        )
         if tiles is None:
             log.info("window SpMV: no tile candidate fits shared memory; CG uses the ELL matvec")
         else:
             log.info(
                 "window SpMV: ordering=%(ordering)s TV=%(tile_rows)d W=%(width)d "
-                "G=%(group)d Ws=%(super_width)d D=%(nnz_width)d",
+                "D=%(nnz_width)d tiles=%(tiles)d smem=%(smem_bytes)d B",
                 tiles.meta,
             )
             window = window_operator(
@@ -575,6 +578,11 @@ def cg_solve(
             op.s.to(work),
             ops.av.to(work),
         )
+    # (k, V), row-major: `coef @ defl_q.T` with the transposed view would
+    # come back column-major, and every CG vector after it (z, p, ap) would
+    # inherit that layout. The window kernels read the state modes-major,
+    # contiguous, in place; this copy, once per solve, keeps it so.
+    defl_qt = defl_q.t().contiguous()
     shifts_w = op.shifts.to(work)
     defl_winv_w = op.defl_winv.to(work)
     ell_w_work = op.ell_w.to(work)
@@ -614,7 +622,7 @@ def cg_solve(
         z = jacobi * r
         if has_deflation:
             coef = space_sum((s_vec[None, :] * r) @ defl_q, mesh)  # (T+1, k)
-            z = z + s_vec[None, :] * ((coef * defl_winv_w) @ defl_q.T)
+            z = z + s_vec[None, :] * ((coef * defl_winv_w) @ defl_qt)
         return z
 
     def row_thresh(b, tol):

@@ -46,7 +46,7 @@ def build_surface_ops(
     device="cpu",
 ) -> SurfaceOps:
     """Host-side assembly of the SurfaceOps arrays (NumPy), moved to device."""
-    from dots_socp_tpu.geometry.surface import (
+    from dots_socp_torch.geometry.surface import (
         build_incidence_table,
         triangle_quantities,
         vertex_areas,

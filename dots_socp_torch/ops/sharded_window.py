@@ -17,20 +17,22 @@ Per matvec, on the device:
 
   exports = x_local[exp_codes]                      # boundary values
   buf     = all_gather(exports)                     # the one collective
-  x_w     = [x_local ++ buf ++ 0][win_codes]        # window vector, Nw long
-  y       = kernel B2 on the shard's tiles          # (lead, v_chunk)
+  y       = kernel B2 on (x_local, buf)             # (lead, v_chunk)
 
-Kernel B2 (`csrc/window_spmv.cu::sharded_window_spmv_kernel`) has the
-body of B1 with the row count (v_chunk) apart from the window-vector
-length (Nw). As in B1, the TPU's dense (TV, W) tiles become each row's
-nonzeros as window-local (column, value) pairs, padded to width D, taken
-straight from the shard's CSR. The Mosaic-only parts of the reference
-builder (super-windows G / Ws, the VMEM budget, the 128-lane traffic model)
-are gone; TV is the candidate that stages the fewest bytes of x windows,
-summed over the shards, under Hopper's shared memory.
+Kernel B2 (`csrc/window_spmv.cu::dots_sharded_window_spmv_f32`) has the
+body of B1 and gathers its window vector in the staging: window position p
+of the shard holds [x_local ++ buf ++ 0][win_codes[p]], read by the kernel
+through `win_codes`, so no (lead, Nw) window vector is ever written. (The
+plain version builds it, `window_vector`.) As in B1, the TPU's dense
+(TV, W) tiles become each row's nonzeros as window-local (column, value)
+pairs, padded to a width DP that is a multiple of 4, taken straight from
+the shard's CSR. The Mosaic-only parts of the reference's construction
+(super-windows G / Ws, the VMEM budget, the 128-lane traffic model) are
+gone; TV comes from B1's tile model (`window_spmv.tile_cost`) on the
+widest shard.
 
-`shard_spmv` launches the kernel on a CUDA tensor and runs the plain
-version (`sharded_window_matvec_plain`) on a CPU tensor; nothing else picks
+`shard_spmv` launches the kernel on CUDA tensors and runs the plain
+version (`sharded_window_matvec_plain`) on CPU tensors; nothing else picks
 between them. `KERNEL_LAUNCHES` counts the kernel's launches.
 """
 
@@ -43,7 +45,14 @@ import numpy as np
 import torch
 
 from dots_socp_torch.ops.collectives import space_all_gather
-from dots_socp_torch.ops.window_spmv import MODE_GROUP, SMEM_BYTES
+from dots_socp_torch.ops.window_spmv import (
+    MODE_GROUP,
+    check_kernel_input,
+    check_kernel_tiles,
+    compress_rows,
+    tile_candidates,
+    tile_cost,
+)
 
 #: Launches of kernel B2 in this process (the wrapper adds one per launch;
 #: the plain version does not count).
@@ -58,12 +67,12 @@ class ShardedWindow(NamedTuple):
     shard's row of each and its (v_chunk,) block of the window-layout arrays.
 
     tile_start : (S, n_tiles) int32 window start of each tile of TV rows
-    lcol       : (S, n_tiles * TV, D) int32 window-local column of each
+    lcol       : (S, n_tiles * TV, DP) int32 window-local column of each
                  nonzero of compressed row r (0 on padding slots)
-    vals       : (S, n_tiles * TV, D) float32 matching values (0.0 padding)
+    vals       : (S, n_tiles * TV, DP) float32 matching values (0.0 padding)
     exp_codes  : (S, Wb) int64 compressed positions of the boundary values
                  each shard exports (padding repeats a valid position)
-    win_codes  : (S, Nw) int64 gather codes of the window vector: < v_chunk
+    win_codes  : (S, Nw) int32 gather codes of the window vector: < v_chunk
                  local compressed position, else v_chunk + owner * Wb +
                  rank in the gathered buffer; padding points at the zero slot
     state_in   : (S, v_chunk) int64 blocked-local index of the vertex at each
@@ -74,8 +83,9 @@ class ShardedWindow(NamedTuple):
                  real-vertex mask
     jacobi_p   : (T+1, V) float32 window-layout Jacobi preconditioner
     defl_q_p   : (V, k) float32 window-layout Ritz vectors
-    tile_rows  : TV
-    width      : W, the window rows one tile stages
+    tile_rows  : TV, a multiple of 16
+    width      : W, the window positions one tile stages
+    nnz_width  : D, the widest row's nonzero count (DP = D rounded up to 4)
     """
 
     tile_start: torch.Tensor
@@ -92,6 +102,11 @@ class ShardedWindow(NamedTuple):
     real_p: torch.Tensor
     tile_rows: int
     width: int
+    nnz_width: int
+
+
+#: The trailing fields of ShardedWindow that are plain ints, not arrays.
+_N_SCALARS = 3
 
 
 def _rcm_positions(rows_csr, n_local, n_ext):
@@ -156,6 +171,7 @@ def build_sharded_window(
     defl_q: np.ndarray,
     real: np.ndarray,
     tile_rows: int | None = None,
+    n_modes: int = MODE_GROUP,
 ):
     """Host-side: per-shard extended-RCM ordering, compressed window tiles,
     exchange codes and window-layout preconditioner copies.
@@ -164,9 +180,10 @@ def build_sharded_window(
         owns rows [s * v_chunk, (s + 1) * v_chunk).
     av / jacobi / s_vec / defl_q / real : preconditioner arrays in blocked
         order, copied out in window layout.
-    tile_rows : TV; None picks from {256, 512} the one that stages the fewest
-        bytes (sum over shards of tiles x W), skipping any whose window
-        W x 32 modes x 4 B exceeds the shared memory of a block.
+    tile_rows : TV; None picks the candidate of `tile_candidates` with the
+        least `tile_cost` for one shard's rows and `n_modes` modes (every
+        shard runs on a card of its own), skipping any whose block exceeds
+        shared memory.
 
     Returns (ShardedWindow of numpy arrays for every shard, meta), or None
     when no candidate fits shared memory (the CG then uses the halo
@@ -221,20 +238,7 @@ def build_sharded_window(
         nw = max(nw, n_ext)
     nw = -(-nw // 8) * 8
 
-    # ---- TV: fewest staged bytes under the shared-memory limit ------------
-    best = None
-    for tv in (256, 512) if tile_rows is None else (int(tile_rows),):
-        geo = [_tile_starts(pos, ext, crank, v_chunk, tv) for pos, ext, _, crank in shards]
-        width = max(g[0] for g in geo)
-        if width * MODE_GROUP * 4 > SMEM_BYTES:
-            continue  # a tile's staged window would not fit shared memory
-        staged = n_parts * (-(-v_chunk // tv)) * width * 4  # bytes per time mode
-        if best is None or staged < best[0]:
-            best = (staged, tv, width, geo)
-    if best is None:
-        return None
-    staged, tv, width, geo = best
-    n_tiles = -(-v_chunk // tv)
+    # ---- TV: the tile model on one shard's rows ---------------------------
     # Each row keeps its nonzeros only (explicit zeros of the CSR dropped).
     kept = []
     for _, ext_rows, _, _ in shards:
@@ -242,11 +246,24 @@ def build_sharded_window(
         nz.eliminate_zeros()
         kept.append(nz)
     d = max(max(int(np.diff(nz.indptr).max(initial=0)), 1) for nz in kept)
+    dp = -(-d // 4) * 4
+    groups = -(-int(n_modes) // MODE_GROUP)
+    best = None
+    for tv in tile_candidates(v_chunk, groups, tile_rows):
+        geo = [_tile_starts(pos, ext, crank, v_chunk, tv) for pos, ext, _, crank in shards]
+        width = max(g[0] for g in geo)
+        cost = tile_cost(tv, width, -(-v_chunk // tv), d, groups)
+        if cost is not None and (best is None or cost < best[0]):
+            best = (cost, tv, width, geo)
+    if best is None:
+        return None
+    cost, tv, width, geo = best
+    n_tiles = -(-v_chunk // tv)
 
     # ---- assemble the arrays ----------------------------------------------
     tile_start = np.zeros((n_parts, n_tiles), dtype=np.int32)
-    lcol = np.zeros((n_parts, n_tiles * tv, d), dtype=np.int32)
-    vals = np.zeros((n_parts, n_tiles * tv, d), dtype=np.float32)
+    lcol = np.zeros((n_parts, n_tiles * tv, dp), dtype=np.int32)
+    vals = np.zeros((n_parts, n_tiles * tv, dp), dtype=np.float32)
     exp_codes = np.zeros((n_parts, wb), dtype=np.int64)
     win_codes = np.full((n_parts, nw), v_chunk + n_parts * wb, dtype=np.int64)
     state_in = np.zeros((n_parts, v_chunk), dtype=np.int64)
@@ -288,22 +305,23 @@ def build_sharded_window(
         cr = crank[np.repeat(np.arange(v_chunk), np.diff(nz.indptr))]
         lc = pos[nz.indices] - st[cr // tv]
         sort = np.lexsort((lc, cr))
-        cr, lc, data = cr[sort], lc[sort], nz.data[sort]
-        row_counts = np.bincount(cr, minlength=v_chunk)
-        slots = np.arange(cr.size) - np.repeat(np.cumsum(row_counts) - row_counts, row_counts)
-        lcol[s_id, cr, slots] = lc
-        vals[s_id, cr, slots] = data
+        lc_s, vals_s, _ = compress_rows(cr[sort], lc[sort], nz.data[sort], n_tiles * tv)
+        lcol[s_id, :, : lc_s.shape[1]] = lc_s
+        vals[s_id, :, : lc_s.shape[1]] = vals_s
 
     # Window-layout preconditioner copies (blocked index of each slot).
     perm_global = (np.arange(n_parts)[:, None] * v_chunk + state_in).reshape(-1)
     f32 = lambda a: np.asarray(a, dtype=np.float32)
+    c_order = np.ascontiguousarray  # `a[:, perm]` comes back column-major
     meta = {
         "tile_rows": int(tv),
         "width": int(width),
         "window": int(nw),
         "export_width": int(wb),
         "nnz_width": int(d),
-        "staged_bytes_per_mode": int(staged),
+        "nnz_pad": int(dp),
+        "tiles": int(n_tiles),
+        "model_clocks": float(cost),
     }
     sw = ShardedWindow(
         tile_start=tile_start,
@@ -314,12 +332,13 @@ def build_sharded_window(
         state_in=state_in,
         state_out=state_out,
         av_p=f32(av)[perm_global],
-        jacobi_p=f32(jacobi)[:, perm_global],
+        jacobi_p=c_order(f32(jacobi)[:, perm_global]),
         s_p=f32(s_vec)[perm_global],
         defl_q_p=f32(defl_q)[perm_global],
         real_p=f32(real)[perm_global],
         tile_rows=int(tv),
         width=int(width),
+        nnz_width=int(d),
     )
     logging.getLogger(__name__).info(
         "sharded window SpMV: S=%d TV=%d W=%d D=%d Nw=%d Wb=%d",
@@ -329,19 +348,19 @@ def build_sharded_window(
 
 
 def sharded_window_to_torch(sw: ShardedWindow, device="cpu") -> ShardedWindow:
-    """The builder's numpy arrays as tensors on `device` (int32 tile arrays
-    for the kernel, int64 gather codes, float32 values)."""
+    """`build_sharded_window`'s numpy arrays as tensors on `device` (int32 tile arrays
+    and window codes for the kernel, int64 index arrays, float32 values)."""
 
     def conv(name, a):
-        if name in ("tile_start", "lcol"):
+        if name in ("tile_start", "lcol", "win_codes"):
             return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
         a = np.asarray(a)
         if np.issubdtype(a.dtype, np.integer):
             return torch.as_tensor(a.astype(np.int64), device=device)
         return torch.as_tensor(a.astype(np.float32), device=device)
 
-    leaves = {n: conv(n, getattr(sw, n)) for n in ShardedWindow._fields[:-2]}
-    return ShardedWindow(**leaves, tile_rows=int(sw.tile_rows), width=int(sw.width))
+    leaves = {n: conv(n, getattr(sw, n)) for n in ShardedWindow._fields[:-_N_SCALARS]}
+    return sw._replace(**leaves)
 
 
 def shard_of(sw: ShardedWindow, rank: int, device=None) -> ShardedWindow:
@@ -377,16 +396,17 @@ def export_buffer(sw: ShardedWindow, mesh, x):
 
 def window_vector(sw: ShardedWindow, x, buf):
     """The shard's window vector (lead..., Nw) from its state x (lead...,
-    v_chunk, compressed window order) and the gathered export buffer."""
+    v_chunk, compressed window order) and the gathered export buffer. The
+    plain version's input; kernel B2 gathers the same values in its staging."""
     zero = x.new_zeros(x.shape[:-1] + (1,))
-    return torch.cat([x, buf, zero], dim=-1)[..., sw.win_codes]
+    return torch.cat([x, buf, zero], dim=-1)[..., sw.win_codes.long()]
 
 
 def sharded_window_matvec(sw: ShardedWindow, mesh, x):
     """P L P^T @ x on one shard: x (lead..., v_chunk) in compressed window
-    order -> y (lead..., v_chunk), same order. The exports' all-gather,
-    the window gather, then kernel B2 (or its plain version on the CPU)."""
-    return shard_spmv(sw, window_vector(sw, x, export_buffer(sw, mesh, x)))
+    order -> y (lead..., v_chunk), same order. The exports' all-gather, then
+    kernel B2 (or its plain version on the CPU)."""
+    return shard_spmv(sw, x, export_buffer(sw, mesh, x))
 
 
 def sharded_window_matvec_plain(sw: ShardedWindow, xw):
@@ -396,60 +416,53 @@ def sharded_window_matvec_plain(sw: ShardedWindow, xw):
     row, in float32."""
     v_chunk = sw.state_in.shape[-1]
     row_start = sw.tile_start.long().repeat_interleave(sw.tile_rows)[:v_chunk]
-    cols = row_start[:, None] + sw.lcol[:v_chunk].long()  # (v_chunk, D)
+    cols = row_start[:, None] + sw.lcol[:v_chunk].long()  # (v_chunk, DP)
     xf = xw.to(torch.float32)
     return (xf[..., cols] * sw.vals[:v_chunk]).sum(-1).to(xw.dtype)
 
 
-def shard_spmv(sw: ShardedWindow, xw):
-    """The shard's rows of L times its window vector xw (lead..., Nw); at
-    most 128 leading modes. On a CPU tensor: the plain version. On a CUDA
-    tensor: kernel B2, which takes float32 only; a refused launch raises."""
-    if xw.device.type == "cpu":
-        return sharded_window_matvec_plain(sw, xw)
-    if xw.device.type != "cuda":
-        raise ValueError(f"shard_spmv: unsupported device {xw.device}")
-    return _shard_spmv_cuda(sw, xw)
+def shard_spmv(sw: ShardedWindow, x, buf):
+    """The shard's rows of L times its window vector, given as the shard's
+    state x (lead..., v_chunk) and the gathered export buffer buf (lead...,
+    S * Wb); at most 128 leading modes. On CPU tensors: the plain version on
+    `window_vector(sw, x, buf)`. On CUDA tensors: kernel B2, which takes
+    contiguous float32 only and gathers the window itself; a refused launch
+    raises."""
+    if x.device != buf.device:
+        raise ValueError(f"shard_spmv: x on {x.device}, buf on {buf.device}")
+    if x.device.type == "cpu":
+        return sharded_window_matvec_plain(sw, window_vector(sw, x, buf))
+    if x.device.type != "cuda":
+        raise ValueError(f"shard_spmv: unsupported device {x.device}")
+    return _shard_spmv_cuda(sw, x, buf)
 
 
-def _shard_spmv_cuda(sw: ShardedWindow, xw):
+def _shard_spmv_cuda(sw: ShardedWindow, x, buf):
     global KERNEL_LAUNCHES
     from dots_socp_torch.ops import _build
 
-    if xw.dtype != torch.float32:
-        raise TypeError(f"sharded window kernel takes float32, got {xw.dtype}")
+    what = "sharded window kernel"
     v_chunk = sw.state_in.shape[-1]
-    nw = sw.win_codes.shape[-1]
-    lead = tuple(xw.shape[:-1])
-    lanes = int(np.prod(lead)) if lead else 1
-    if xw.shape[-1] != nw or lanes > 128:
-        raise ValueError(
-            f"sharded window kernel: xw of shape {tuple(xw.shape)} against Nw={nw}, "
-            "at most 128 leading modes"
-        )
-    for name, dtype in (("tile_start", torch.int32), ("lcol", torch.int32), ("vals", torch.float32)):
-        t = getattr(sw, name)
-        if t.device != xw.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"sharded window's {name} must be contiguous {dtype} on {xw.device}")
-    n_tiles = -(-v_chunk // sw.tile_rows)
-    if (sw.tile_start.dim() != 1 or sw.tile_start.shape[0] < n_tiles
-            or sw.lcol.shape[0] < n_tiles * sw.tile_rows or sw.vals.shape != sw.lcol.shape
-            or sw.width * MODE_GROUP * 4 > SMEM_BYTES):
-        raise ValueError("sharded window's arrays do not cover one shard's tiles, or W is too wide")
-    # Vertex-major (Nw, lanes) window vector: coalesced window rows.
-    xt = xw.reshape(lanes, nw).t().contiguous()
-    y = torch.empty((v_chunk, lanes), dtype=torch.float32, device=xw.device)
+    lead, lanes = check_kernel_input(what, x, v_chunk)
+    n_buf = buf.shape[-1] if buf.dim() else 0
+    if tuple(buf.shape[:-1]) != lead:
+        raise ValueError(f"{what}: buf of shape {tuple(buf.shape)} against x {tuple(x.shape)}")
+    check_kernel_input(what + " (export buffer)", buf, n_buf)
+    n_tiles = check_kernel_tiles(what, sw, v_chunk, x.device)
+    codes = sw.win_codes
+    if (codes.device != x.device or codes.dtype != torch.int32 or codes.dim() != 1
+            or not codes.is_contiguous()):
+        raise ValueError(f"{what}: win_codes must be one shard's contiguous int32 on {x.device}")
+    y = torch.empty_like(x)
     lib = _build.load()
-    with torch.cuda.device(xw.device):  # the C side launches on the current device
+    with torch.cuda.device(x.device):  # the C side launches on the current device
         err = lib.dots_sharded_window_spmv_f32(
-            xt.data_ptr(), sw.tile_start.data_ptr(), sw.lcol.data_ptr(),
-            sw.vals.data_ptr(), y.data_ptr(), v_chunk, nw, lanes, n_tiles,
-            sw.tile_rows, sw.width, sw.lcol.shape[1],
-            torch.cuda.current_stream(xw.device).cuda_stream,
+            x.data_ptr(), buf.data_ptr(), codes.data_ptr(), sw.tile_start.data_ptr(),
+            sw.lcol.data_ptr(), sw.vals.data_ptr(), y.data_ptr(), v_chunk, n_buf,
+            codes.shape[0], lanes, n_tiles, sw.tile_rows, sw.width, sw.lcol.shape[1],
+            sw.nnz_width, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"sharded window SpMV kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES += 1
-    if not lead:
-        return y[:, 0]
-    return y.t().reshape(lead + (v_chunk,))
+    return y

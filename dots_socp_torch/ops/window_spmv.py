@@ -1,12 +1,14 @@
 """Windowed cotan-Laplacian SpMV: the CG matvec, as a Hopper CUDA kernel.
 
 Counterpart of `dots_socp_tpu/ops/pallas_spmv.py`. The CG phi-solve runs in
-a vertex order (natural, RCM or PCA, picked by the builder) in which each
+a vertex order (natural, RCM or PCA, picked by `build_window_tiles`) in which each
 tile of TV consecutive rows touches only a window of W consecutive columns.
 The TPU kernel multiplied dense (TV, W) tiles on its matrix unit; the CUDA
 kernel (`csrc/window_spmv.cu`, which explains its design) stages each
 tile's x window in shared memory and keeps only the nonzeros of L, as
-window-local (column, value) pairs padded to a fixed row width D.
+window-local (column, value) pairs padded to a row width DP that is a
+multiple of 4. It reads x and writes y modes-major, (lanes, V), as the CG
+holds them: one launch per matvec, no transpose.
 
 `window_matvec` launches the kernel on a CUDA tensor and runs the plain
 PyTorch version (`window_matvec_plain`) on a CPU tensor; nothing else picks
@@ -27,32 +29,48 @@ KERNEL_LAUNCHES = 0
 #: Time modes per kernel block: one per warp lane.
 MODE_GROUP = 32
 
-#: Shared memory one block may use on Hopper (227 KB). A tile candidate
-#: whose staged window W * 32 modes * 4 B exceeds it is skipped.
+#: Shared memory one block may use on Hopper (227 KB).
 SMEM_BYTES = 232_448
 
-#: Lane width in the builder's traffic model. It is the reference's 128-lane
-#: TPU buffer; keeping the model unchanged makes the builder choose the same
-#: ordering, TV and G as `dots_socp_tpu.ops.pallas_spmv.build_window_tiles`.
-_MODEL_LANES = 128
+#: Streaming multiprocessors of an H100: the tile model fills them.
+SM_COUNT = 132
+
+#: A kernel block runs warps of 16 rows each (8 in tiles of up to 192 rows),
+#: at most 32 warps: TV is a multiple of 16 up to 512.
+ROWS_PER_WARP = 16
+MAX_TILE_ROWS = 512
+
+#: Tile sizes tried whatever the row count; `tile_candidates` adds the
+#: sizes that cut the rows into a whole number of waves over the SMs.
+_TILE_GRID = (64, 128, 256, 512)
+
+# The tile model, in SM clocks: a block costs a fixed start-up, its staged
+# bytes at the rate one SM draws from L2, and its rows' window reads at one
+# 128-byte shared-memory wavefront per nonzero slot; an SM runs its blocks
+# one after another. It ranks the tile sizes as a sweep on an H100 does
+# (python -m dots_socp_torch.bench_kernels --sweep; PERF.md): the sizes
+# that cut the rows into one wave over the SMs win.
+_BLOCK_CLOCKS = 1500.0
+_STAGE_BYTES_PER_CLOCK = 32.0
+_SLOT_CLOCKS = 1.0
 
 
 class WindowOperator(NamedTuple):
     """Compressed window form of the (V, V) cotan Laplacian, permuted.
 
-    tile_start : (n_pad,) int32 -- window start of each tile of TV rows
-                 (= starts[t // G] + sub_off[t] of the builder)
-    lcol       : (n_pad * TV, D) int32 -- window-local column of each
+    tile_start : (n_tiles,) int32 -- window start of each tile of TV rows
+    lcol       : (n_tiles * TV, DP) int32 -- window-local column of each
                  nonzero of permuted row r (0 on padding slots)
-    vals       : (n_pad * TV, D) float32 -- matching values (0.0 on padding)
+    vals       : (n_tiles * TV, DP) float32 -- matching values (0.0 on padding)
     perm       : (V,) int64 -- new position -> old index (x_p = x[:, perm])
     iperm      : (V,) int64 -- inverse permutation
     av_p       : (V,) permuted vertex areas (float32)
     jacobi_p   : (T+1, V) permuted Jacobi preconditioner (float32)
     s_p        : (V,) permuted av^{-1/2} (float32)
     defl_q_p   : (V, k) row-permuted Ritz vectors (float32)
-    tile_rows  : TV
-    width      : W, the rows of x one tile stages
+    tile_rows  : TV, a multiple of 16
+    width      : W, the window positions one tile stages
+    nnz_width  : D, the widest row's nonzero count (DP = D rounded up to 4)
     """
 
     tile_start: torch.Tensor
@@ -66,20 +84,13 @@ class WindowOperator(NamedTuple):
     defl_q_p: torch.Tensor
     tile_rows: int
     width: int
+    nnz_width: int
 
 
 class WindowTiles(NamedTuple):
-    """Host arrays of `build_window_tiles`.
+    """Host arrays of `build_window_tiles`: the ordering (`perm`, `iperm`),
+    the choice made (`meta`) and the compressed form the CUDA kernel reads."""
 
-    The first six fields are what the reference builder returns beside its
-    dense tiles (super-window `starts`, `sub_off`, super-window width `ws`,
-    `perm`, `iperm`, `meta`); the last three are the compressed form the
-    CUDA kernel reads.
-    """
-
-    starts: np.ndarray
-    sub_off: np.ndarray
-    ws: int
     perm: np.ndarray
     iperm: np.ndarray
     meta: dict
@@ -88,37 +99,105 @@ class WindowTiles(NamedTuple):
     vals: np.ndarray
 
 
-def _tile_width(p_csr, tv):
-    """Padded max window width over tv-row tiles of a permuted CSR matrix."""
+def smem_bytes(tile_rows: int, width: int, nnz_pad: int) -> int:
+    """Dynamic shared memory of one kernel block: the mbarrier, the tile's
+    (lcol, vals) block, and the window win[32][W | 1], whose memory the output
+    tile ytile[32][TV + 1] reuses."""
+    tile_floats = MODE_GROUP * max(width | 1, tile_rows + 1)
+    return 16 + tile_rows * nnz_pad * 8 + tile_floats * 4
+
+
+def tile_candidates(n_rows: int, groups: int = 1, tile_rows: int | None = None):
+    """Tile sizes `build_window_tiles` and `build_sharded_window` try: a
+    multiple of 16 (a block runs whole warps of 8 or 16 rows) up to 512. A pinned `tile_rows` is the only candidate."""
+    if tile_rows is not None:
+        tv = int(tile_rows)
+        if tv < ROWS_PER_WARP or tv > MAX_TILE_ROWS or tv % ROWS_PER_WARP:
+            raise ValueError(f"tile_rows must be a multiple of 16 in [16, 512], got {tv}")
+        return (tv,)
+    sizes = set(_TILE_GRID)
+    for waves in range(1, 5):
+        # The smallest tiles that still fit `waves` blocks on every SM.
+        per_block = -(-n_rows * groups // (SM_COUNT * waves))
+        tv = -(-per_block // ROWS_PER_WARP) * ROWS_PER_WARP
+        if _TILE_GRID[0] <= tv <= MAX_TILE_ROWS:
+            sizes.add(tv)
+    return tuple(sorted(sizes))
+
+
+def tile_cost(tile_rows, width, n_tiles, nnz, groups=1):
+    """Modelled clocks of one matvec on the busiest SM, or None when a block
+    does not fit shared memory. The blocks (tiles x mode groups) spread evenly
+    over the SMs; each costs its start-up, its staged bytes and its rows."""
+    nnz_pad = -(-max(nnz, 1) // 4) * 4
+    if smem_bytes(tile_rows, width, nnz_pad) > SMEM_BYTES:
+        return None
+    blocks_per_sm = -(-n_tiles * groups // SM_COUNT)
+    staged = width * MODE_GROUP * 4 + tile_rows * nnz_pad * 8
+    block = _BLOCK_CLOCKS + staged / _STAGE_BYTES_PER_CLOCK + tile_rows * nnz * _SLOT_CLOCKS
+    return blocks_per_sm * block
+
+
+def _tile_geometry(p_csr, tv):
+    """(padded max window width, per-tile window start) over tv-row tiles of
+    a permuted CSR matrix with sorted indices."""
     v = p_csr.shape[0]
     n_tiles = -(-v // tv)
-    width = 8  # never zero; a multiple of 8
-    for t in range(n_tiles):
-        lo, hi = t * tv, min((t + 1) * tv, v)
-        cols = p_csr.indices[p_csr.indptr[lo] : p_csr.indptr[hi]]
-        if cols.size:
-            width = max(width, int(cols.max()) - int(cols.min()) + 1)
-    return -(-width // 8) * 8
+    counts = np.diff(p_csr.indptr)
+    filled = counts > 0
+    big = np.iinfo(np.int64).max
+    lo = np.full(n_tiles * tv, big, dtype=np.int64)
+    hi = np.full(n_tiles * tv, -1, dtype=np.int64)
+    lo[:v][filled] = p_csr.indices[p_csr.indptr[:-1][filled]]
+    hi[:v][filled] = p_csr.indices[p_csr.indptr[1:][filled] - 1]
+    lo = lo.reshape(n_tiles, tv).min(axis=1)
+    hi = hi.reshape(n_tiles, tv).max(axis=1)
+    has = hi >= 0
+    width = int((hi[has] - lo[has] + 1).max(initial=8))  # never zero
+    st = np.where(has, lo, -1)
+    # Structurally empty tiles inherit a neighbouring tile's start.
+    for t in range(1, n_tiles):
+        if st[t] < 0:
+            st[t] = st[t - 1]
+    for t in range(n_tiles - 2, -1, -1):
+        if st[t] < 0:
+            st[t] = st[t + 1]
+    return -(-max(width, 8) // 8) * 8, np.maximum(st, 0)
+
+
+def compress_rows(rows, lcols, data, n_rows_pad):
+    """(lcol, vals, D): nonzeros given as (row, window-local column, value)
+    triples sorted by row then column, laid out one row per line and padded
+    with (0, 0.0) to DP = D rounded up to a multiple of 4, D the widest row."""
+    counts = np.bincount(rows, minlength=n_rows_pad)
+    d = max(int(counts.max(initial=0)), 1)
+    dp = -(-d // 4) * 4
+    slots = np.arange(rows.size) - np.repeat(np.cumsum(counts) - counts, counts)
+    lcol = np.zeros((n_rows_pad, dp), dtype=np.int32)
+    vals = np.zeros((n_rows_pad, dp), dtype=np.float32)
+    lcol[rows, slots] = lcols
+    vals[rows, slots] = np.asarray(data, dtype=np.float32)
+    return lcol, vals, d
 
 
 def build_window_tiles(
     lap_space,
     tile_rows: int | None = None,
     coords=None,
-    group: int | None = None,
+    n_modes: int = MODE_GROUP,
 ) -> WindowTiles | None:
     """Host-side: order the Laplacian for narrow windows and cut it into tiles.
 
-    The reference builder (`dots_socp_tpu/ops/pallas_spmv.py:90-218`) with
-    one rule changed: its 12 MiB TPU VMEM budget gives way to Hopper's shared
-    memory, so a candidate whose window W * 32 modes * 4 B exceeds 227 KB is
-    skipped. Candidate orderings are natural, reverse Cuthill-McKee and (with
-    `coords`) a sort along the dominant PCA axis; TV in {256, 512} and G in
-    {1, 2, 4} unless pinned. The cheapest candidate under the reference's
-    traffic model wins; its windows and tiles are the reference's (tested),
-    but each tile row keeps only its nonzeros, taken straight from the
-    permuted CSR. Returns None when no candidate fits; `cg_solve` then uses
-    the ELL matvec.
+    The candidate orderings are the reference's
+    (`dots_socp_tpu/ops/pallas_spmv.py:90-218`): natural, reverse
+    Cuthill-McKee and (with `coords`) a sort along the dominant PCA axis. Its
+    TPU traffic model, super-windows G and 12 MiB budget are gone: TV comes
+    from `tile_candidates` (or is pinned), and the (ordering, TV) with the
+    least `tile_cost` for `n_modes` modes wins, among those whose block fits
+    the 227 KB of shared memory. With TV pinned that is the ordering with the
+    narrowest window, as in the reference (tested tile for tile). Each tile
+    row keeps only its nonzeros, taken straight from the permuted CSR.
+    Returns None when no candidate fits; `cg_solve` then uses the ELL matvec.
     """
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
@@ -142,70 +221,28 @@ def build_window_tiles(
             c @ u[:, -1], kind="stable"
         ).astype(np.int64)
 
-    tv_grid = (256, 512) if tile_rows is None else (int(tile_rows),)
-    g_grid = (1, 2, 4) if group is None else (int(group),)
-
-    def tile_starts(p, tv):
-        n_tiles = -(-v // tv)
-        st = np.full(n_tiles, -1, dtype=np.int64)
-        for t in range(n_tiles):
-            lo, hi = t * tv, min((t + 1) * tv, v)
-            cols = p.indices[p.indptr[lo] : p.indptr[hi]]
-            if cols.size:
-                st[t] = int(cols.min())
-        # Structurally empty tiles inherit a neighbouring tile's start.
-        for t in range(1, n_tiles):
-            if st[t] < 0:
-                st[t] = st[t - 1]
-        for t in range(n_tiles - 2, -1, -1):
-            if st[t] < 0:
-                st[t] = st[t + 1]
-        return np.maximum(st, 0)
-
+    groups = -(-int(n_modes) // MODE_GROUP)
     best = None
     for name, cand in candidates.items():
+        # The windows span every stored entry (explicit zeros included, as
+        # in the reference); columns in order.
         p = csr[cand][:, cand].tocsr()
-        for tv in tv_grid:
-            w = _tile_width(p, tv)
-            if w * MODE_GROUP * 4 > SMEM_BYTES:
-                continue  # the staged window would not fit shared memory
-            st = tile_starts(p, tv)
-            n_tiles = st.shape[0]
-            for g in g_grid:
-                n_pad = -(-n_tiles // g) * g
-                stp = np.concatenate([st, np.repeat(st[-1:], n_pad - n_tiles)])
-                sup = stp.reshape(-1, g)
-                s_sup = sup.min(axis=1)
-                ws = int((sup - s_sup[:, None] + w).max())
-                ws = -(-ws // 8) * 8
-                traffic = v * w * 4 + s_sup.shape[0] * ws * _MODEL_LANES * 4
-                if best is None or traffic < best[0]:
-                    best = (traffic, name, cand, p, tv, w, g, st)
+        p.sort_indices()
+        nnz = max(int(np.diff(p.indptr).max(initial=0)), 1)
+        for tv in tile_candidates(v, groups, tile_rows):
+            w, st = _tile_geometry(p, tv)
+            cost = tile_cost(tv, w, st.shape[0], nnz, groups)
+            if cost is not None and (best is None or cost < best[0]):
+                best = (cost, name, cand, p, tv, w, st)
     if best is None:
         return None
-    traffic, name, perm, p, tv, width, g, st = best
+    cost, name, perm, p, tv, width, st = best
 
-    n_tiles = st.shape[0]
-    n_pad = -(-n_tiles // g) * g
-    st = np.concatenate([st, np.repeat(st[-1:], n_pad - n_tiles)])
-    starts = st.reshape(-1, g).min(axis=1).astype(np.int32)  # (n_super,)
-    sub_off = (st - np.repeat(starts.astype(np.int64), g)).astype(np.int32)
-    ws = int((st + width - np.repeat(starts.astype(np.int64), g)).max())
-    ws = -(-ws // 8) * 8
-
-    # Each permuted row's nonzeros in column order, at window-local columns,
-    # padded to the widest row with (0, 0.0).
-    p = p.copy()
+    # Each permuted row keeps its nonzeros only, in column order.
     p.eliminate_zeros()
-    p.sort_indices()
     counts = np.diff(p.indptr)
-    d = max(int(counts.max(initial=0)), 1)
     rows = np.repeat(np.arange(v), counts)
-    slots = np.arange(p.nnz) - np.repeat(p.indptr[:-1], counts)
-    lcol = np.zeros((n_pad * tv, d), dtype=np.int32)
-    vals = np.zeros((n_pad * tv, d), dtype=np.float32)
-    lcol[rows, slots] = p.indices - st[rows // tv]
-    vals[rows, slots] = p.data.astype(np.float32)
+    lcol, vals, d = compress_rows(rows, p.indices - st[rows // tv], p.data, st.shape[0] * tv)
 
     iperm = np.empty(v, dtype=np.int32)
     iperm[perm] = np.arange(v, dtype=np.int32)
@@ -213,15 +250,13 @@ def build_window_tiles(
         "ordering": name,
         "tile_rows": int(tv),
         "width": int(width),
-        "group": int(g),
-        "super_width": int(ws),
-        "traffic_bytes": int(traffic),
-        "nnz_width": int(lcol.shape[1]),
+        "nnz_width": int(d),
+        "nnz_pad": int(lcol.shape[1]),
+        "tiles": int(st.shape[0]),
+        "smem_bytes": smem_bytes(tv, width, lcol.shape[1]),
+        "model_clocks": float(cost),
     }
     return WindowTiles(
-        starts=starts,
-        sub_off=sub_off,
-        ws=ws,
         perm=perm.astype(np.int32),
         iperm=iperm,
         meta=meta,
@@ -240,7 +275,10 @@ def window_operator(
     perm = np.asarray(tiles.perm, dtype=np.int64)
 
     def f32(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+        # C order: `a[:, perm]` comes back column-major from numpy, and the CG
+        # vectors computed from such a leaf would inherit its layout, while
+        # the kernel reads the CG state modes-major, contiguous.
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=device)
 
     def idx(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -257,6 +295,7 @@ def window_operator(
         defl_q_p=f32(np.asarray(defl_q)[perm]),
         tile_rows=int(tiles.meta["tile_rows"]),
         width=int(tiles.meta["width"]),
+        nnz_width=int(tiles.meta["nnz_width"]),
     )
 
 
@@ -275,7 +314,7 @@ def window_matvec(op: WindowOperator, x):
     """P L P^T @ x for x (..., V) in permuted order; at most 128 leading modes.
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel, which
-    takes float32 only; a refused launch raises.
+    takes contiguous float32 only; a refused launch raises.
     """
     if x.device.type == "cpu":
         return window_matvec_plain(op, x)
@@ -284,42 +323,58 @@ def window_matvec(op: WindowOperator, x):
     return _window_matvec_cuda(op, x)
 
 
+def check_kernel_input(what, x, n_last):
+    """The kernels' common input contract: contiguous float32 of shape
+    (..., n_last) with at most 128 leading modes. Returns (lead shape, lanes)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32, got {x.dtype}")
+    lead = tuple(x.shape[:-1])
+    lanes = int(np.prod(lead)) if lead else 1
+    if x.dim() == 0 or x.shape[-1] != n_last or not 1 <= lanes <= 128:
+        raise ValueError(
+            f"{what}: x of shape {tuple(x.shape)} against a last axis of {n_last}, "
+            "1 to 128 leading modes"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"{what} reads x modes-major in place: it must be contiguous")
+    return lead, lanes
+
+
+def check_kernel_tiles(what, op, n_rows, device):
+    """The tile arrays of a window operator (B1's or one shard's of B2)
+    against what the kernel reads; returns the tile count."""
+    for name, dtype in (("tile_start", torch.int32), ("lcol", torch.int32), ("vals", torch.float32)):
+        t = getattr(op, name)
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {dtype} on {device}")
+    n_tiles = -(-n_rows // op.tile_rows)
+    dp = op.lcol.shape[-1]
+    if (op.tile_start.dim() != 1 or op.tile_start.shape[0] < n_tiles or op.lcol.dim() != 2
+            or op.lcol.shape[0] < n_tiles * op.tile_rows or op.vals.shape != op.lcol.shape
+            or dp % 4 or op.nnz_width > dp or op.tile_rows % ROWS_PER_WARP
+            or not ROWS_PER_WARP <= op.tile_rows <= MAX_TILE_ROWS
+            or smem_bytes(op.tile_rows, op.width, dp) > SMEM_BYTES):
+        raise ValueError(f"{what}: the tile arrays do not cover the rows, or do not fit a block")
+    return n_tiles
+
+
 def _window_matvec_cuda(op: WindowOperator, x):
     global KERNEL_LAUNCHES
     from dots_socp_torch.ops import _build
 
-    if x.dtype != torch.float32:
-        raise TypeError(f"window kernel takes float32, got {x.dtype}")
     v = op.perm.shape[0]
-    lead = tuple(x.shape[:-1])
-    lanes = int(np.prod(lead)) if lead else 1
-    if x.shape[-1] != v or lanes > 128:
-        raise ValueError(
-            f"window kernel: x of shape {tuple(x.shape)} against V={v}, "
-            "at most 128 leading modes"
-        )
-    for name, dtype in (("tile_start", torch.int32), ("lcol", torch.int32), ("vals", torch.float32)):
-        t = getattr(op, name)
-        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"window operator's {name} must be contiguous {dtype} on {x.device}")
-    n_tiles = -(-v // op.tile_rows)
-    if (op.tile_start.shape[0] < n_tiles or op.lcol.shape[0] < n_tiles * op.tile_rows
-            or op.vals.shape != op.lcol.shape or op.width * MODE_GROUP * 4 > SMEM_BYTES):
-        raise ValueError("window operator's arrays do not cover its tiles, or W is too wide")
-    # Vertex-major (V, lanes) for coalesced window rows, as the reference
-    # transposes at pallas_spmv.py:309-312.
-    xt = x.reshape(lanes, v).t().contiguous()
-    y = torch.empty((v, lanes), dtype=torch.float32, device=x.device)
+    lead, lanes = check_kernel_input("window kernel", x, v)
+    n_tiles = check_kernel_tiles("window kernel", op, v, x.device)
+    y = torch.empty_like(x)
     lib = _build.load()
     with torch.cuda.device(x.device):  # the C side launches on the current device
         err = lib.dots_window_spmv_f32(
-            xt.data_ptr(), op.tile_start.data_ptr(), op.lcol.data_ptr(),
-            op.vals.data_ptr(), y.data_ptr(), v, lanes, n_tiles, op.tile_rows,
-            op.width, op.lcol.shape[1], torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), op.tile_start.data_ptr(), op.lcol.data_ptr(),
+            op.vals.data_ptr(), y.data_ptr(), v, v, lanes, n_tiles, op.tile_rows,
+            op.width, op.lcol.shape[1], op.nnz_width,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"window SpMV kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES += 1
-    if not lead:
-        return y[:, 0]
-    return y.t().reshape(lead + (v,))
+    return y

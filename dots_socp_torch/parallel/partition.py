@@ -1,8 +1,8 @@
 """Host-side blocked mesh layout for shard-local space sharding.
 
 Counterpart of `dots_socp_tpu/parallel/partition.py`, copied as numpy-only
-code: importing the original runs `dots_socp_tpu/parallel/__init__.py`,
-which imports jax. Computed once per problem:
+code (the port imports nothing of the JAX package). Computed once per
+problem:
 
   * a BFS-blocked vertex ordering (contiguous graph-connected blocks, one per
     space shard, each padded to a common chunk size);
@@ -13,8 +13,8 @@ which imports jax. Computed once per problem:
     reductions from [local block ++ gathered halo buffer] only.
 
 The consumers are `parallel.halo` (one all-gather of the exported entries
-per gather or reduce) and `ops.sharded_window`. The BFS partitioner is the
-JAX package's jax-free `geometry.native.bfs_partition`.
+per gather or reduce) and `ops.sharded_window`. The BFS partitioner is
+`geometry.native.bfs_partition`.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from dots_socp_tpu.geometry.native import bfs_partition
+from dots_socp_torch.geometry.native import bfs_partition
 
 
 class BlockedLayout(NamedTuple):

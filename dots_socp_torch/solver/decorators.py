@@ -13,8 +13,8 @@ from typing import Tuple
 import numpy as np
 
 from dots_socp_torch.solver.socp import solver_socp
-from dots_socp_tpu.utils.history import RunningHistory
-from dots_socp_tpu.utils.types import (
+from dots_socp_torch.utils.history import RunningHistory
+from dots_socp_torch.utils.types import (
     GeometryData,
     SolutionDotData,
     translate_solution_socp_to_dot,

@@ -25,13 +25,13 @@ from dots_socp_torch.ops.laplacian import (
     build_spectral_factor,
 )
 from dots_socp_torch.ops.mesh_ops import SurfaceOps
-from dots_socp_tpu.geometry.surface import (
+from dots_socp_torch.geometry.surface import (
     build_incidence_table,
     cotan_laplacian,
     triangle_quantities,
     vertex_areas,
 )
-from dots_socp_tpu.utils.types import GeometryData
+from dots_socp_torch.utils.types import GeometryData
 
 
 @dataclasses.dataclass(frozen=True)

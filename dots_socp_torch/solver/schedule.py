@@ -1,7 +1,7 @@
 """Host-side schedules: sigma cadence, sigma factor table, scaling triggers.
 
-A copy of `dots_socp_tpu/solver/schedule.py`: that module is jax-free, but
-importing it runs `dots_socp_tpu/solver/__init__.py`, which imports jax.
+The port's own copy of `dots_socp_tpu/solver/schedule.py` (the port
+imports nothing of the JAX package).
 
 Numerically identical to the reference's `AdjustAdmmParam`
 (`utils/admm_tools.py:19-171`): same adjustment cadence (gaps 3/7/11/17/31/43
@@ -15,7 +15,7 @@ import logging
 
 import numpy as np
 
-from dots_socp_tpu.config import LOG_LEVELS
+from dots_socp_torch.config import LOG_LEVELS
 
 # (iteration upper bound, required gap since last adjustment)
 _ADJUST_CADENCE = ((20, 3), (50, 7), (100, 11), (200, 17), (500, 31))

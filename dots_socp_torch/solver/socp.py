@@ -54,9 +54,9 @@ from dots_socp_torch.solver.step import (
     run_chunk_adaptive,
     run_chunk_kkt,
 )
-from dots_socp_tpu.config import LOG_LEVELS
-from dots_socp_tpu.utils.history import RunningHistory
-from dots_socp_tpu.utils.types import CheckpointDotData, GeometryData, SolutionSocpData
+from dots_socp_torch.config import LOG_LEVELS
+from dots_socp_torch.utils.history import RunningHistory
+from dots_socp_torch.utils.types import CheckpointDotData, GeometryData, SolutionSocpData
 
 KKT_LABELS = [
     "SOC & Org : Primal Feasibility (q)",

@@ -2,7 +2,8 @@
 (B1, and B2 on every shard of a blocked problem) and the CG phi-solve and
 solver on the card, each against the plain PyTorch version on the same
 inputs, plus a 2-rank gloo sharded CG solve on one card. They skip without
-a card. The file imports no jax, so it runs where only PyTorch is installed:
+a card. The file imports neither jax nor the JAX package, so it runs where
+only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -16,8 +17,8 @@ from dots_socp_torch.ops import mesh_ops as t_mesh
 from dots_socp_torch.ops import sharded_window as tsw
 from dots_socp_torch.ops import window_spmv as tw
 from dots_socp_torch.parallel.partition import blocked_layout
-from dots_socp_tpu.geometry.generators import generate_plane_mesh
-from dots_socp_tpu.geometry.surface import (
+from dots_socp_torch.geometry.generators import generate_plane_mesh
+from dots_socp_torch.geometry.surface import (
     cotan_laplacian,
     triangle_quantities,
     vertex_areas,
@@ -38,30 +39,50 @@ def _plane(n):
     return vertices, triangles, av, cotan_laplacian(triangles, angles, vertices.shape[0])
 
 
-@pytest.mark.parametrize("n, tile_rows", [(7, 64), (24, None)])
-def test_kernel_matches_plain_and_f64(n, tile_rows):
+def _widened(lap):
+    """`lap` with two more symmetric off-diagonals: rows of 9 nonzeros, so
+    the row width is not the mesh's 7 and the kernel takes its run-time loop
+    over DP = 12 slots."""
+    import scipy.sparse as sp
+
+    v = lap.shape[0]
+    extra = sp.diags([np.full(v - 3, 0.25), np.full(v - 3, 0.25)], [3, -3])
+    return (lap + extra).tocsr()
+
+
+@pytest.mark.parametrize("n, tile_rows, widen", [(7, 64, False), (24, None, False), (24, 96, True)])
+def test_kernel_matches_plain_and_f64(n, tile_rows, widen):
     """The kernel equals the plain version on the card, and scipy's f64
     L @ x on the host, within 1e-5 max|y| (float32 rounding of L and x,
-    FMA and summation order), for 6, 32 and 40 modes (40: two mode
-    groups); one counted launch per call."""
+    FMA and summation order), for 8, 32, 40 and 128 modes (40 and 128: more
+    than one mode group) and a single 1-D mode, at the mesh's row width
+    (D = 7, the unrolled body) and at a wider one (the run-time loop); one
+    counted launch per call."""
     _need_cuda()
     vertices, _, av, lap = _plane(n)
+    if widen:
+        lap = _widened(lap)
     tiles = tw.build_window_tiles(lap, tile_rows=tile_rows, coords=vertices)
+    assert (tiles.meta["nnz_width"] == 7) != widen
     v = av.shape[0]
-    op = tw.window_operator(tiles, av, np.ones((40, v)), av, np.zeros((v, 0)), device="cuda")
+    op = tw.window_operator(tiles, av, np.ones((1, v)), av, np.zeros((v, 0)), device="cuda")
     rng = np.random.default_rng(5)
-    for lanes in (6, 32, 40):
-        x = rng.standard_normal((lanes, v)).astype(np.float32)
+    for lanes in (8, 32, 40, 128, None):
+        x = rng.standard_normal((lanes or 1, v)).astype(np.float32)
         xp = torch.from_numpy(np.ascontiguousarray(x[:, tiles.perm])).cuda()
+        if lanes is None:
+            xp = xp[0]
         before = tw.KERNEL_LAUNCHES
         y = tw.window_matvec(op, xp)
         torch.cuda.synchronize()
         assert tw.KERNEL_LAUNCHES == before + 1
+        assert y.shape == xp.shape
         y_plain = tw.window_matvec_plain(op, xp)
         ref = (lap @ x.astype(np.float64).T).T
         scale = np.abs(ref).max()
-        got = y.cpu().numpy()[:, tiles.iperm]
-        assert np.abs(got - y_plain.cpu().numpy()[:, tiles.iperm]).max() <= 1e-5 * scale
+        got = y.cpu().numpy().reshape(x.shape)[:, tiles.iperm]
+        plain = y_plain.cpu().numpy().reshape(x.shape)[:, tiles.iperm]
+        assert np.abs(got - plain).max() <= 1e-5 * scale
         assert np.abs(got - ref).max() <= 1e-5 * scale
 
 
@@ -73,6 +94,31 @@ def test_kernel_rejects_float64():
     op = tw.window_operator(tiles, av, np.ones((6, v)), av, np.zeros((v, 0)), device="cuda")
     with pytest.raises(TypeError):
         tw.window_matvec(op, torch.zeros((6, v), dtype=torch.float64, device="cuda"))
+
+
+def test_kernel_rejects_what_it_cannot_read():
+    """The kernel reads x modes-major in place: a non-contiguous x (a
+    transposed view, a strided slice), a wrong last axis, more than 128
+    modes and an operator on another device each raise, and launch nothing."""
+    _need_cuda()
+    vertices, _, av, lap = _plane(7)
+    tiles = tw.build_window_tiles(lap, tile_rows=64, coords=vertices)
+    v = av.shape[0]
+    op = tw.window_operator(tiles, av, np.ones((6, v)), av, np.zeros((v, 0)), device="cuda")
+    before = tw.KERNEL_LAUNCHES
+    bad = [
+        torch.zeros((v, 6), device="cuda").t(),
+        torch.zeros((6, 2 * v), device="cuda")[:, ::2],
+        torch.zeros((6, v + 1), device="cuda"),
+        torch.zeros((129, v), device="cuda"),
+    ]
+    for x in bad:
+        with pytest.raises(ValueError):
+            tw.window_matvec(op, x)
+    cpu_op = tw.window_operator(tiles, av, np.ones((6, v)), av, np.zeros((v, 0)), device="cpu")
+    with pytest.raises(ValueError):
+        tw.window_matvec(cpu_op, torch.zeros((6, v), device="cuda"))
+    assert tw.KERNEL_LAUNCHES == before
 
 
 def test_refined_cg_on_card_matches_cpu():
@@ -116,7 +162,7 @@ def test_solver_on_card():
     assert np.isfinite(history.kkt_errors).all()
 
 
-def _blocked_window(n, n_parts, lanes):
+def _blocked_window(n, n_parts, tile_rows=None, widen=False):
     """Plane n in n_parts blocked shards: the blocked Laplacian (scipy, f64)
     and the port's every-shard window operator on the card."""
     vertices, triangles, av, _ = _plane(n)
@@ -125,42 +171,76 @@ def _blocked_window(n, n_parts, lanes):
     _, angles, _ = triangle_quantities(vertices, triangles)
     v_pad = n_parts * layout.v_chunk
     lap = cotan_laplacian(layout.vertex_slot[triangles], angles, v_pad)
+    if widen:
+        lap = _widened(lap)
     av_p = np.full(v_pad, av.mean())
     av_p[layout.vertex_slot] = av
     host, _ = tsw.build_sharded_window(
-        lap, layout.v_chunk, n_parts, av=av_p, jacobi=np.ones((lanes, v_pad)),
+        lap, layout.v_chunk, n_parts, av=av_p, jacobi=np.ones((1, v_pad)),
         s_vec=1.0 / np.sqrt(av_p), defl_q=np.zeros((v_pad, 0)), real=np.ones(v_pad),
+        tile_rows=tile_rows,
     )
     return lap, tsw.sharded_window_to_torch(host, device="cuda")
 
 
-def test_sharded_kernel_matches_plain_and_f64():
-    """B2 on every shard of plane n40 x 4 shards, 32 modes: the kernel
-    against its plain version on the card, and the shards assembled through
-    the inverse window permute against scipy's f64 L @ x, each within 1e-5
-    max|y|; one counted launch per shard."""
+@pytest.mark.parametrize("tile_rows, widen", [(None, False), (64, False), (128, True)])
+def test_sharded_kernel_matches_plain_and_f64(tile_rows, widen):
+    """B2 on every shard of plane n40 x 4 shards, for 8, 32 and 128 modes,
+    at the mesh's row width and at a wider one: the kernel, which gathers
+    its window from the shard's state and the export buffer, against its
+    plain version on the window vector, and the shards assembled through the
+    inverse window permute against scipy's f64 L @ x, each within 1e-5
+    max|y|; one counted launch per shard-call."""
     _need_cuda()
-    lanes, n_parts = 32, 4
-    lap, sw_all = _blocked_window(40, n_parts, lanes)
-    x = np.random.default_rng(6).standard_normal((lanes, lap.shape[0])).astype(np.float32)
+    n_parts = 4
+    lap, sw_all = _blocked_window(40, n_parts, tile_rows, widen)
+    assert (sw_all.nnz_width == 7) != widen
     shards = [tsw.shard_of(sw_all, s) for s in range(n_parts)]
     v_chunk = shards[0].state_in.shape[0]
-    xs = [tsw.window_permute(sw, torch.from_numpy(x[:, s * v_chunk:(s + 1) * v_chunk]).cuda())
-          for s, sw in enumerate(shards)]
-    buf = torch.cat([xw[..., sw.exp_codes] for sw, xw in zip(shards, xs)], dim=-1)
-    ref = (lap @ x.astype(np.float64).T).T
-    scale = np.abs(ref).max()
-    ys = []
-    for sw, xl in zip(shards, xs):
-        xw = tsw.window_vector(sw, xl, buf)
-        before = tsw.KERNEL_LAUNCHES
-        y = tsw.shard_spmv(sw, xw)
-        torch.cuda.synchronize()
-        assert tsw.KERNEL_LAUNCHES == before + 1
-        plain = tsw.sharded_window_matvec_plain(sw, xw)
-        assert (y - plain).abs().max().item() <= 1e-5 * scale
-        ys.append(tsw.window_permute(sw, y, inverse=True).cpu().numpy())
-    assert np.abs(np.concatenate(ys, axis=-1) - ref).max() <= 1e-5 * scale
+    for lanes in (8, 32, 128):
+        x = np.random.default_rng(6).standard_normal((lanes, lap.shape[0])).astype(np.float32)
+        xs = [tsw.window_permute(sw, torch.from_numpy(x[:, s * v_chunk:(s + 1) * v_chunk]).cuda())
+              for s, sw in enumerate(shards)]
+        buf = torch.cat([xl[..., sw.exp_codes] for sw, xl in zip(shards, xs)], dim=-1)
+        ref = (lap @ x.astype(np.float64).T).T
+        scale = np.abs(ref).max()
+        ys = []
+        for sw, xl in zip(shards, xs):
+            before = tsw.KERNEL_LAUNCHES
+            y = tsw.shard_spmv(sw, xl, buf)
+            torch.cuda.synchronize()
+            assert tsw.KERNEL_LAUNCHES == before + 1
+            plain = tsw.sharded_window_matvec_plain(sw, tsw.window_vector(sw, xl, buf))
+            assert (y - plain).abs().max().item() <= 1e-5 * scale
+            ys.append(tsw.window_permute(sw, y, inverse=True).cpu().numpy())
+        assert np.abs(np.concatenate(ys, axis=-1) - ref).max() <= 1e-5 * scale
+
+
+def test_sharded_kernel_rejects_what_it_cannot_read():
+    """B2 takes contiguous float32 state and export buffer with the same
+    leading modes, and one shard's operator: anything else raises."""
+    _need_cuda()
+    _, sw_all = _blocked_window(16, 2)
+    sw = tsw.shard_of(sw_all, 0)
+    v_chunk, n_buf = sw.state_in.shape[0], sw_all.exp_codes.numel()
+    x = torch.zeros((8, v_chunk), device="cuda")
+    buf = torch.zeros((8, n_buf), device="cuda")
+    before = tsw.KERNEL_LAUNCHES
+    with pytest.raises(TypeError):
+        tsw.shard_spmv(sw, x.double(), buf.double())
+    for bad_x, bad_buf in [
+        (torch.zeros((v_chunk, 8), device="cuda").t(), buf),
+        (x, torch.zeros((n_buf, 8), device="cuda").t()),
+        (x, buf[:4]),
+        (x, buf.cpu()),
+    ]:
+        with pytest.raises(ValueError):
+            tsw.shard_spmv(sw, bad_x, bad_buf)
+    with pytest.raises(ValueError):
+        tsw.shard_spmv(sw_all, x, buf)  # every shard's arrays, not one shard's
+    assert tsw.KERNEL_LAUNCHES == before
+    tsw.shard_spmv(sw, x, buf)
+    assert tsw.KERNEL_LAUNCHES == before + 1
 
 
 def test_two_rank_gloo_cg_on_card(tmp_path):
@@ -186,6 +266,7 @@ def test_two_rank_gloo_cg_on_card(tmp_path):
                                                  x=x, rhs=rhs), device="cuda")
     for r in ranks:
         assert r["cg_b2_launches"] == r["cg_window_matvecs"] > r["cg_iters"] > 0
+        assert r["cg_strided_matvecs"] == 0
     x_s = np.concatenate([r["cg_x"] for r in ranks], axis=-1)[:, extras["vertex_slot"]]
     cfg_u, data_u, ex_u = build_problem(n_time, geometry, device="cuda", **kw)
     rhs_u = np.zeros((n_time + 1, cfg_u.n_vertices), np.float32)

@@ -197,3 +197,105 @@ def test_sharded_refined_cg_matches_unsharded(blocked, window_ranks):
     for r in ranks:
         assert r["cg_window_matvecs"] > r["cg_iters"] > 0
         assert r["cg_b2_launches"] == 0  # CPU tensors: the plain version
+        # The kernel reads the state in place: every matvec got contiguous tensors.
+        assert r["cg_spied_matvecs"] == r["cg_window_matvecs"] and r["cg_strided_matvecs"] == 0
+
+
+def _fused_kernel_numpy(sw, x_local, buf):
+    """What kernel B2 computes on one shard, step by step in numpy: window
+    position p holds x_local[:, c] for c = win_codes[p] < v_chunk, buf[:, c -
+    v_chunk] below v_chunk + S * Wb, else 0; each row sums vals * window at
+    tile_start[row // TV] + lcol over its DP slots, in float32."""
+    v_chunk, n_buf = x_local.shape[1], buf.shape[1]
+    codes = np.asarray(sw.win_codes)
+    assert codes.dtype == np.int32
+    window = np.zeros((x_local.shape[0], codes.shape[0]), np.float32)
+    own = codes < v_chunk
+    remote = ~own & (codes < v_chunk + n_buf)
+    window[:, own] = x_local[:, codes[own]]
+    window[:, remote] = buf[:, codes[remote] - v_chunk]
+    start = np.repeat(np.asarray(sw.tile_start), sw.tile_rows)[:v_chunk].astype(np.int64)
+    cols = start[:, None] + np.asarray(sw.lcol)[:v_chunk]
+    assert cols.max() < codes.shape[0]
+    y = np.zeros((x_local.shape[0], v_chunk), np.float32)
+    for k in range(cols.shape[1]):  # slot order, as one thread sums a row
+        y += np.asarray(sw.vals)[:v_chunk, k] * window[:, cols[:, k]]
+    return y
+
+
+@pytest.mark.parametrize("widen", [False, True], ids=["D7", "D9"])
+@pytest.mark.parametrize("lanes", [8, 32, 128])
+def test_fused_window_codes_match_reference_and_dense(blocked, lanes, widen):
+    """What kernel B2 reads (int32 window codes, tile starts, (lcol, vals)
+    padded to a multiple of 4 slots, the shard's state and the export
+    buffer), for 8, 32 and 128 modes, at the mesh's row width and at a wider
+    one: the kernel's arithmetic written out in numpy, and the port's
+    `shard_spmv` on CPU tensors, against the assembled scipy matrix and
+    JAX's sharded_window_matvec (interpret mode), f32, within 1e-5 * max|y|."""
+    import scipy.sparse as sp
+    from dots_socp_tpu.parallel.mesh import make_mesh
+
+    _, config, data, _, lap_p = blocked
+    lap = lap_p.tocsr()
+    if widen:
+        v = lap.shape[0]
+        lap = (lap + sp.diags([np.full(v - 3, 0.25), np.full(v - 3, 0.25)], [3, -3])).tocsr()
+    kw = _builder_inputs(config, data)
+    ref, _ = jsw.build_sharded_window(lap, tile_rows=128, **kw)
+    host, meta = tsw.build_sharded_window(lap, tile_rows=128, n_modes=lanes, **kw)
+    assert (meta["nnz_width"] == 7) != widen
+    assert meta["nnz_pad"] == -(-meta["nnz_width"] // 4) * 4 == host.lcol.shape[2]
+    sw_all = tsw.sharded_window_to_torch(host)
+    assert sw_all.win_codes.dtype == torch.int32 and sw_all.nnz_width == meta["nnz_width"]
+
+    v_chunk = config.n_vertices // S
+    x = np.random.default_rng(lanes).standard_normal((lanes, S * v_chunk)).astype(np.float32)
+    shards = [tsw.shard_of(sw_all, s) for s in range(S)]
+    xs = [tsw.window_permute(sw, torch.from_numpy(x[:, s * v_chunk:(s + 1) * v_chunk]))
+          for s, sw in enumerate(shards)]
+    buf = torch.cat([xl[..., sw.exp_codes] for sw, xl in zip(shards, xs)], dim=-1)
+    y_kernel, y_port = [], []
+    for sw, xl in zip(shards, xs):
+        before = tsw.KERNEL_LAUNCHES
+        y = tsw.shard_spmv(sw, xl, buf)
+        assert tsw.KERNEL_LAUNCHES == before  # CPU tensors: the plain version
+        y_port.append(tsw.window_permute(sw, y, inverse=True).numpy())
+        y_np = _fused_kernel_numpy(sw, xl.numpy(), buf.numpy())
+        y_kernel.append(y_np[:, sw.state_out.numpy()])
+    y_port, y_kernel = np.concatenate(y_port, axis=-1), np.concatenate(y_kernel, axis=-1)
+    y_dense = (lap @ x.astype(np.float64).T).T
+    scale = np.abs(y_dense).max()
+    assert np.abs(y_port - y_dense).max() <= 1e-5 * scale
+    assert np.abs(y_kernel - y_dense).max() <= 1e-5 * scale
+
+    mesh = make_mesh(S, time_axis=1)
+    sw_ref = jax.tree.map(jnp.asarray, ref)
+    xd = jax.device_put(jnp.asarray(x), NamedSharding(mesh, P(None, "space")))
+
+    @jax.jit
+    def mv(x, sw):
+        xw = jsw.window_permute(sw, (1, S), x)
+        return jsw.window_permute(sw, (1, S), jsw.sharded_window_matvec(sw, (1, S), xw), inverse=True)
+
+    y_ref = np.asarray(mv(xd, sw_ref))
+    assert np.abs(y_port - y_ref).max() <= 1e-5 * scale
+    assert np.abs(y_kernel - y_ref).max() <= 1e-5 * scale
+
+
+def test_sharded_builder_picks_the_cheapest_candidate(blocked):
+    """Unpinned, `build_sharded_window` returns the TV of least modelled cost
+    among `tile_candidates` for one shard's rows, the same TV and W on every
+    shard, with whole tiles."""
+    from dots_socp_torch.ops.window_spmv import tile_candidates
+
+    _, config, data, _, lap_p = blocked
+    kw = _builder_inputs(config, data)
+    free, meta = tsw.build_sharded_window(lap_p, **kw)
+    v_chunk = config.n_vertices // S
+    for tv in tile_candidates(v_chunk):
+        _, pinned = tsw.build_sharded_window(lap_p, tile_rows=tv, **kw)
+        assert meta["model_clocks"] <= pinned["model_clocks"]
+    tv = meta["tile_rows"]
+    assert free.tile_rows == tv and tv in tile_candidates(v_chunk)
+    assert free.lcol.shape[:2] == (S, free.tile_start.shape[1] * tv)
+    assert free.tile_start.shape[1] * tv >= v_chunk

@@ -242,9 +242,9 @@ def test_warm_start_matches_reference(plane_geometry):
 
 
 def test_port_imports_no_jax():
-    """The port's import graph (package, solver, kernel wrapper, CLI, the
-    profiler, chip_smoke.py and the reference's jax-free interface the CLI
-    drives) leaves jax unimported."""
+    """The port's import graph (package, solver, kernel wrappers, CLI and
+    interface, the profiler, the kernel benchmark and chip_smoke.py) leaves
+    jax and the JAX package unimported."""
     code = (
         "import sys\n"
         "import dots_socp_torch, dots_socp_torch.solver, dots_socp_torch.ops.window_spmv\n"
@@ -252,11 +252,12 @@ def test_port_imports_no_jax():
         "import dots_socp_torch.ops.sharded_window, dots_socp_torch.ops.collectives\n"
         "import dots_socp_torch.parallel.distributed, dots_socp_torch.parallel.halo\n"
         "import dots_socp_torch.parallel.mesh, dots_socp_torch.parallel.partition\n"
-        "import dots_socp_torch.profile_slice, chip_smoke\n"
-        "import dots_socp_tpu.interface\n"
+        "import dots_socp_torch.profile_slice, dots_socp_torch.bench_kernels, chip_smoke\n"
+        "import dots_socp_torch.phase_clocks\n"
+        "import dots_socp_torch.interface, dots_socp_torch.data, dots_socp_torch.models\n"
         "from dots_socp_torch import solver\n"
         "assert callable(solver)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dots_socp_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -111,10 +111,23 @@ def task_window(inp, mesh):
     xw = tsw.window_permute(sw, x)
     y = tsw.window_permute(sw, tsw.sharded_window_matvec(sw, mesh, xw), inverse=True)
     before, launches = tl.CG_COUNTERS.window_matvecs, tsw.KERNEL_LAUNCHES
-    sol, iters = tl.cg_solve(
-        data.ops, data.cg_op, _block(inp["rhs"], mesh), max_iters=2000,
-        halo=data.halo, mesh=mesh, ops_hi=data.ops_hi, return_iters=True,
-    )
+    # Kernel B2 reads the CG state and the export buffer in place: count the
+    # matvecs that are handed anything but contiguous tensors.
+    strided = []
+    spmv = tsw.shard_spmv
+
+    def spy(sw_, x_, buf_):
+        strided.append(not (x_.is_contiguous() and buf_.is_contiguous()))
+        return spmv(sw_, x_, buf_)
+
+    tsw.shard_spmv = spy
+    try:
+        sol, iters = tl.cg_solve(
+            data.ops, data.cg_op, _block(inp["rhs"], mesh), max_iters=2000,
+            halo=data.halo, mesh=mesh, ops_hi=data.ops_hi, return_iters=True,
+        )
+    finally:
+        tsw.shard_spmv = spmv
     return {
         "y": y,
         "round_trip": tsw.window_permute(sw, xw, inverse=True),
@@ -122,6 +135,8 @@ def task_window(inp, mesh):
         "cg_iters": torch.tensor(iters),
         "cg_window_matvecs": torch.tensor(tl.CG_COUNTERS.window_matvecs - before),
         "cg_b2_launches": torch.tensor(tsw.KERNEL_LAUNCHES - launches),
+        "cg_strided_matvecs": torch.tensor(sum(strided)),
+        "cg_spied_matvecs": torch.tensor(len(strided)),
     }
 
 
