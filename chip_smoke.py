@@ -17,7 +17,8 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                be one launch of the kernel and nothing else, of the plain
                version and of the library call (torch.sparse.mm of the same
                operator as CSR with the vertex-major x), beside the bound
-               (every input and output moved once at 3.35 TB/s); and the
+               (every input and output moved once at 3.35 TB/s) and the
+               kernel events the profiler recorded for each; and the
                median latency of one call (CUDA events, host launch
                overhead included).
 4. slice    -- the main path: the port's CLI (`dots_socp_torch.cli.main`,
@@ -78,12 +79,13 @@ import torch
 import dots_socp_torch.ops.sharded_window as sharded_window
 import dots_socp_torch.ops.window_spmv as window_spmv
 from dots_socp_torch import cli
-from dots_socp_torch.bench_kernels import (
+from dots_socp_torch.kernel_timing import (
     device_ms,
     ell_laplacian,
     library_ms,
     median_call_ms,
     nvidia_smi_line,
+    shard_bound,
     shard_inputs,
     window_bound,
 )
@@ -122,12 +124,15 @@ def forbidden_imports():
                   if m.split(".")[0] in ("jax", "jaxlib", "dots_socp_tpu"))
 
 
-def kernel_times(kernel, plain, kernel_name):
-    """Device and call times of a wrapper and its plain version; the wrapper
-    must be one launch of `kernel_name` and nothing else (no transpose, no
-    gather)."""
-    ms_kernel, kernels = device_ms(kernel, REPS)
-    ms_plain, _ = device_ms(plain, REPS)
+def kernel_times(kernel, plain, kernel_name, library):
+    """Device and call times of a wrapper, its plain version and the library
+    call (`library` = (operator, x, rows) of `library_ms`); the wrapper must
+    be one launch of `kernel_name` and nothing else (no transpose, no
+    gather). `profiler_events` holds, for each, the calls made, the kernel
+    events the profiler recorded and the sessions it took."""
+    ms_kernel, kernels, ev_kernel = device_ms(kernel, REPS)
+    ms_plain, _, ev_plain = device_ms(plain, REPS)
+    ms_library, ev_library = library_ms(*library)
     if len(kernels) != 1 or kernel_name not in next(iter(kernels)):
         raise AssertionError(f"the wrapper launched {sorted(kernels)}, not {kernel_name} alone")
     return {
@@ -135,6 +140,8 @@ def kernel_times(kernel, plain, kernel_name):
                       "by_kernel": {k[:60]: t * 1e3 for k, t in kernels.items()}},
         "call_us": {"wrapper": median_call_ms(kernel, REPS) * 1e3,
                     "plain": median_call_ms(plain, REPS) * 1e3},
+        "library_us": ms_library * 1e3,
+        "profiler_events": {"wrapper": ev_kernel, "plain": ev_plain, "library": ev_library},
     }
 
 
@@ -178,21 +185,21 @@ def phase_kernel(card):
     err_pr = float(np.abs(yp - y_ref).max())
     scale = float(np.abs(y_ref).max())
     times = kernel_times(lambda: window_spmv.window_matvec(wop, xp),
-                         lambda: window_spmv.window_matvec_plain(wop, xp), "window_spmv_kernel")
+                         lambda: window_spmv.window_matvec_plain(wop, xp), "window_spmv_kernel",
+                         (wop, xp, v))
     bound = window_bound(wop, v, N_TIME + 1, v)
-    lib_ms = library_ms(wop, xp, v)
     emit("kernel", shape=[N_TIME + 1, v], meta={"tile_rows": wop.tile_rows, "width": wop.width,
          "nnz_width": wop.nnz_width, "nnz_pad": int(wop.lcol.shape[1]),
          "tiles": -(-v // wop.tile_rows)},
          max_abs_err_vs_plain=err_kp, max_abs_err_kernel_vs_f64=err_kr,
          max_abs_err_plain_vs_f64=err_pr, max_abs_y=scale, **times,
-         library_us=lib_ms * 1e3, bound_us=bound["ms"] * 1e3, bound=bound, card=card)
+         bound_us=bound["ms"] * 1e3, bound=bound, card=card)
     tol = KERNEL_TOL * scale
     if not (err_kp <= tol and err_kr <= tol and err_pr <= tol):
         raise AssertionError(f"window kernel disagrees: {err_kp}, {err_kr}, {err_pr} > {tol}")
     return {"max_abs_err": err_kp, "ms": times["device_us"]["wrapper"] / 1e3,
             "plain_ms": times["device_us"]["plain"] / 1e3, "bound_ms": bound["ms"],
-            "bound_by": bound["by"], "library_ms": lib_ms}
+            "bound_by": bound["by"], "library_ms": times["library_us"] / 1e3}
 
 
 def run_cli(n_space, nit, extra=()):
@@ -297,13 +304,11 @@ def phase_sharded_kernel(card, n_shards):
         ys.append(sharded_window.window_permute(sw, y_kernel, inverse=True).cpu().numpy())
         times = kernel_times(lambda: sharded_window.shard_spmv(sw, xl, buf),
                              lambda: sharded_window.sharded_window_matvec_plain(sw, xw),
-                             "sharded_window_spmv_kernel")
-        bound = window_bound(sw, v_chunk, N_TIME + 1,
-                             v_chunk + buf.shape[-1] + sw.win_codes.shape[0])
+                             "sharded_window_spmv_kernel", (sw, xw, v_chunk))
+        bound = shard_bound(sw, N_TIME + 1, buf.shape[-1])
         per_shard.append({
             "rows": v_chunk, "Nw": int(sw.win_codes.shape[0]), "Wb": int(sw.exp_codes.shape[0]),
-            **times, "library_us": library_ms(sw, xw, v_chunk) * 1e3,
-            "bound_us": bound["ms"] * 1e3, "bound": bound,
+            **times, "bound_us": bound["ms"] * 1e3, "bound": bound,
         })
     err_kr = float(np.abs(np.concatenate(ys, axis=-1) - y_ref).max())
     emit("sharded_kernel", shards=n_shards, shape=[N_TIME + 1, v_pad],

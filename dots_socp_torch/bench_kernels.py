@@ -1,169 +1,66 @@
 """Times of the port's hand-written kernels, B1 and B2, on one NVIDIA GPU.
 
-    python -m dots_socp_torch.bench_kernels [--parent DIR] [--sweep] [--out FILE]
+    python -m dots_socp_torch.bench_kernels [--sweep] [--out FILE]
 
 At plane n200 (V=46,431), 32 modes, float32, with the tiles the main path's
 `build_problem` makes: kernel B1 on one device, and kernel B2 on every shard
 of 2 and of 4 blocked shards. For each, per call:
 
   device_us  -- summed durations of the GPU kernels of one call
-                (torch.profiler, REPS warm calls), for the wrapper (`kernel`,
-                with `by_kernel` naming every launch), for everything a shard
-                does after its all-gather (`matvec_local`, B2), for the plain
-                PyTorch version (`plain`), for the library call (`library`:
-                torch.sparse.mm of the CSR form of the same operator with the
-                vertex-major x, FP32) and for the port's ELL gather matvec
-                (`ell`, B1 only)
+                (torch.profiler, 50 warm calls; `events` says how many of
+                them the profiler recorded and in how many sessions), for
+                the wrapper (`kernel`, with `by_kernel` naming every
+                launch), for the plain PyTorch version (`plain`), for the
+                library call (`library`: torch.sparse.mm of the CSR form of
+                the same operator with the vertex-major x, FP32) and for
+                the port's ELL gather matvec (`ell`, B1 only)
   call_us    -- median latency of one call, host launch overhead included
                 (CUDA events, synchronised between calls)
   bound      -- the least time the card could take: each input and output
                 moved once at 3.35 TB/s against 2 flops per nonzero and mode
                 at 67 TFLOP/s (the larger wins; `by` says which)
 
-With --parent DIR (a checkout of another commit, e.g. `git archive` of the
-parent unpacked into a directory .gitignore lists) the same measurement runs
-against DIR's `dots_socp_torch` in the same invocation, in turns parent /
-this / this / parent, one process each, so that two versions are compared on
-one card. With --sweep, this tree's kernels are also timed at every tile
-size of `tile_candidates` (the tile model of ops/window_spmv.py is fitted to
-this), B2 with its window gathered outside the kernel (cat + index, then
-B1's entry point on the window vector), and B1 at 128 modes.
+With --sweep the kernels are also timed at every tile size of
+SWEEP_TILE_ROWS and of `tile_candidates` (the rule of ops/window_spmv.py
+rests on this), and B1 at 128 modes.
 
-One JSON object per run is printed (and the list written to --out), then
-the card's name and power limit from nvidia-smi.
+One JSON object is printed (and written to --out), then the card's name and
+power limit from nvidia-smi.
 """
 
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-N_TIME = 31
-REPS = 50
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-FP32_FLOPS = 67e12  # H100 SXM FP32 rate outside the tensor cores
+from dots_socp_torch.kernel_timing import (
+    N_TIME,
+    device_ms,
+    ell_laplacian,
+    library_ms,
+    median_call_ms,
+    nvidia_smi_line,
+    shard_bound,
+    shard_inputs,
+    window_bound,
+)
+from dots_socp_torch.ops import sharded_window as swm
+from dots_socp_torch.ops import window_spmv
+from dots_socp_torch.ops.laplacian import ell_matvec
+
 SHARD_COUNTS = (2, 4)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def median_call_ms(fn, reps=REPS):
-    """Median time of one call of `fn`, from the start of its first kernel
-    to the end of its last (CUDA events around each call, synchronised
-    between calls, so the host's launch overhead is inside)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def device_ms(fn, reps=REPS, tries=3):
-    """Device time per call of `fn`: the mean duration of each GPU kernel it
-    launches over `reps` warm calls (torch.profiler) times that kernel's
-    launches per call, summed; returns (total ms, {kernel name: ms}). The
-    profiler now and then drops events of a session: a kernel seen a few
-    times less than a multiple of `reps` keeps its mean; a session in which
-    some kernel was seen far off any multiple is measured again."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us, seen = {}, {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                total_us[e.name] = total_us.get(e.name, 0.0) + e.time_range.elapsed_us()
-                seen[e.name] = seen.get(e.name, 0) + 1
-        per_call = {name: round(n / reps) for name, n in seen.items()}
-        if seen and all(k >= 1 and abs(seen[name] - k * reps) <= max(2, reps // 10)
-                        for name, k in per_call.items()):
-            by_name = {name: total_us[name] / seen[name] * per_call[name] / 1e3 for name in seen}
-            return sum(by_name.values()), by_name
-    raise RuntimeError(f"torch.profiler kept dropping device events: saw {seen} over {reps} calls")
-
-
-def operator_csr(op, n_rows, n_cols):
-    """The (n_rows, n_cols) float32 CSR matrix a window operator (B1's, or
-    one shard's of B2) applies, on the operator's device: every nonzero
-    (row, tile_start[row // TV] + lcol, vals), padding slots dropped."""
-    lcol, vals = op.lcol[:n_rows], op.vals[:n_rows]
-    start = op.tile_start.long().repeat_interleave(op.tile_rows)[:n_rows]
-    keep = vals != 0
-    counts = keep.sum(dim=1)
-    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=vals.device)
-    crow[1:] = counts.cumsum(0)
-    cols = (start[:, None] + lcol.long())[keep]
-    return torch.sparse_csr_tensor(crow, cols, vals[keep], size=(n_rows, n_cols))
-
-
-def window_bound(op, n_rows, lanes, in_floats):
-    """The least time the card could take for one matvec of a window
-    operator: `in_floats` input floats per mode and n_rows outputs per mode,
-    the operator's arrays as stored, each moved once; against 2 flops per
-    nonzero and mode. Returns {"bytes", "flops", "ms", "by"}."""
-    n_tiles = -(-n_rows // op.tile_rows)
-    stored = n_tiles * op.tile_rows * op.lcol.shape[-1] * 8 + n_tiles * 4
-    n_bytes = (in_floats + n_rows) * lanes * 4 + stored
-    flops = 2 * int((op.vals[:n_rows] != 0).sum()) * lanes
-    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return {"bytes": int(n_bytes), "flops": int(flops), "ms": max(t_bytes, t_flops) * 1e3,
-            "by": "bytes" if t_bytes >= t_flops else "operations"}
-
-
-def library_ms(op, x, n_rows):
-    """Device ms of the one PyTorch call that computes the same function:
-    torch.sparse.mm(CSR of the operator, x vertex-major (n_cols, lanes))."""
-    csr = operator_csr(op, n_rows, x.shape[-1])
-    x_vm = x.reshape(-1, x.shape[-1]).t().contiguous()
-    return device_ms(lambda: torch.sparse.mm(csr, x_vm))[0]
-
-
-def _us(by_name):
-    return {k[:70]: round(t * 1e3, 3) for k, t in by_name.items()}
+SWEEP_TILE_ROWS = (64, 96, 128, 176, 256, 352, 512)
 
 
 def _timed(fn):
-    ms, by_name = device_ms(fn)
-    return {"device_us": ms * 1e3, "call_us": median_call_ms(fn) * 1e3, "by_kernel": _us(by_name)}
-
-
-def ell_laplacian(cg_op):
-    """The (V, V) float64 cotan Laplacian, on the host, from the CG
-    operator's padded-ELL arrays (padding slots hold 0.0)."""
-    import scipy.sparse as sp
-
-    idx = cg_op.ell_idx.cpu().numpy()
-    w = (cg_op.ell_w_hi if cg_op.ell_w_hi is not None else cg_op.ell_w).cpu().numpy()
-    v = idx.shape[0]
-    rows = np.repeat(np.arange(v), idx.shape[1])
-    return sp.csr_matrix((w.ravel().astype(np.float64), (rows, idx.ravel())), shape=(v, v))
+    ms, by_name, events = device_ms(fn)
+    return {"device_us": ms * 1e3, "call_us": median_call_ms(fn) * 1e3,
+            "by_kernel": {k[:70]: round(t * 1e3, 3) for k, t in by_name.items()},
+            "events": events}
 
 
 def _meta(op, n_rows):
@@ -174,9 +71,6 @@ def _meta(op, n_rows):
 def measure_b1(wop, cg_op, lanes=N_TIME + 1, with_plain=True):
     """B1 on one operator: the wrapper, the plain version, the library call
     and the ELL matvec, each on the same x."""
-    from dots_socp_torch.ops import window_spmv
-    from dots_socp_torch.ops.laplacian import ell_matvec
-
     v = wop.perm.shape[0]
     x = torch.from_numpy(
         np.random.default_rng(0).standard_normal((lanes, v)).astype(np.float32)
@@ -186,81 +80,38 @@ def measure_b1(wop, cg_op, lanes=N_TIME + 1, with_plain=True):
            "kernel": _timed(lambda: window_spmv.window_matvec(wop, x))}
     if with_plain:
         out["plain"] = _timed(lambda: window_spmv.window_matvec_plain(wop, x))
-        out["library_us"] = library_ms(wop, x, v) * 1e3
+        ms, events = library_ms(wop, x, v)
+        out["library"] = {"device_us": ms * 1e3, "events": events}
         if cg_op is not None:
             out["ell_us"] = device_ms(lambda: ell_matvec(cg_op, x))[0] * 1e3
     return out
 
 
-def shard_inputs(sw_all, n_shards, lanes=N_TIME + 1):
-    """Every shard's operator on the card, its state in window order and the
-    export buffer as the all-gather would concatenate it."""
-    from dots_socp_torch.ops import sharded_window
-
-    v_chunk = sw_all.state_in.shape[-1]
-    x = np.random.default_rng(2).standard_normal((lanes, n_shards * v_chunk)).astype(np.float32)
-    shards = [sharded_window.shard_of(sw_all, s, "cuda") for s in range(n_shards)]
-    xs = [sharded_window.window_permute(sw, torch.from_numpy(x[:, s * v_chunk:(s + 1) * v_chunk]).cuda())
-          for s, sw in enumerate(shards)]
-    buf = torch.cat([xl[..., sw.exp_codes] for sw, xl in zip(shards, xs)], dim=-1).contiguous()
-    return x, shards, xs, buf
-
-
-def unfused_shard_spmv(sw, xw):
-    """Kernel B2's arithmetic with the window gathered outside: B1's entry
-    point on the window vector xw (lanes, Nw), rows = the shard's."""
-    from dots_socp_torch.ops import _build
-
-    v_chunk, (lanes, nw) = sw.state_in.shape[-1], xw.shape
-    y = torch.empty((lanes, v_chunk), dtype=torch.float32, device=xw.device)
-    err = _build.load().dots_window_spmv_f32(
-        xw.data_ptr(), sw.tile_start.data_ptr(), sw.lcol.data_ptr(), sw.vals.data_ptr(),
-        y.data_ptr(), v_chunk, nw, lanes, -(-v_chunk // sw.tile_rows), sw.tile_rows, sw.width,
-        sw.lcol.shape[1], sw.nnz_width, torch.cuda.current_stream().cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"CUDA error {err}")
-    return y
-
-
-def measure_b2(sw_all, n_shards, with_plain=True, with_unfused=False):
-    """B2 on every shard: the wrapper (`kernel`), everything after the
-    all-gather (`matvec_local`: the same call where the kernel gathers its
-    window; window_vector + the wrapper where it does not), the plain
-    version and the library call on the window vector."""
-    from dots_socp_torch.ops import sharded_window as swm
-
-    fused = len(inspect.signature(swm.shard_spmv).parameters) == 3
+def measure_b2(sw_all, n_shards, with_plain=True):
+    """B2 on every shard: the wrapper, which gathers its window from the
+    shard's state and the export buffer, the plain version and the library
+    call on the window vector."""
     _, shards, xs, buf = shard_inputs(sw_all, n_shards)
     per_shard = []
     for sw, xl in zip(shards, xs):
         v_chunk = sw.state_in.shape[-1]
         xw = swm.window_vector(sw, xl, buf)
-        if fused:
-            kernel = local = lambda: swm.shard_spmv(sw, xl, buf)
-            in_floats = v_chunk + buf.shape[-1] + sw.win_codes.shape[-1]
-        else:
-            kernel = lambda: swm.shard_spmv(sw, xw)
-            local = lambda: swm.shard_spmv(sw, swm.window_vector(sw, xl, buf))
-            in_floats = xw.shape[-1]
         out = {"rows": v_chunk, "Nw": int(xw.shape[-1]), "Wb": int(sw.exp_codes.shape[-1]),
-               "bound": window_bound(sw, v_chunk, xl.shape[0], in_floats),
-               "kernel": _timed(kernel),
-               "matvec_local": _timed(local) if not fused else None}
+               "bound": shard_bound(sw, xl.shape[0], buf.shape[-1]),
+               "kernel": _timed(lambda: swm.shard_spmv(sw, xl, buf))}
         if with_plain:
             out["plain"] = _timed(lambda: swm.sharded_window_matvec_plain(sw, xw))
-            out["library_us"] = library_ms(sw, xw, v_chunk) * 1e3
-        if with_unfused and fused:
-            out["gather_outside"] = _timed(
-                lambda: unfused_shard_spmv(sw, swm.window_vector(sw, xl, buf)))
+            ms, events = library_ms(sw, xw, v_chunk)
+            out["library"] = {"device_us": ms * 1e3, "events": events}
         per_shard.append(out)
-    return {"shards": n_shards, "fused": fused, "meta": _meta(shards[0], shards[0].state_in.shape[-1]),
+    return {"shards": n_shards, "meta": _meta(shards[0], shards[0].state_in.shape[-1]),
             "per_shard": per_shard}
 
 
 def _problems():
-    """(unsharded n200 problem data, {S: blocked problem data}) as the main
-    path builds them; no deflation vectors (the tiles do not depend on them)."""
+    """(geometry, unsharded n200 problem data, {S: blocked problem data}) as
+    the main path builds them; no deflation vectors (the tiles do not depend
+    on them)."""
     from dots_socp_torch import cli
     from dots_socp_torch.solver.problem import build_problem
 
@@ -274,93 +125,60 @@ def _problems():
     return geometry, data, blocked
 
 
-def worker(sweep):
-    """One process's measurement of whichever `dots_socp_torch` it imports."""
-    from dots_socp_torch.ops import sharded_window as swm
-    from dots_socp_torch.ops import window_spmv
+def sweep(geometry, data, blocked):
+    """The kernels at every tile size of the grid and of the builders' rule,
+    and B1 at 128 modes with the tiles the rule picks for them."""
+    lap = ell_laplacian(data.cg_op)
+    v = lap.shape[0]
+    coords = np.asarray(geometry["vertices"])
+    coords = coords if coords.shape[0] == v else None
+    ones = np.ones(v)
 
-    geometry, data, blocked = _problems()
-    out = {"package": str(Path(window_spmv.__file__).resolve().parents[2]),
-           "card": nvidia_smi_line(),
-           "b1": measure_b1(data.cg_op.window, data.cg_op),
-           "b2": [measure_b2(blocked[s].cg_op.swindow, s, with_unfused=sweep) for s in SHARD_COUNTS]}
-    if sweep:
-        lap = ell_laplacian(data.cg_op)
-        v = lap.shape[0]
-        coords = np.asarray(geometry["vertices"])
-        coords = coords if coords.shape[0] == v else None
-        ones = np.ones(v)
-        out["b1_sweep"] = []
-        for tv in window_spmv.tile_candidates(v):
-            tiles = window_spmv.build_window_tiles(lap, tile_rows=tv, coords=coords)
-            if tiles is None:
-                continue
-            op = window_spmv.window_operator(tiles, ones, np.ones((1, v)), ones, np.zeros((v, 0)), "cuda")
-            m = measure_b1(op, None, with_plain=False)
-            out["b1_sweep"].append({"meta": tiles.meta, "device_us": m["kernel"]["device_us"]})
-        tiles = window_spmv.build_window_tiles(lap, coords=coords, n_modes=128)
+    def b1_operator(**kw):
+        tiles = window_spmv.build_window_tiles(lap, coords=coords, **kw)
         op = window_spmv.window_operator(tiles, ones, np.ones((1, v)), ones, np.zeros((v, 0)), "cuda")
-        out["b1_128_modes"] = {**measure_b1(op, None, lanes=128, with_plain=False), "tiles": tiles.meta}
-        out["b2_sweep"] = []
-        for s in SHARD_COUNTS:
-            lap_b = ell_laplacian(blocked[s].cg_op)
-            v_pad = lap_b.shape[0]
-            for tv in window_spmv.tile_candidates(v_pad // s):
-                built = swm.build_sharded_window(
-                    lap_b, v_pad // s, s, av=np.ones(v_pad), jacobi=np.ones((1, v_pad)),
-                    s_vec=np.ones(v_pad), defl_q=np.zeros((v_pad, 0)), real=np.ones(v_pad),
-                    tile_rows=tv)
-                if built is None:
-                    continue
-                m = measure_b2(swm.sharded_window_to_torch(built[0], "cpu"), s, with_plain=False)
-                out["b2_sweep"].append({
-                    "shards": s, "meta": built[1],
-                    "device_us": [p["kernel"]["device_us"] for p in m["per_shard"]]})
-    print("BENCH_JSON " + json.dumps(out), flush=True)
+        return tiles, op
 
-
-def run_worker(package_root, sweep=False):
-    """Run `worker` in a process of its own against the `dots_socp_torch`
-    under `package_root`; its result."""
-    env = dict(os.environ, PYTHONPATH=str(package_root))
-    # This file runs as a script whose imports resolve under `package_root`
-    # (the process starts there), not beside the file.
-    argv = [str(Path(__file__).resolve()), "--worker"] + (["--sweep"] if sweep else [])
-    code = f"import runpy, sys; sys.argv = {argv!r}; runpy.run_path(sys.argv[0], run_name='__main__')"
-    cmd = [sys.executable, "-c", code]
-    proc = subprocess.run(cmd, env=env, cwd=package_root, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"worker on {package_root} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("BENCH_JSON ")][-1]
-    return json.loads(line[len("BENCH_JSON "):])
+    out = {"b1_sweep": [], "b2_sweep": []}
+    for tv in sorted(set(SWEEP_TILE_ROWS + window_spmv.tile_candidates(v))):
+        tiles, op = b1_operator(tile_rows=tv)
+        m = measure_b1(op, None, with_plain=False)
+        out["b1_sweep"].append({"meta": tiles.meta, "device_us": m["kernel"]["device_us"]})
+    tiles, op = b1_operator(n_modes=128)
+    out["b1_128_modes"] = {**measure_b1(op, None, lanes=128, with_plain=False), "tiles": tiles.meta}
+    for s in SHARD_COUNTS:
+        lap_b = ell_laplacian(blocked[s].cg_op)
+        v_pad = lap_b.shape[0]
+        for tv in sorted(set(SWEEP_TILE_ROWS + window_spmv.tile_candidates(v_pad // s))):
+            built = swm.build_sharded_window(
+                lap_b, v_pad // s, s, av=np.ones(v_pad), jacobi=np.ones((1, v_pad)),
+                s_vec=np.ones(v_pad), defl_q=np.zeros((v_pad, 0)), real=np.ones(v_pad),
+                tile_rows=tv)
+            m = measure_b2(swm.sharded_window_to_torch(built[0], "cpu"), s, with_plain=False)
+            out["b2_sweep"].append({
+                "shards": s, "meta": built[1],
+                "device_us": [p["kernel"]["device_us"] for p in m["per_shard"]]})
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", default=None, help="checkout of another commit to compare with")
-    ap.add_argument("--sweep", action="store_true", help="also time every tile size, B2 with "
-                    "its gather outside the kernel, and B1 at 128 modes")
-    ap.add_argument("--out", default=None, help="write the runs to this JSON file")
-    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time every tile size, and B1 at 128 modes")
+    ap.add_argument("--out", default=None, help="write the result to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels needs an NVIDIA GPU")
-    if args.worker:
-        worker(args.sweep)
-        return
-    here = Path(__file__).resolve().parents[1]
-    turns = [("this", here)]
-    if args.parent:
-        parent = Path(args.parent).resolve()
-        turns = [("parent", parent), ("this", here), ("this", here), ("parent", parent)]
-    runs = []
-    for i, (name, root) in enumerate(turns):
-        run = {"turn": i, "version": name, **run_worker(root, args.sweep and name == "this" and i <= 1)}
-        print(json.dumps(run), flush=True)
-        runs.append(run)
+    geometry, data, blocked = _problems()
+    out = {"card": nvidia_smi_line(),
+           "b1": measure_b1(data.cg_op.window, data.cg_op),
+           "b2": [measure_b2(blocked[s].cg_op.swindow, s) for s in SHARD_COUNTS]}
+    if args.sweep:
+        out.update(sweep(geometry, data, blocked))
+    print(json.dumps(out), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(runs, indent=1))
+        Path(args.out).write_text(json.dumps(out, indent=1))
     print(nvidia_smi_line())
 
 

@@ -1,0 +1,155 @@
+"""Timing helpers for the port's hand-written kernels on one NVIDIA GPU:
+what `chip_smoke.py` and `bench_kernels.py` share.
+
+  device_ms       -- device time per call, from torch.profiler's kernel durations
+  median_call_ms  -- latency of one call, host launch overhead included
+  window_bound    -- the least time the card could take for one window matvec
+  library_ms      -- device time of torch.sparse.mm on the same operator and x
+  operator_csr, ell_laplacian, shard_inputs -- the inputs of those
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import numpy as np
+import torch
+
+N_TIME = 31
+REPS = 50
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_FLOPS = 67e12  # H100 SXM FP32 rate outside the tensor cores
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_call_ms(fn, reps=REPS):
+    """Median time of one call of `fn`, from the start of its first kernel
+    to the end of its last (CUDA events around each call, synchronised
+    between calls, so the host's launch overhead is inside)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_ms(fn, reps=REPS, tries=3):
+    """Device time per call of `fn`: the mean duration of each GPU kernel it
+    launches over `reps` warm calls (torch.profiler) times that kernel's
+    launches per call, summed. Returns (total ms, {kernel name: ms}, events);
+    `events` says how good the measurement is: {"calls": reps, "sessions":
+    profiler sessions it took, "seen": {kernel name: events recorded}}. The
+    profiler now and then drops events of a session: a kernel seen a few
+    times less than a multiple of `reps` keeps its mean; a session in which
+    some kernel was seen far off any multiple is measured again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for session in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, seen = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                total_us[e.name] = total_us.get(e.name, 0.0) + e.time_range.elapsed_us()
+                seen[e.name] = seen.get(e.name, 0) + 1
+        per_call = {name: round(n / reps) for name, n in seen.items()}
+        if seen and all(k >= 1 and abs(seen[name] - k * reps) <= max(2, reps // 10)
+                        for name, k in per_call.items()):
+            by_name = {name: total_us[name] / seen[name] * per_call[name] / 1e3 for name in seen}
+            events = {"calls": reps, "sessions": session, "seen": {k[:60]: n for k, n in seen.items()}}
+            return sum(by_name.values()), by_name, events
+    raise RuntimeError(f"torch.profiler kept dropping device events: saw {seen} over {reps} calls")
+
+
+def operator_csr(op, n_rows, n_cols):
+    """The (n_rows, n_cols) float32 CSR matrix a window operator (B1's, or
+    one shard's of B2) applies, on the operator's device: every nonzero
+    (row, tile_start[row // TV] + lcol, vals), padding slots dropped."""
+    lcol, vals = op.lcol[:n_rows], op.vals[:n_rows]
+    start = op.tile_start.long().repeat_interleave(op.tile_rows)[:n_rows]
+    keep = vals != 0
+    counts = keep.sum(dim=1)
+    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=vals.device)
+    crow[1:] = counts.cumsum(0)
+    cols = (start[:, None] + lcol.long())[keep]
+    return torch.sparse_csr_tensor(crow, cols, vals[keep], size=(n_rows, n_cols))
+
+
+def window_bound(op, n_rows, lanes, in_floats, once_bytes=0):
+    """The least time the card could take for one matvec of a window
+    operator, each input and output moved once: `in_floats` input floats and
+    n_rows output floats per mode, 8 bytes (column, value) per nonzero of the
+    operator's rows, its tile starts, and `once_bytes` of other arrays that
+    do not grow with the modes (B2's int32 window codes); against 2 flops per
+    nonzero and mode. Padding slots are not charged. Returns {"bytes",
+    "flops", "ms", "by"}."""
+    nnz = int((op.vals[:n_rows] != 0).sum())
+    n_tiles = -(-n_rows // op.tile_rows)
+    n_bytes = (in_floats + n_rows) * lanes * 4 + nnz * 8 + n_tiles * 4 + once_bytes
+    flops = 2 * nnz * lanes
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bytes": int(n_bytes), "flops": int(flops), "ms": max(t_bytes, t_flops) * 1e3,
+            "by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def shard_bound(sw, lanes, n_buf):
+    """`window_bound` of one shard's B2 call: its inputs are the shard's own
+    state and the (lanes, n_buf) export buffer, per mode, and the window
+    codes, once."""
+    v_chunk = sw.state_in.shape[-1]
+    return window_bound(sw, v_chunk, lanes, v_chunk + n_buf, sw.win_codes.shape[-1] * 4)
+
+
+def library_ms(op, x, n_rows):
+    """(device ms, events) of the one PyTorch call that computes the same
+    function: torch.sparse.mm(CSR of the operator, x vertex-major (n_cols,
+    lanes)); `events` as `device_ms` gives them."""
+    csr = operator_csr(op, n_rows, x.shape[-1])
+    x_vm = x.reshape(-1, x.shape[-1]).t().contiguous()
+    ms, _, events = device_ms(lambda: torch.sparse.mm(csr, x_vm))
+    return ms, events
+
+
+def ell_laplacian(cg_op):
+    """The (V, V) float64 cotan Laplacian, on the host, from the CG
+    operator's padded-ELL arrays (padding slots hold 0.0)."""
+    import scipy.sparse as sp
+
+    idx = cg_op.ell_idx.cpu().numpy()
+    w = (cg_op.ell_w_hi if cg_op.ell_w_hi is not None else cg_op.ell_w).cpu().numpy()
+    v = idx.shape[0]
+    rows = np.repeat(np.arange(v), idx.shape[1])
+    return sp.csr_matrix((w.ravel().astype(np.float64), (rows, idx.ravel())), shape=(v, v))
+
+
+def shard_inputs(sw_all, n_shards, lanes=N_TIME + 1):
+    """Every shard's operator on the card, its state in window order and the
+    export buffer as the all-gather would concatenate it."""
+    from dots_socp_torch.ops import sharded_window
+
+    v_chunk = sw_all.state_in.shape[-1]
+    x = np.random.default_rng(2).standard_normal((lanes, n_shards * v_chunk)).astype(np.float32)
+    shards = [sharded_window.shard_of(sw_all, s, "cuda") for s in range(n_shards)]
+    xs = [sharded_window.window_permute(sw, torch.from_numpy(x[:, s * v_chunk:(s + 1) * v_chunk]).cuda())
+          for s, sw in enumerate(shards)]
+    buf = torch.cat([xl[..., sw.exp_codes] for sw, xl in zip(shards, xs)], dim=-1).contiguous()
+    return x, shards, xs, buf

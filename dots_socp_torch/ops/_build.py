@@ -48,28 +48,26 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(defines: tuple[str, ...] = ()) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libdots_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(defines: tuple[str, ...] = ()) -> tuple[Path, float]:
+def build() -> tuple[Path, float]:
     """Compile the kernels unless a library of the same sources exists.
 
-    `defines` are extra -D flags (a measurement variant of the kernels; its
-    library has a name of its own). Returns (library path, seconds spent
-    compiling; 0.0 when reused). The compiler's output (with -Xptxas -v) goes
-    to the same path + ".log".
+    Returns (library path, seconds spent compiling; 0.0 when reused). The
+    compiler's output (with -Xptxas -v) goes to the same path + ".log".
     """
-    out = library_path(defines)
+    out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp)]
     cmd += [str(CSRC / name) for name in SOURCES]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -92,15 +90,11 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load(defines: tuple[str, ...] | None = None) -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; declare its entry points.
-
-    The library is loaded once per process and shared by every wrapper.
-    `defines` (only before the first load, or to replace it: phase_clocks.py)
-    loads a measurement variant in its place."""
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; declare its entry points."""
     global _lib
-    if _lib is None or defines is not None:
-        path, _ = build(tuple(defines or ()))
+    if _lib is None:
+        path, _ = build()
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.dots_window_spmv_f32  # B1: 5 arrays, 8 sizes, the stream

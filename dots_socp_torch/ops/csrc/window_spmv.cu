@@ -20,8 +20,8 @@
 // value). x and y must move once (rows * lanes * 4 B each) and L once
 // (rows * DP * 8 B); on top, the windows of consecutive tiles overlap, so
 // the staged bytes (tiles * W * lanes * 4 B, mostly from L2) are 2-3x the
-// size of x. The tile model picks TV so that the tiles fill the 132 SMs in one
-// wave with as few staged bytes as that allows (ops/window_spmv.py).
+// size of x. TV is picked so that the tiles fill the 132 SMs in as few
+// waves as shared memory allows (ops/window_spmv.py::tile_candidates).
 //
 // Design, one block per (tile, group of 32 modes), phases staging ->
 // arithmetic -> output:
@@ -42,8 +42,9 @@
 //   coalesced 128-byte request) for 16 modes, all 16 loads in flight before
 //   the first store. The same path gathers B2's window through its codes,
 //   which removes the cat + gather launches from the wrapper. Measured per
-//   block on an H100 (phase_clocks.py, plane n200, TV = 352): the staging
-//   takes 8.0k clocks with 16 loads in flight, 7.4k with 8 and 7.7k with 4,
+//   block on an H100 (clock64 around each phase, plane n200, TV = 352;
+//   PERF.md): the staging takes 8.0k clocks with 16 loads in flight, 7.4k
+//   with 8 and 7.7k with 4,
 //   while B2's gather, which has a dependent load first, takes 6.5k / 7.9k /
 //   11.2k at 4 shards. Variants tried and dropped staged the same tile no
 //   faster: 4-byte cp.async (a warp got one copy through per ~230 clocks),
@@ -79,26 +80,9 @@ constexpr int kModes = 32;        // time modes per block: one per warp lane
 constexpr int kRowsPerWarp = 16;  // rows one warp owns: 16, or 8 in a small tile
 constexpr int kSmallTile = 192;   // up to here a block runs TV / 8 warps, else TV / 16
 constexpr int kRowBatch = 4;      // rows a warp accumulates at a time
-#ifndef DOTS_STAGE_MODES
-#define DOTS_STAGE_MODES 16
-#endif
-constexpr int kStageModes = DOTS_STAGE_MODES;  // window loads a thread keeps in flight
+constexpr int kStageModes = 16;   // window loads a thread keeps in flight
 constexpr int kStageSplit = kModes / kStageModes;
 constexpr int kMaxDevices = 64;
-
-// With -DDOTS_PHASE_CLOCKS thread 0 of each of the first 1024 tiles records
-// the SM clocks from its start to the end of each phase (staged, computed,
-// output tile written, stored); phase_clocks.py builds that variant and reads
-// them back. Without it the macro is empty.
-#ifdef DOTS_PHASE_CLOCKS
-constexpr int kClockTiles = 1024;
-__device__ long long dots_phase_clocks[kClockTiles * 4];
-#define DOTS_PHASE(i)                                                          \
-  if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.x < kClockTiles)         \
-  dots_phase_clocks[blockIdx.x * 4 + (i)] = clock64() - phase_t0
-#else
-#define DOTS_PHASE(i)
-#endif
 
 struct Args {
   const float* x;          // (lanes, n_own) own values (B1: the whole vector)
@@ -194,9 +178,6 @@ __device__ __forceinline__ void window_tile(const Args& a) {
   const int row0 = tile * a.tile_rows;
   const int start = a.tile_start[tile];
   const uint32_t bar = smem_addr(bar_ptr);
-#ifdef DOTS_PHASE_CLOCKS
-  const long long phase_t0 = clock64();
-#endif
 
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
@@ -250,7 +231,6 @@ __device__ __forceinline__ void window_tile(const Args& a) {
   }
   mbarrier_wait(bar, 0);
   __syncthreads();
-  DOTS_PHASE(0);
 
   // Arithmetic: this warp's 16 rows, 4 at a time, lane = mode.
   float acc[kRowsPerWarp];
@@ -270,7 +250,6 @@ __device__ __forceinline__ void window_tile(const Args& a) {
 
   // Output through shared memory: ytile[mode][TV + 1] over the window.
   __syncthreads();
-  DOTS_PHASE(1);
   float* ytile = win;
   const int y_pitch = a.tile_rows + 1;
 #pragma unroll
@@ -278,7 +257,6 @@ __device__ __forceinline__ void window_tile(const Args& a) {
     if (i < rows_per_warp) ytile[lane * y_pitch + r_lo + i] = acc[i];
   }
   __syncthreads();
-  DOTS_PHASE(2);
   const int rows_here = min(a.tile_rows, a.n_rows - row0);
   const int n_out = ((a.tile_rows + 31) >> 5) * 4;
   for (int u = warp; u < n_out; u += n_warps) {
@@ -293,7 +271,6 @@ __device__ __forceinline__ void window_tile(const Args& a) {
       }
     }
   }
-  DOTS_PHASE(3);
 }
 
 // B1 and B2 under the names the profiler shows.
@@ -397,10 +374,3 @@ extern "C" int dots_sharded_window_spmv_f32(const float* x, const float* buf, co
          n_rows, n_rows, n_buf, n_window, lanes, tile_rows, width, 0, dp};
   return launch<true>(a, n_tiles, nnz, stream);
 }
-
-#ifdef DOTS_PHASE_CLOCKS
-// Copies the first n recorded clocks (4 per tile) to the host.
-extern "C" int dots_phase_clocks_read(long long* out, int n) {
-  return static_cast<int>(cudaMemcpyFromSymbol(out, dots_phase_clocks, n * sizeof(long long)));
-}
-#endif

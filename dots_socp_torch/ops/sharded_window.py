@@ -28,8 +28,8 @@ plain version builds it, `window_vector`.) As in B1, the TPU's dense
 pairs, padded to a width DP that is a multiple of 4, taken straight from
 the shard's CSR. The Mosaic-only parts of the reference's construction
 (super-windows G / Ws, the VMEM budget, the 128-lane traffic model) are
-gone; TV comes from B1's tile model (`window_spmv.tile_cost`) on the
-widest shard.
+gone; TV comes from B1's rule (`window_spmv.tile_candidates`) on one
+shard's rows.
 
 `shard_spmv` launches the kernel on CUDA tensors and runs the plain
 version (`sharded_window_matvec_plain`) on CPU tensors; nothing else picks
@@ -50,8 +50,8 @@ from dots_socp_torch.ops.window_spmv import (
     check_kernel_input,
     check_kernel_tiles,
     compress_rows,
+    fits_block,
     tile_candidates,
-    tile_cost,
 )
 
 #: Launches of kernel B2 in this process (the wrapper adds one per launch;
@@ -180,10 +180,9 @@ def build_sharded_window(
         owns rows [s * v_chunk, (s + 1) * v_chunk).
     av / jacobi / s_vec / defl_q / real : preconditioner arrays in blocked
         order, copied out in window layout.
-    tile_rows : TV; None picks the candidate of `tile_candidates` with the
-        least `tile_cost` for one shard's rows and `n_modes` modes (every
-        shard runs on a card of its own), skipping any whose block exceeds
-        shared memory.
+    tile_rows : TV; None picks the first of `tile_candidates` for one
+        shard's rows and `n_modes` modes (every shard runs on a card of its
+        own) whose block fits shared memory.
 
     Returns (ShardedWindow of numpy arrays for every shard, meta), or None
     when no candidate fits shared memory (the CG then uses the halo
@@ -238,7 +237,7 @@ def build_sharded_window(
         nw = max(nw, n_ext)
     nw = -(-nw // 8) * 8
 
-    # ---- TV: the tile model on one shard's rows ---------------------------
+    # ---- TV: fill the SMs with one shard's rows ----------------------------
     # Each row keeps its nonzeros only (explicit zeros of the CSR dropped).
     kept = []
     for _, ext_rows, _, _ in shards:
@@ -248,16 +247,13 @@ def build_sharded_window(
     d = max(max(int(np.diff(nz.indptr).max(initial=0)), 1) for nz in kept)
     dp = -(-d // 4) * 4
     groups = -(-int(n_modes) // MODE_GROUP)
-    best = None
     for tv in tile_candidates(v_chunk, groups, tile_rows):
         geo = [_tile_starts(pos, ext, crank, v_chunk, tv) for pos, ext, _, crank in shards]
         width = max(g[0] for g in geo)
-        cost = tile_cost(tv, width, -(-v_chunk // tv), d, groups)
-        if cost is not None and (best is None or cost < best[0]):
-            best = (cost, tv, width, geo)
-    if best is None:
+        if fits_block(tv, width, d):
+            break
+    else:
         return None
-    cost, tv, width, geo = best
     n_tiles = -(-v_chunk // tv)
 
     # ---- assemble the arrays ----------------------------------------------
@@ -321,7 +317,6 @@ def build_sharded_window(
         "nnz_width": int(d),
         "nnz_pad": int(dp),
         "tiles": int(n_tiles),
-        "model_clocks": float(cost),
     }
     sw = ShardedWindow(
         tile_start=tile_start,

@@ -32,27 +32,15 @@ MODE_GROUP = 32
 #: Shared memory one block may use on Hopper (227 KB).
 SMEM_BYTES = 232_448
 
-#: Streaming multiprocessors of an H100: the tile model fills them.
+#: Streaming multiprocessors of an H100: the tiles are cut to fill them.
 SM_COUNT = 132
 
 #: A kernel block runs warps of 16 rows each (8 in tiles of up to 192 rows),
-#: at most 32 warps: TV is a multiple of 16 up to 512.
+#: at most 32 warps: TV is a multiple of 16 up to 512. Unpinned, the
+#: builders go no lower than 64 rows, the smallest size timed.
 ROWS_PER_WARP = 16
+MIN_TILE_ROWS = 64
 MAX_TILE_ROWS = 512
-
-#: Tile sizes tried whatever the row count; `tile_candidates` adds the
-#: sizes that cut the rows into a whole number of waves over the SMs.
-_TILE_GRID = (64, 128, 256, 512)
-
-# The tile model, in SM clocks: a block costs a fixed start-up, its staged
-# bytes at the rate one SM draws from L2, and its rows' window reads at one
-# 128-byte shared-memory wavefront per nonzero slot; an SM runs its blocks
-# one after another. It ranks the tile sizes as a sweep on an H100 does
-# (python -m dots_socp_torch.bench_kernels --sweep; PERF.md): the sizes
-# that cut the rows into one wave over the SMs win.
-_BLOCK_CLOCKS = 1500.0
-_STAGE_BYTES_PER_CLOCK = 32.0
-_SLOT_CLOCKS = 1.0
 
 
 class WindowOperator(NamedTuple):
@@ -108,34 +96,33 @@ def smem_bytes(tile_rows: int, width: int, nnz_pad: int) -> int:
 
 
 def tile_candidates(n_rows: int, groups: int = 1, tile_rows: int | None = None):
-    """Tile sizes `build_window_tiles` and `build_sharded_window` try: a
-    multiple of 16 (a block runs whole warps of 8 or 16 rows) up to 512. A pinned `tile_rows` is the only candidate."""
+    """Tile sizes in the order `build_window_tiles` and `build_sharded_window`
+    take them (the first whose block fits shared memory): for k = 1, 2, ...
+    the smallest multiple of 16 in [64, 512] that cuts the rows, times the
+    mode groups, into at most k blocks per SM. Timed on an H100 at every
+    size of a grid, one wave of blocks beat every tiling of more, smaller
+    or fewer, larger tiles (PERF.md). A pinned `tile_rows` is the only
+    candidate."""
     if tile_rows is not None:
         tv = int(tile_rows)
         if tv < ROWS_PER_WARP or tv > MAX_TILE_ROWS or tv % ROWS_PER_WARP:
             raise ValueError(f"tile_rows must be a multiple of 16 in [16, 512], got {tv}")
         return (tv,)
-    sizes = set(_TILE_GRID)
-    for waves in range(1, 5):
-        # The smallest tiles that still fit `waves` blocks on every SM.
+    sizes = []
+    waves = 0
+    while not sizes or sizes[-1] > MIN_TILE_ROWS:
+        waves += 1
         per_block = -(-n_rows * groups // (SM_COUNT * waves))
-        tv = -(-per_block // ROWS_PER_WARP) * ROWS_PER_WARP
-        if _TILE_GRID[0] <= tv <= MAX_TILE_ROWS:
-            sizes.add(tv)
-    return tuple(sorted(sizes))
+        tv = max(-(-per_block // ROWS_PER_WARP) * ROWS_PER_WARP, MIN_TILE_ROWS)
+        if tv <= MAX_TILE_ROWS and tv not in sizes:
+            sizes.append(tv)
+    return tuple(sizes)
 
 
-def tile_cost(tile_rows, width, n_tiles, nnz, groups=1):
-    """Modelled clocks of one matvec on the busiest SM, or None when a block
-    does not fit shared memory. The blocks (tiles x mode groups) spread evenly
-    over the SMs; each costs its start-up, its staged bytes and its rows."""
+def fits_block(tile_rows: int, width: int, nnz: int) -> bool:
+    """Whether one kernel block of such a tile fits shared memory."""
     nnz_pad = -(-max(nnz, 1) // 4) * 4
-    if smem_bytes(tile_rows, width, nnz_pad) > SMEM_BYTES:
-        return None
-    blocks_per_sm = -(-n_tiles * groups // SM_COUNT)
-    staged = width * MODE_GROUP * 4 + tile_rows * nnz_pad * 8
-    block = _BLOCK_CLOCKS + staged / _STAGE_BYTES_PER_CLOCK + tile_rows * nnz * _SLOT_CLOCKS
-    return blocks_per_sm * block
+    return smem_bytes(tile_rows, width, nnz_pad) <= SMEM_BYTES
 
 
 def _tile_geometry(p_csr, tv):
@@ -191,13 +178,13 @@ def build_window_tiles(
     The candidate orderings are the reference's
     (`dots_socp_tpu/ops/pallas_spmv.py:90-218`): natural, reverse
     Cuthill-McKee and (with `coords`) a sort along the dominant PCA axis. Its
-    TPU traffic model, super-windows G and 12 MiB budget are gone: TV comes
-    from `tile_candidates` (or is pinned), and the (ordering, TV) with the
-    least `tile_cost` for `n_modes` modes wins, among those whose block fits
-    the 227 KB of shared memory. With TV pinned that is the ordering with the
-    narrowest window, as in the reference (tested tile for tile). Each tile
-    row keeps only its nonzeros, taken straight from the permuted CSR.
-    Returns None when no candidate fits; `cg_solve` then uses the ELL matvec.
+    TPU traffic model, super-windows G and 12 MiB budget are gone: TV is the
+    first of `tile_candidates` for `n_modes` modes (or is pinned) at which
+    some ordering's block fits the 227 KB of shared memory, and the ordering
+    with the narrowest window there wins, as in the reference (tested tile
+    for tile). Each tile row keeps only its nonzeros, taken straight from
+    the permuted CSR. Returns None when no candidate fits; `cg_solve` then
+    uses the ELL matvec.
     """
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
@@ -221,22 +208,26 @@ def build_window_tiles(
             c @ u[:, -1], kind="stable"
         ).astype(np.int64)
 
-    groups = -(-int(n_modes) // MODE_GROUP)
-    best = None
+    # The windows span every stored entry (explicit zeros included, as in
+    # the reference); columns in order.
+    permuted = {}
     for name, cand in candidates.items():
-        # The windows span every stored entry (explicit zeros included, as
-        # in the reference); columns in order.
         p = csr[cand][:, cand].tocsr()
         p.sort_indices()
-        nnz = max(int(np.diff(p.indptr).max(initial=0)), 1)
-        for tv in tile_candidates(v, groups, tile_rows):
+        permuted[name] = p
+    best = None
+    for tv in tile_candidates(v, -(-int(n_modes) // MODE_GROUP), tile_rows):
+        for name, p in permuted.items():
             w, st = _tile_geometry(p, tv)
-            cost = tile_cost(tv, w, st.shape[0], nnz, groups)
-            if cost is not None and (best is None or cost < best[0]):
-                best = (cost, name, cand, p, tv, w, st)
+            nnz = int(np.diff(p.indptr).max(initial=0))
+            if fits_block(tv, w, nnz) and (best is None or w < best[0]):
+                best = (w, name, tv, st)
+        if best is not None:
+            break
     if best is None:
         return None
-    cost, name, perm, p, tv, width, st = best
+    width, name, tv, st = best
+    perm, p = candidates[name], permuted[name]
 
     # Each permuted row keeps its nonzeros only, in column order.
     p.eliminate_zeros()
@@ -254,7 +245,6 @@ def build_window_tiles(
         "nnz_pad": int(lcol.shape[1]),
         "tiles": int(st.shape[0]),
         "smem_bytes": smem_bytes(tv, width, lcol.shape[1]),
-        "model_clocks": float(cost),
     }
     return WindowTiles(
         perm=perm.astype(np.int32),

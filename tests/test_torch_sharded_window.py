@@ -283,19 +283,21 @@ def test_fused_window_codes_match_reference_and_dense(blocked, lanes, widen):
 
 
 def test_sharded_builder_picks_the_cheapest_candidate(blocked):
-    """Unpinned, `build_sharded_window` returns the TV of least modelled cost
-    among `tile_candidates` for one shard's rows, the same TV and W on every
-    shard, with whole tiles."""
-    from dots_socp_torch.ops.window_spmv import tile_candidates
+    """Unpinned, `build_sharded_window` returns the first of
+    `tile_candidates` for one shard's rows, which is what pinning that size
+    gives: the same TV and W on every shard, with whole tiles."""
+    from dots_socp_torch.ops.window_spmv import fits_block, tile_candidates
 
     _, config, data, _, lap_p = blocked
     kw = _builder_inputs(config, data)
     free, meta = tsw.build_sharded_window(lap_p, **kw)
     v_chunk = config.n_vertices // S
-    for tv in tile_candidates(v_chunk):
-        _, pinned = tsw.build_sharded_window(lap_p, tile_rows=tv, **kw)
-        assert meta["model_clocks"] <= pinned["model_clocks"]
-    tv = meta["tile_rows"]
-    assert free.tile_rows == tv and tv in tile_candidates(v_chunk)
+    tv = tile_candidates(v_chunk)[0]
+    same, pinned = tsw.build_sharded_window(lap_p, tile_rows=tv, **kw)
+    assert meta == pinned and meta["tile_rows"] == tv
+    assert fits_block(tv, meta["width"], meta["nnz_width"])
+    for a, b in zip(free, same):
+        np.testing.assert_array_equal(a, b)
+    assert free.tile_rows == tv
     assert free.lcol.shape[:2] == (S, free.tile_start.shape[1] * tv)
     assert free.tile_start.shape[1] * tv >= v_chunk

@@ -253,7 +253,7 @@ def test_port_imports_no_jax():
         "import dots_socp_torch.parallel.distributed, dots_socp_torch.parallel.halo\n"
         "import dots_socp_torch.parallel.mesh, dots_socp_torch.parallel.partition\n"
         "import dots_socp_torch.profile_slice, dots_socp_torch.bench_kernels, chip_smoke\n"
-        "import dots_socp_torch.phase_clocks\n"
+        "import dots_socp_torch.kernel_timing\n"
         "import dots_socp_torch.interface, dots_socp_torch.data, dots_socp_torch.models\n"
         "from dots_socp_torch import solver\n"
         "assert callable(solver)\n"

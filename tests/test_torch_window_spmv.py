@@ -171,16 +171,21 @@ def test_padded_rows_match_pallas_and_assembled(mesh, lanes, widen):
 
 
 def test_tile_candidates_fill_the_sms():
-    """The tile sizes tried are multiples of 16 up to 512: a fixed grid plus
-    the sizes that cut the rows into whole waves over the 132 SMs (352 rows
-    for plane n200's 46,431, 176 for one of two shards); a pinned size is
-    the only candidate, and one the kernel cannot run is refused."""
+    """The tile sizes, in the order the builders take them: multiples of 16
+    in [64, 512], first the smallest that cuts the rows into one wave over
+    the 132 SMs (352 rows for plane n200's 46,431, 176 for one of two
+    shards, 96 for one of four), then two waves, and so on down to 64; a
+    pinned size is the only candidate, and one the kernel cannot run is
+    refused."""
     cands = tw.tile_candidates(46_431)
-    assert set((64, 128, 256, 512)) <= set(cands) and 352 in cands and 176 in cands
-    assert 176 in tw.tile_candidates(23_216) and 96 in tw.tile_candidates(11_608)
-    assert all(c % 16 == 0 and 64 <= c <= 512 for c in cands)
-    # Four mode groups: four blocks per tile, so larger tiles fill a wave.
-    assert max(tw.tile_candidates(11_608, groups=4)) == 512 and 352 in tw.tile_candidates(11_608, groups=4)
+    assert cands == (352, 176, 128, 96, 80, 64)
+    assert all(-(-46_431 // tv) <= 132 * (k + 1) for k, tv in enumerate(cands[:4]))
+    assert tw.tile_candidates(23_216)[0] == 176 and tw.tile_candidates(11_608)[0] == 96
+    # Four mode groups: four blocks per tile, so larger tiles fill a wave;
+    # where one wave would need over 512 rows, the first candidate has more.
+    assert tw.tile_candidates(11_608, groups=4)[0] == 352
+    assert tw.tile_candidates(46_431, groups=4)[0] == 480
+    assert tw.tile_candidates(1000) == (64,)
     assert tw.tile_candidates(1000, tile_rows=96) == (96,)
     for bad in (8, 100, 528):
         with pytest.raises(ValueError):
@@ -188,45 +193,57 @@ def test_tile_candidates_fill_the_sms():
 
 
 def test_tile_cost_ranks_as_measured():
-    """The tile model on the windows of plane n200 (widths as `build_window_tiles`
-    finds them): shared memory is the mbarrier, the (lcol, vals) block and
-    the larger of window and output tile; a block beyond 227 KB has no cost;
-    and the one-wave tilings win, as timed on an H100 (PERF.md): TV=352 for
-    B1, 176 for one of two shards, 96 for one of four."""
+    """Shared memory of a block is the mbarrier, the (lcol, vals) block and
+    the larger of window and output tile; a block beyond 227 KB does not
+    fit; and on the windows of plane n200 (widths as `build_window_tiles`
+    finds them) the first candidate that fits is the size timed fastest on
+    an H100 (PERF.md): TV=352 for B1, 176 for one of two shards, 96 for one
+    of four."""
     assert tw.smem_bytes(352, 760, 8) == 16 + 352 * 64 + 32 * 761 * 4
     assert tw.smem_bytes(64, 8, 8) == 16 + 64 * 64 + 32 * 65 * 4
-    assert tw.tile_cost(256, 1816, 16, 7) is None
+    assert not tw.fits_block(256, 1816, 7) and tw.fits_block(256, 1680, 7)
     b1 = {64: 472, 96: 504, 128: 536, 176: 584, 256: 664, 352: 760, 512: 920}
-    cost = {tv: tw.tile_cost(tv, w, -(-46_431 // tv), 7) for tv, w in b1.items()}
-    assert min(cost, key=cost.get) == 352
     s2 = {64: 480, 96: 512, 128: 544, 176: 592, 256: 672, 512: 928}
-    cost = {tv: tw.tile_cost(tv, w, -(-23_216 // tv), 7) for tv, w in s2.items()}
-    assert min(cost, key=cost.get) == 176
     s4 = {64: 472, 96: 504, 128: 536, 256: 664, 512: 920}
-    cost = {tv: tw.tile_cost(tv, w, -(-11_608 // tv), 7) for tv, w in s4.items()}
-    assert min(cost, key=cost.get) == 96
+    for rows, widths, fastest in ((46_431, b1, 352), (23_216, s2, 176), (11_608, s4, 96)):
+        first = next(tv for tv in tw.tile_candidates(rows) if tw.fits_block(tv, widths[tv], 7))
+        assert first == fastest
 
 
-def test_builder_picks_the_cheapest_candidate(mesh):
-    """Unpinned, `build_window_tiles` returns the (ordering, TV) of least modelled
-    cost among `tile_candidates`, and its arrays cover whole tiles."""
+def test_builder_picks_the_cheapest_candidate(mesh, monkeypatch):
+    """Unpinned, `build_window_tiles` returns the first of `tile_candidates`
+    with the ordering of narrowest window there, which is what pinning that
+    size gives, and its arrays cover whole tiles; when the first candidate's
+    block does not fit shared memory, the next one is taken."""
     vertices, lap = mesh
     free = tw.build_window_tiles(lap, coords=vertices)
     v = vertices.shape[0]
-    for tv in tw.tile_candidates(v):
-        pinned = tw.build_window_tiles(lap, tile_rows=tv, coords=vertices)
-        assert free.meta["model_clocks"] <= pinned.meta["model_clocks"]
-    tv = free.meta["tile_rows"]
-    assert tv in tw.tile_candidates(v)
+    tv = tw.tile_candidates(v)[0]
+    pinned = tw.build_window_tiles(lap, tile_rows=tv, coords=vertices)
+    assert free.meta == pinned.meta and free.meta["tile_rows"] == tv
+    for name in ("perm", "tile_start", "lcol", "vals"):
+        np.testing.assert_array_equal(getattr(free, name), getattr(pinned, name))
     assert free.lcol.shape[0] == free.tile_start.shape[0] * tv >= v
     assert free.meta["smem_bytes"] == tw.smem_bytes(tv, free.meta["width"], free.meta["nnz_pad"])
+
+    # A path graph of 66,000 vertices: one wave needs 512-row tiles; with
+    # room for less than their block, the two-wave size is taken.
+    n = 66_000
+    path = sp.diags([np.ones(n - 1), -2 * np.ones(n), np.ones(n - 1)], [-1, 0, 1]).tocsr()
+    assert tw.tile_candidates(n)[:2] == (512, 256)
+    assert tw.build_window_tiles(path).meta["tile_rows"] == 512
+    monkeypatch.setattr(tw, "SMEM_BYTES", 50_000)
+    assert tw.smem_bytes(512, 520, 4) > 50_000 > tw.smem_bytes(256, 264, 4)
+    assert tw.build_window_tiles(path).meta["tile_rows"] == 256
 
 
 def test_bench_helpers_match_assembled(mesh):
     """The kernel benchmark's CSR form of a window operator (the library
     call's matrix) is the permuted Laplacian, and its bound counts every
-    input and output once."""
-    from dots_socp_torch.bench_kernels import operator_csr, window_bound
+    input and output once: x and y per mode, 8 bytes per nonzero (padding
+    slots are not charged) and the tile starts; B2's adds the export buffer
+    per mode and its int32 window codes once, not per mode."""
+    from dots_socp_torch.kernel_timing import operator_csr, shard_bound, window_bound
 
     vertices, lap = mesh
     v = vertices.shape[0]
@@ -234,12 +251,24 @@ def test_bench_helpers_match_assembled(mesh):
     top = tw.window_operator(tiles, np.ones(v), np.ones((1, v)), np.ones(v), np.zeros((v, 0)))
     csr = operator_csr(top, v, v)
     p = lap.tocsr()[tiles.perm][:, tiles.perm].astype(np.float32)
+    p.eliminate_zeros()
     np.testing.assert_array_equal(csr.to_dense().numpy(), p.toarray())
     bound = window_bound(top, v, 32, v)
     n_tiles = -(-v // 64)
-    assert bound["bytes"] == 2 * v * 32 * 4 + n_tiles * 64 * 8 * 8 + n_tiles * 4
+    assert bound["bytes"] == 2 * v * 32 * 4 + p.nnz * 8 + n_tiles * 4
     assert bound["flops"] == 2 * p.nnz * 32 and bound["by"] == "bytes"
     assert bound["ms"] == pytest.approx(bound["bytes"] / 3.35e12 * 1e3)
+
+    # One shard of B2: rows of the same operator, a window of Nw codes and
+    # an export buffer of 24 columns.
+    from types import SimpleNamespace
+
+    n_window, n_buf = v + 40, 24
+    shard = SimpleNamespace(vals=top.vals, tile_rows=64, state_in=torch.zeros(v, dtype=torch.int64),
+                            win_codes=torch.zeros(n_window, dtype=torch.int32))
+    b2 = shard_bound(shard, 32, n_buf)
+    assert b2["bytes"] == bound["bytes"] + n_buf * 32 * 4 + n_window * 4
+    assert b2["flops"] == bound["flops"]
 
 
 @pytest.mark.parametrize("deflation_k", [0, 16])
