@@ -54,14 +54,42 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                half the first, finite mass conservation error; and the KKT
                table at the end agrees with phase 4's within SLICE_KKT_RTOL.
                A rank that fails or outlives RANK_TIMEOUT fails the script.
+8. resume   -- snapshot and resume on the main path's problem (plane n200,
+               ntime 31, float32, CG + f64 refinement): the port's
+               `scripts.solve_large` runs to nit=50 and writes its forced
+               snapshot (and its cold CG histogram); the CLI, run as in
+               phase 4 plus --snapshot with the same path, resumes to
+               nit=100. Checks: the log's "Resuming
+               from snapshot" line names iteration 49, the history goes on
+               from 50 to 99, the 7 KKT values and the solution (density mu
+               and momentum E; the CLI's solution holds no phi) agree with
+               phase 4's uninterrupted 100 iterations within RESUME_RTOL, and
+               B1's launches equal the window matvecs in both legs.
+9. replication -- `replication.sweep` on ring (V=3,072) and hills (V=11,716,
+               the largest surrogate) x congestions 0.00 and 0.01, ntime 31,
+               tol 1e-3, a short --time_limit: two info.log, two pairs of
+               tables, one row per run, the Converged column filled; then
+               `replication.main_versus_exact` on plane n50, float64, tol
+               1e-3: one error row per decade crossed, KKT decreasing across
+               them, the final l2 error below 0.5.
+10. profile -- the CLI with --profile_dir on plane n200, 12 iterations: the
+               trace file exists, stays under PROFILE_MAX_BYTES (it stops
+               after the interface's PROFILE_ITERATIONS), and names
+               window_spmv_kernel among its CUDA kernel events.
+11. sharded_spectral -- 2 ranks as in phase 7 on the flagship (plane n64,
+               200 iterations, --mesh_shape 1x2, no --laplacian_mode): every
+               rank took the spectral path (no CG solve), TF32 is pinned off
+               in every rank, and the final KKT table agrees with phase 5's
+               within SPECTRAL_KKT_RTOL.
 
-Then the kernel summary line, the `nvidia-smi` name and power-limit line,
+Then the kernel summary line (a kernel's `launches` is the sum over the
+paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
 and the result line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Only the port (`dots_socp_torch`) is imported here. The port keeps its own
 copies of the host modules (geometry, data loading, interface), so neither
 `jax` nor the JAX package `dots_socp_tpu` is imported, here or in the ranks
-of phase 7: the script checks `sys.modules` and fails otherwise.
+of phases 7 and 11: the script checks `sys.modules` and fails otherwise.
 """
 
 from __future__ import annotations
@@ -69,16 +97,19 @@ from __future__ import annotations
 import json
 import multiprocessing
 import os
+import re
 import socket
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import dots_socp_torch.ops.sharded_window as sharded_window
 import dots_socp_torch.ops.window_spmv as window_spmv
-from dots_socp_torch import cli
+from dots_socp_torch import cli, interface
 from dots_socp_torch.kernel_timing import (
     device_ms,
     ell_laplacian,
@@ -91,6 +122,8 @@ from dots_socp_torch.kernel_timing import (
 )
 from dots_socp_torch.ops import _build
 from dots_socp_torch.ops.laplacian import CG_COUNTERS, SpectralFactor, spectral_solve
+from dots_socp_torch.replication import log2table, main_versus_exact, sweep
+from dots_socp_torch.scripts import solve_large
 from dots_socp_torch.solver.problem import build_problem
 
 N_TIME = 31
@@ -106,6 +139,18 @@ RANK_TIMEOUT = 600  # seconds a rank of the sharded slice may take
 # B2 windows, per-shard partial sums), which moves their inexact CG solves.
 # Measured 0.0119 on an H100 (gloo, one card); the bound leaves 4x room.
 SLICE_KKT_RTOL = 0.05
+# The resumed run against the uninterrupted one, largest relative difference
+# of the KKT entries, mu and E: the snapshot holds the state exactly and the
+# host schedules and the inner CG tolerance are restored. Measured 0.0 (bit
+# for bit) on an H100; the bound is float32 round-off, no more.
+RESUME_RTOL = 1e-6
+# The sharded spectral run against the single-device one (phase 5), final
+# KKT entries: the shards' partial eigen-coefficients sum in another order
+# than one GEMM, and 200 float32 iterations carry the difference. Measured
+# 0.0032 on an H100 (gloo, one card); the bound leaves 4x room.
+SPECTRAL_KKT_RTOL = 0.013
+SWEEP_TIME_LIMIT = 20  # seconds per run of the replication sweep
+PROFILE_MAX_BYTES = 200e6
 
 
 def emit(phase, **fields):
@@ -246,17 +291,26 @@ def phase_slice(card):
         raise AssertionError(f"stop-set error {stop[0]} -> {stop[-1]}: not halved")
     if not np.isfinite(mass_err):
         raise AssertionError("mass conservation error is not finite")
-    return launches, history.kkt_errors[-1]
+    return launches, history.kkt_errors[-1], solution
 
 
-def phase_spectral(card):
-    pins = {
+def tf32_pins():
+    return {
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "float32_matmul_precision": torch.get_float32_matmul_precision(),
     }
+
+
+def tf32_is_off(pins):
+    return not (pins["matmul_allow_tf32"] or pins["cudnn_allow_tf32"]
+                or pins["float32_matmul_precision"] != "highest")
+
+
+def phase_spectral(card):
+    pins = tf32_pins()
     CG_COUNTERS.reset()
-    _, _, stats = run_cli(64, 200)
+    _, history, stats = run_cli(64, 200)
     if CG_COUNTERS.solves:
         raise AssertionError("the n64 flagship solve took the CG path")
     # The same GEMM chain in f32 and in f64 on the card.
@@ -270,10 +324,11 @@ def phase_spectral(card):
     z64 = spectral_solve(f64, rhs.double())
     rel = float((z32 - z64).abs().max() / z64.abs().max())
     emit("spectral", **stats, tf32_pins=pins, f32_vs_f64_solve=rel, card=card)
-    if pins["matmul_allow_tf32"] or pins["cudnn_allow_tf32"] or pins["float32_matmul_precision"] != "highest":
+    if not tf32_is_off(pins):
         raise AssertionError(f"TF32 is not pinned off: {pins}")
     if not rel <= TF32_TOL:
         raise AssertionError(f"f32 spectral solve off by {rel} (> {TF32_TOL}): TF32 on the GEMMs?")
+    return history.kkt_errors[-1]
 
 
 def phase_sharded_kernel(card, n_shards):
@@ -333,35 +388,41 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _slice_rank(rank, world, port, backend, results):
-    """One rank of the sharded slice (a spawned process): torchrun's
-    environment, then the port's CLI; its counts and history go back on
-    `results`."""
+def _mesh_rank(rank, world, port, backend, n_space, nit, results):
+    """One rank of a sharded phase (a spawned process): torchrun's
+    environment, then the port's CLI on plane `n_space` for `nit` iterations;
+    its counts and history go back on `results`."""
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     try:
         sharded_window.KERNEL_LAUNCHES = 0  # count the main path's launches only
         CG_COUNTERS.reset()
-        solution, history, stats = run_cli(200, 100, ["--mesh_shape", f"1x{world}",
-                                                      "--dist_backend", backend])
+        solution, history, stats = run_cli(n_space, nit, ["--mesh_shape", f"1x{world}",
+                                                          "--dist_backend", backend])
         results.put((rank, {
             **stats, "launches": sharded_window.KERNEL_LAUNCHES,
             "b1_launches": window_spmv.KERNEL_LAUNCHES, "cg": dict(vars(CG_COUNTERS)),
             "kkt": history.kkt_errors, "mass_err": mass_conservation_error(solution["mu"]),
-            "forbidden_imports": forbidden_imports(),
+            "tf32_pins": tf32_pins(), "forbidden_imports": forbidden_imports(),
         }))
     except BaseException as err:  # reported to the parent, which fails
         results.put((rank, {"error": repr(err)}))
         raise
 
 
-def phase_sharded_slice(card, kkt_unsharded):
+def run_ranks(phase, n_space, nit, kkt_unsharded):
+    """The port's CLI on SHARDS_SLICE spawned ranks; (backend, per-rank
+    outputs in rank order), each with its KKT history, its stop-set errors
+    and the largest relative difference of its final KKT table from
+    `kkt_unsharded`. A rank that fails, hangs or imports jax fails the
+    phase, and no rank is left running."""
     backend = "nccl" if torch.cuda.device_count() >= SHARDS_SLICE else "gloo"
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_slice_rank, args=(r, SHARDS_SLICE, port, backend, results))
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(r, SHARDS_SLICE, port, backend, n_space, nit, results))
              for r in range(SHARDS_SLICE)]
     for p in procs:
         p.start()
@@ -371,7 +432,7 @@ def phase_sharded_slice(card, kkt_unsharded):
         while len(ranks) < SHARDS_SLICE:
             rank, out = results.get(timeout=max(deadline - time.monotonic(), 1))
             if "error" in out:
-                raise AssertionError(f"sharded slice rank {rank} failed: {out['error']}")
+                raise AssertionError(f"{phase} rank {rank} failed: {out['error']}")
             ranks[rank] = out
         for p in procs:
             p.join(timeout=60)
@@ -381,45 +442,193 @@ def phase_sharded_slice(card, kkt_unsharded):
                 p.kill()
                 p.join()
     if any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"sharded slice ranks exited {[p.exitcode for p in procs]}")
-    checks = []
+        raise AssertionError(f"{phase} ranks exited {[p.exitcode for p in procs]}")
+    outs = []
     for rank in range(SHARDS_SLICE):
         out = ranks[rank]
-        kkt = out.pop("kkt")
+        kkt = out["kkt"]
         stop = np.nanmax(kkt[:, STOP_SET], axis=1)
         ref = np.where(kkt_unsharded != 0, kkt_unsharded, np.nan)  # 0 and NaN: no check
         rel = np.abs(kkt[-1] - ref) / np.abs(ref)
         out.update(stop_error_first=float(stop[0]), stop_error_last=float(stop[-1]),
                    kkt_rel_vs_unsharded=float(np.nanmax(rel)))
-        checks.append((rank, out, kkt, stop))
+        if out["forbidden_imports"]:
+            raise AssertionError(f"{phase} rank {rank} imported {out['forbidden_imports']}")
+        outs.append(out)
+    return backend, outs
+
+
+def _printable(outs):
+    return [{k: v for k, v in out.items() if k != "kkt"} for out in outs]
+
+
+def phase_sharded_slice(card, kkt_unsharded):
+    backend, outs = run_ranks("sharded_slice", 200, 100, kkt_unsharded)
     emit("sharded_slice", backend=backend, ranks=SHARDS_SLICE, cards=torch.cuda.device_count(),
-         per_rank=[c[1] for c in checks], card=card)
-    for rank, out, kkt, stop in checks:
+         per_rank=_printable(outs), card=card)
+    for rank, out in enumerate(outs):
         if not (out["launches"] > 0 and out["launches"] == out["cg"]["window_matvecs"]):
             raise AssertionError(f"rank {rank}: B2 launches {out['launches']} != window "
                                  f"matvecs {out['cg']['window_matvecs']}")
-        if not stop[-1] <= 0.5 * stop[0]:
-            raise AssertionError(f"rank {rank}: stop-set error {stop[0]} -> {stop[-1]}: not halved")
+        if not out["stop_error_last"] <= 0.5 * out["stop_error_first"]:
+            raise AssertionError(f"rank {rank}: stop-set error {out['stop_error_first']} -> "
+                                 f"{out['stop_error_last']}: not halved")
         if not np.isfinite(out["mass_err"]):
             raise AssertionError(f"rank {rank}: mass conservation error is not finite")
-        if out["forbidden_imports"]:
-            raise AssertionError(f"rank {rank} imported {out['forbidden_imports']}")
         if not out["kkt_rel_vs_unsharded"] <= SLICE_KKT_RTOL:
-            raise AssertionError(f"rank {rank}: KKT {kkt[-1]} vs unsharded {kkt_unsharded}")
-    return sum(c[1]["launches"] for c in checks)
+            raise AssertionError(f"rank {rank}: KKT {out['kkt'][-1]} vs unsharded {kkt_unsharded}")
+    return sum(out["launches"] for out in outs)
+
+
+def phase_sharded_spectral(card, kkt_single):
+    backend, outs = run_ranks("sharded_spectral", 64, 200, kkt_single)
+    emit("sharded_spectral", backend=backend, ranks=SHARDS_SLICE, per_rank=_printable(outs),
+         card=card)
+    for rank, out in enumerate(outs):
+        if out["cg"]["solves"] or out["launches"] or out["b1_launches"]:
+            raise AssertionError(f"rank {rank}: the sharded n64 solve took the CG path: {out['cg']}")
+        if not tf32_is_off(out["tf32_pins"]):
+            raise AssertionError(f"rank {rank}: TF32 is not pinned off: {out['tf32_pins']}")
+        if not np.isfinite(out["mass_err"]):
+            raise AssertionError(f"rank {rank}: mass conservation error is not finite")
+        if not out["kkt_rel_vs_unsharded"] <= SPECTRAL_KKT_RTOL:
+            raise AssertionError(f"rank {rank}: KKT {out['kkt'][-1]} vs single device {kkt_single}")
+
+
+def _rel_diff(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def phase_resume(card, kkt_full, solution_full):
+    legs = []
+
+    def leg(history, **fields):
+        its = history.kkt_iteration[np.isfinite(history.kkt_iteration)]
+        legs.append({**fields, "launches": window_spmv.KERNEL_LAUNCHES,
+                     "cg": dict(vars(CG_COUNTERS)), "first_validation": int(its.min()),
+                     "last_validation": int(its.max()), "snapshot_bytes": os.path.getsize(snap)})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        snap, log = str(Path(tmp) / "state.npz"), Path(tmp) / "leg2.log"
+        # First leg: solve_large to nit=50, with its forced snapshot on exit
+        # and its cold CG histogram.
+        window_spmv.KERNEL_LAUNCHES = 0
+        CG_COUNTERS.reset()
+        _, history, result = solve_large.main(
+            ["--n_space", "200", "--ntime", str(N_TIME), "--tol", "1e-4", "--nit", "50",
+             "--snapshot", snap, "--device", "cuda"])
+        torch.cuda.synchronize()
+        leg(history, **result)
+        # Second leg: the CLI, as phase 4 ran it, resumes the same file.
+        window_spmv.KERNEL_LAUNCHES = 0
+        CG_COUNTERS.reset()
+        solution, history, stats = run_cli(200, 100, ["--snapshot", snap, "--log_file", str(log)])
+        leg(history, **stats)
+        interface.set_logging_level("info")  # release the log file
+        resumed_line = re.search(r"Resuming from snapshot \S+ \(iteration (\d+),", log.read_text())
+    kkt = history.kkt_errors[-1]
+    ref = np.where(kkt_full != 0, kkt_full, np.nan)
+    kkt_rel = float(np.nanmax(np.abs(kkt - ref) / np.abs(ref)))
+    mu_rel = _rel_diff(solution["mu"], solution_full["mu"])
+    e_rel = _rel_diff(solution["E"], solution_full["E"])
+    emit("resume", legs=legs, resumed_from=resumed_line and int(resumed_line.group(1)),
+         kkt_rel_vs_uninterrupted=kkt_rel, mu_rel_vs_uninterrupted=mu_rel,
+         E_rel_vs_uninterrupted=e_rel, last_kkt=[float(e) for e in kkt], card=card)
+    if resumed_line is None or int(resumed_line.group(1)) != 49:
+        raise AssertionError("the second leg's log has no 'Resuming from snapshot' line at 49")
+    if not (legs[0]["last_validation"] == 49 and legs[1]["first_validation"] >= 50
+            and legs[1]["last_validation"] == 99):
+        raise AssertionError(f"the iteration counter did not continue: {legs}")
+    for leg in legs:
+        if not (leg["launches"] > 0 and leg["launches"] == leg["cg"]["window_matvecs"]):
+            raise AssertionError(f"B1 launches {leg['launches']} != window matvecs {leg['cg']}")
+    if not max(kkt_rel, mu_rel, e_rel) <= RESUME_RTOL:
+        raise AssertionError(f"the resumed run left the uninterrupted one: KKT {kkt_rel}, "
+                             f"mu {mu_rel}, E {e_rel} > {RESUME_RTOL}")
+    return sum(leg["launches"] for leg in legs)
+
+
+def phase_replication(card):
+    examples, congestions = ["ring", "hills"], [0.0, 0.01]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sweep.main(["--examples", *examples, "--congestions", *map(str, congestions),
+                    "--ntime", str(N_TIME), "--tol", "1e-3",
+                    "--time_limit", str(SWEEP_TIME_LIMIT), "--outdir", tmp, "--device", "cuda"])
+        sweep_seconds = time.perf_counter() - t0
+        tables = {}
+        for congestion in congestions:
+            c_dir = Path(tmp) / f"congestion_{congestion:.2f}".replace(".", "_")
+            rows = log2table.parse_log(str(c_dir / "info.log"))
+            for ext in ("tex", "html"):
+                text = (c_dir / f"comparison_table.{ext}").read_text()
+                if "Converged" not in text or not all(e.title() in text for e in examples):
+                    raise AssertionError(f"{c_dir.name}/comparison_table.{ext} lacks a row or column")
+            if [r["Example"] for r in rows] != examples:
+                raise AssertionError(f"{c_dir.name}/info.log holds {[r['Example'] for r in rows]}")
+            if not all(r.get("Converged") in ("yes", "time-capped") for r in rows):
+                raise AssertionError(f"{c_dir.name}: the Converged column is not filled: {rows}")
+            tables[c_dir.name] = rows
+        t0 = time.perf_counter()
+        _, _, history, error, rows = main_versus_exact.main(
+            ["--example=plane", "--n_space=50", f"--ntime={N_TIME}", "--tol=1e-3", "--nit=3000",
+             "--precision=float64", "--device=cuda", f"--outdir={tmp}"])
+        versus_seconds = time.perf_counter() - t0
+        table_written = (Path(tmp) / "error_versus_exact_socp.html").exists()
+    interface.set_logging_level("info")
+    kkts = [row["kkt_error"] for row in rows]
+    emit("replication", sweep=tables, sweep_seconds=sweep_seconds,
+         versus_exact={"error": error, "checkpoints": rows, "seconds": versus_seconds,
+                       "iterations": int(np.nanmax(history.kkt_iteration)) + 1}, card=card)
+    if not (len(rows) == 3 and all(b < a for a, b in zip(kkts, kkts[1:])) and kkts[0] <= 1e-1):
+        raise AssertionError(f"versus-exact: not one decreasing row per decade: {kkts}")
+    if not (0 < error["l2"] < 0.5 and table_written):
+        raise AssertionError(f"versus-exact: l2 error {error['l2']}, table written {table_written}")
+
+
+def phase_profile(card):
+    with tempfile.TemporaryDirectory() as tmp:
+        window_spmv.KERNEL_LAUNCHES = 0
+        CG_COUNTERS.reset()
+        _, _, stats = run_cli(200, 12, ["--profile_dir", tmp])
+        launches = window_spmv.KERNEL_LAUNCHES
+        trace = Path(tmp) / "solve_trace.json"
+        if not trace.is_file():
+            raise AssertionError("--profile_dir left no trace file")
+        size = trace.stat().st_size
+        events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    b1 = [e for e in kernels if "window_spmv_kernel" in e.get("name", "")]
+    emit("profile", **stats, trace_bytes=size, events=len(events), kernel_events=len(kernels),
+         window_spmv_kernel_events=len(b1), traced_iterations=interface.PROFILE_ITERATIONS,
+         launches=launches, card=card)
+    if not b1:
+        raise AssertionError("the trace names no window_spmv_kernel among its CUDA kernel events")
+    if not size <= PROFILE_MAX_BYTES:
+        raise AssertionError(f"the trace is {size} bytes (> {PROFILE_MAX_BYTES}): not bounded")
+    if not (launches == CG_COUNTERS.window_matvecs and len(b1) < launches):
+        raise AssertionError(f"{len(b1)} traced of {launches} launches, "
+                             f"{CG_COUNTERS.window_matvecs} window matvecs: the trace did not stop")
+    return launches
 
 
 def main():
     card = phase_device()
     phase_build()
     kernel = phase_kernel(card)
-    launches, kkt_unsharded = phase_slice(card)
-    phase_spectral(card)
+    launches, kkt_unsharded, solution_unsharded = phase_slice(card)
+    kkt_spectral = phase_spectral(card)
     # The kernel line reports B2 at the main path's shapes, and its worst
     # error over every shard count checked.
     sharded, *others = (phase_sharded_kernel(card, n) for n in SHARDS_KERNEL)
     sharded["max_abs_err"] = max(r["max_abs_err"] for r in [sharded, *others])
     sharded_launches = phase_sharded_slice(card, kkt_unsharded)
+    b1_paths = {"slice": launches}
+    b1_paths["resume"] = phase_resume(card, kkt_unsharded, solution_unsharded)
+    phase_replication(card)
+    b1_paths["profile"] = phase_profile(card)
+    phase_sharded_spectral(card, kkt_spectral)
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
     print(json.dumps({"kernels": [{
@@ -427,7 +636,8 @@ def main():
         "route": "cuda",
         "source": "dots_socp_torch/ops/csrc/window_spmv.cu",
         "replaces": "dots_socp_tpu/ops/pallas_spmv.py:333",
-        "launches": launches,
+        "launches": sum(b1_paths.values()),
+        "launches_by_path": b1_paths,
         **kernel,
     }, {
         "name": "sharded_window_spmv",
@@ -435,6 +645,7 @@ def main():
         "source": "dots_socp_torch/ops/csrc/window_spmv.cu",
         "replaces": "dots_socp_tpu/ops/sharded_window.py:430",
         "launches": sharded_launches,
+        "launches_by_path": {"sharded_slice": sharded_launches},
         **sharded,
     }]}))
     print(nvidia_smi_line())

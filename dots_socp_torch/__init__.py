@@ -5,9 +5,12 @@ JAX package stays the reference: every module here has its counterpart at the
 same path there (`ops/laplacian.py::cg_solve`, `solver/step.py::iteration`,
 ...), and the tests hold the two together on the same inputs.
 
-The port runs the iALM solve end to end on one device, and its CG path on a
+The port runs the iALM solve end to end on one device, and on a
 space-sharded mesh of one process per shard (`parallel/`, over
-torch.distributed). Plain tensor work is PyTorch; the JAX package's Pallas
+torch.distributed), with snapshots and resume (`utils/snapshot.py`, the JAX
+package's file format), and carries the run-to-completion surface: the
+replication harness (`replication/`), the demo (`demo.py`) and the
+large-mesh solve to tolerance (`scripts/solve_large.py`). Plain tensor work is PyTorch; the JAX package's Pallas
 kernel (the windowed cotan-Laplacian SpMV of the matrix-free CG phi-solve),
 in its single-device (B1) and per-shard (B2) forms, is hand-written CUDA
 C++ for Hopper (`ops/csrc/window_spmv.cu`). The host modules (geometry,

@@ -1,10 +1,11 @@
 """Times of the port's hand-written kernels, B1 and B2, on one NVIDIA GPU.
 
-    python -m dots_socp_torch.bench_kernels [--sweep] [--out FILE]
+    python -m dots_socp_torch.bench_kernels [--n_space N] [--skip_b2] [--sweep] [--out FILE]
 
-At plane n200 (V=46,431), 32 modes, float32, with the tiles the main path's
-`build_problem` makes: kernel B1 on one device, and kernel B2 on every shard
-of 2 and of 4 blocked shards. For each, per call:
+At plane n200 (V=46,431; --n_space picks another resolution, e.g. 410 for
+V=194,814), 32 modes, float32, with the tiles the main path's
+`build_problem` makes: kernel B1 on one device, and (unless --skip_b2)
+kernel B2 on every shard of 2 and of 4 blocked shards. For each, per call:
 
   device_us  -- summed durations of the GPU kernels of one call
                 (torch.profiler, 50 warm calls; `events` says how many of
@@ -108,19 +109,21 @@ def measure_b2(sw_all, n_shards, with_plain=True):
             "per_shard": per_shard}
 
 
-def _problems():
-    """(geometry, unsharded n200 problem data, {S: blocked problem data}) as
-    the main path builds them; no deflation vectors (the tiles do not depend
-    on them)."""
+def _problems(n_space=200, shard_counts=SHARD_COUNTS):
+    """(geometry, unsharded problem data, {S: blocked problem data}) of plane
+    `n_space` as the main path builds them; no deflation vectors (the tiles
+    do not depend on them)."""
     from dots_socp_torch import cli
     from dots_socp_torch.solver.problem import build_problem
 
-    geometry = cli.load_geometry("plane", 200)
-    _, data, _ = build_problem(N_TIME, geometry, dtype="float32", device="cuda", cg_deflation_k=0)
+    geometry = cli.load_geometry("plane", n_space)
+    _, data, _ = build_problem(N_TIME, geometry, dtype="float32", device="cuda", cg_deflation_k=0,
+                               laplacian_mode="cg")
     blocked = {}
-    for s in SHARD_COUNTS:
+    for s in shard_counts:
         _, d, _ = build_problem(N_TIME, geometry, dtype="float32", space_partitions=s,
-                                mesh_axes=(1, s), cg_deflation_k=0, device="cpu")
+                                mesh_axes=(1, s), cg_deflation_k=0, device="cpu",
+                                laplacian_mode="cg")
         blocked[s] = d
     return geometry, data, blocked
 
@@ -166,13 +169,19 @@ def main(argv=None):
     ap.add_argument("--sweep", action="store_true",
                     help="also time every tile size, and B1 at 128 modes")
     ap.add_argument("--out", default=None, help="write the result to this JSON file")
+    ap.add_argument("--n_space", type=int, default=200,
+                    help="resolution of the plane mesh (default 200: V=46,431)")
+    ap.add_argument("--skip_b2", action="store_true", help="time B1 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels needs an NVIDIA GPU")
-    geometry, data, blocked = _problems()
-    out = {"card": nvidia_smi_line(),
+    if args.sweep and args.skip_b2:
+        ap.error("--sweep times B2 too: drop --skip_b2")
+    shard_counts = () if args.skip_b2 else SHARD_COUNTS
+    geometry, data, blocked = _problems(args.n_space, shard_counts)
+    out = {"card": nvidia_smi_line(), "n_space": args.n_space,
            "b1": measure_b1(data.cg_op.window, data.cg_op),
-           "b2": [measure_b2(blocked[s].cg_op.swindow, s) for s in SHARD_COUNTS]}
+           "b2": [measure_b2(blocked[s].cg_op.swindow, s) for s in shard_counts]}
     if args.sweep:
         out.update(sweep(geometry, data, blocked))
     print(json.dumps(out), flush=True)

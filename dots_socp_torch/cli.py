@@ -17,8 +17,8 @@ A space-sharded solve runs one process per shard under torchrun:
 rank). `--num_processes`, `--process_id` and `--coordinator_address`
 replace torchrun's environment. --mesh_shape and the distributed flags are
 handled here, before `run_dot_surface`: the mesh is bound into the solver
-the interface calls. A mesh time axis > 1, --profile_dir and --snapshot are
-not ported yet (ROADMAP.md) and are rejected.
+the interface calls. A mesh time axis > 1 is not ported yet (ROADMAP.md) and
+is rejected. On a mesh only rank 0 logs, saves and traces (--profile_dir).
 """
 
 from __future__ import annotations
@@ -31,10 +31,6 @@ import logging
 import torch.distributed as dist
 from numpy import inf as np_inf
 
-_UNPORTED = (
-    ("profile_dir", "--profile_dir"),
-    ("snapshot_path", "--snapshot"),
-)
 _DIST_FLAGS = ("coordinator_address", "num_processes", "process_id")
 
 
@@ -282,15 +278,16 @@ def parse_args(parser=None, return_parser=False):
         "--profile_dir",
         type=str,
         default=None,
-        help="Capture a device trace of the solve into this directory (not "
-        "ported yet: rejected)",
+        help="Capture a torch.profiler trace (Chrome trace, CPU and CUDA "
+        "activities) of the solve into this directory; it covers the set-up "
+        "and the first 10 iterations only, which bounds its size",
     )
     exp_group.add_argument(
         "--pad_multiple",
         type=int,
         default=None,
-        help="Pad vertex/triangle counts to this multiple (default 8, as "
-        "the JAX package pads)",
+        help="Pad vertex/triangle counts to this multiple (default 1: no "
+        "padding; a snapshot resumes only under the padding it was written with)",
     )
     exp_group.add_argument(
         "--max_dense_vertices",
@@ -387,6 +384,16 @@ def main(argv=None):
     interface returns: (solution, geometry, run_history), plus the errors
     with --versus_exact. On a mesh every rank returns the whole solution;
     only rank 0 logs."""
+    parser = parse_args(return_parser=True)
+    return run(parser, parser.parse_args(argv))
+
+
+def run(parser, args, solver_name=None):
+    """The solve of parsed `args` (`parser` reports bad combinations): the
+    mesh of --mesh_shape brought up and bound into the port's solver on
+    --device, the log set up, then the interface's `run_dot_surface` (or its
+    versus-exact flow). The entry points that re-default the parser (the
+    replication scripts, the demo) come through here."""
     from dots_socp_torch.interface import (
         print_example_info,
         run_dot_surface,
@@ -394,11 +401,6 @@ def main(argv=None):
         set_logging_level,
     )
 
-    parser = parse_args(return_parser=True)
-    args = parser.parse_args(argv)
-    for attr, flag in _UNPORTED:
-        if getattr(args, attr, None) is not None:
-            parser.error(f"{flag} is not ported to dots_socp_torch yet (see ROADMAP.md)")
     group_was_up = dist.is_initialized()
     mesh = _solver_mesh(parser, args)
     # The mesh above carries these; the interface takes none of them.
@@ -406,11 +408,11 @@ def main(argv=None):
         setattr(args, attr, None)
     quiet = contextlib.ExitStack()
     if mesh is not None and mesh.rank != 0:
-        # Rank 0 logs, prints and saves; the others only solve.
+        # Rank 0 logs, prints, saves and traces; the others only solve.
         for attr in vars(args):
             if attr.startswith(("save", "show")) and getattr(args, attr) is True:
                 setattr(args, attr, False)
-        args.log_file = None
+        args.log_file = args.profile_dir = None
         quiet.enter_context(contextlib.redirect_stdout(io.StringIO()))
     try:
         with quiet:
@@ -419,9 +421,8 @@ def main(argv=None):
                 logging.getLogger().setLevel(logging.WARNING)
             print_example_info(args, additional_fields=["device", "dist_backend"])
             solver = device_solver(args.device, mesh)
-            if args.versus_exact:
-                return run_dot_surface_versus_exact(opts=args, solver=solver)
-            return run_dot_surface(opts=args, solver=solver)
+            flow = run_dot_surface_versus_exact if args.versus_exact else run_dot_surface
+            return flow(opts=args, solver=solver, solver_name=solver_name)
     finally:
         if mesh is not None and not group_was_up:
             dist.destroy_process_group()

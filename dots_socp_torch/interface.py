@@ -1,6 +1,6 @@
 # The port's own copy of dots_socp_tpu/interface.py, without the branch that
-# routes meshes, distributed start-up and the profiler to JAX; the default
-# solver is the port's.
+# routes meshes and distributed start-up to JAX; the profiler trace is
+# torch.profiler's, and the default solver is the port's.
 """Top-level interface: configure, solve, evaluate, visualize.
 
 Parity with reference `interface.py:25-480`: the same pluggable-solver
@@ -11,6 +11,7 @@ visualization orchestration, and the versus-exact flow.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from argparse import Namespace as argparse_namespace
 from pathlib import Path
@@ -70,6 +71,55 @@ def set_logging_level(log_level, log_file=None):
     else:
         fmt = "%(message)s"
     logging.basicConfig(level=level, format=fmt, handlers=handlers, force=True)
+
+
+#: Iterations of the solve that a --profile_dir trace covers. An iteration
+#: of the large-mesh CG path is more than a thousand kernel launches, so a
+#: whole solve would be millions of events; the trace stops after these.
+PROFILE_ITERATIONS = 10
+
+
+@contextlib.contextmanager
+def profiler_trace(profile_dir, iterations=PROFILE_ITERATIONS):
+    """Trace what runs inside with torch.profiler (CPU activities and, with a
+    card, CUDA ones) from entry until `iterations` solver iterations have
+    run, and write a Chrome trace (chrome://tracing, Perfetto) to
+    `profile_dir`/solve_trace.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dots_socp_torch.solver import step
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    Path(profile_dir).mkdir(parents=True, exist_ok=True)
+    out = Path(profile_dir) / "solve_trace.json"
+    prof = profile(activities=activities)
+    left = iterations
+
+    def finish():
+        nonlocal left
+        if left is None:
+            return
+        left = None
+        step.AFTER_ITERATION = None
+        prof.stop()
+        prof.export_chrome_trace(str(out))
+        logging.log(LOG_LEVELS["info"], f"Profiler trace: {out}")
+
+    def after_iteration():
+        nonlocal left
+        left -= 1
+        if left <= 0:
+            finish()
+
+    prof.start()
+    step.AFTER_ITERATION = after_iteration
+    try:
+        yield out
+    finally:
+        finish()
 
 
 def _validate_opts(opts):
@@ -197,8 +247,8 @@ def run_dot_surface(opts, solver=None, solver_name=None):
 
     # A device mesh (--mesh_shape, torch.distributed) and the device are the
     # caller's: `dots_socp_torch.cli.main` binds them into `solver` before
-    # this call. --profile_dir is not ported (the CLI rejects it).
-    for key in ("mesh_shape", "coordinator_address", "num_processes", "process_id", "profile_dir"):
+    # this call.
+    for key in ("mesh_shape", "coordinator_address", "num_processes", "process_id"):
         if getattr(opts, key, None) is not None:
             raise ValueError(
                 f"run_dot_surface does not take opts.{key}: bind the mesh into "
@@ -206,7 +256,10 @@ def run_dot_surface(opts, solver=None, solver_name=None):
             )
 
     normalized_geometry, scale_factor = normalize_geometry(geometry)
-    solution, run_history = solver(n_time, normalized_geometry, **optional_args)
+    profile_dir = getattr(opts, "profile_dir", None)
+    # Device trace of the solve's first iterations (set-up, launches, kernels).
+    with profiler_trace(profile_dir) if profile_dir else contextlib.nullcontext():
+        solution, run_history = solver(n_time, normalized_geometry, **optional_args)
 
     if not isinstance(solution, dict) or "mu" not in solution:
         raise ValueError("solver must return a dict containing 'mu'")

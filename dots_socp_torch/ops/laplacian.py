@@ -161,12 +161,18 @@ def _spectral_eigh_cached(lap_space, av, c, dtype, min_cache_v: int = 4096):
     return w, q
 
 
-def spectral_solve(factor: SpectralFactor, rhs):
+def spectral_solve(factor: SpectralFactor, rhs, mesh=None):
     """Apply the space-time Laplacian pseudo-inverse to rhs (T+1, V): two
-    small time-transform GEMMs and two (T+1,V)x(V,V) GEMMs."""
+    small time-transform GEMMs and two (T+1,V)x(V,V) GEMMs.
+
+    On one shard of a space-sharded problem (`mesh`; rhs, `s` and the rows
+    of `q` are this shard's vertex block, `u_time` and `invfac` whole) the
+    time transforms and scalings are local, the first GEMM gives this
+    shard's partial eigen-coefficients, and one all-reduce of the (T+1, V)
+    array sums them; the second GEMM then gives this shard's block."""
     y = factor.u_time.T @ rhs  # time transform
     y = y * factor.s[None, :]
-    coef = y @ factor.q
+    coef = space_sum(y @ factor.q, mesh)
     coef = coef * factor.invfac
     z = coef @ factor.q.T
     z = z * factor.s[None, :]

@@ -12,6 +12,8 @@ Layout on a (1, S) mesh:
   vertex fields (..., V)        -> (..., v_chunk)   block rank
   triangle fields (F, ...)      -> (f_chunk, ...)   block rank
   state (T+1, F, 3), (T, 2, F, 3, 3) -> their F block
+  spectral factor: s (V,) and the rows of q (V, V) -> block rank; u_time
+                   and invfac (T+1, V: eigen-indices, not vertices) whole
   scalars, time operators, shifts, tolerances -> replicated
 """
 
@@ -57,13 +59,19 @@ def shard_problem(mesh, data):
     mesh.space (`solver.problem.build_problem`), on mesh.device."""
     if data.halo is None:
         raise ValueError("shard_problem needs a blocked problem (space_partitions > 1)")
-    if data.spectral is not None:
-        raise NotImplementedError(
-            "the sharded spectral path (a dense factor on a space mesh) is not "
-            "ported to dots_socp_torch yet (see ROADMAP.md, 'Still to port')"
-        )
     v, f = data.ops.av.shape[0], data.ops.area_f.shape[0]
     rep = lambda x: None if x is None else x.to(mesh.device)
+    spectral = data.spectral
+    if spectral is not None:
+        # The contraction over q's rows is local per shard, then summed
+        # (`ops.laplacian.spectral_solve`); JAX also cuts invfac by columns,
+        # which the all-reduced coefficients here do not need.
+        spectral = spectral._replace(
+            u_time=rep(spectral.u_time),
+            s=_take(spectral.s, 0, v, mesh),
+            q=_take(spectral.q, 0, v, mesh),
+            invfac=rep(spectral.invfac),
+        )
     h = data.halo
     halo = type(h)(
         vtx_export=h.vtx_export[mesh.rank].to(mesh.device),
@@ -103,6 +111,7 @@ def shard_problem(mesh, data):
     consts = {n: getattr(data, n).to(mesh.device) for n in data._fields if n.startswith("c_")}
     return data._replace(
         ops=_shard_ops(data.ops, v, f, mesh),
+        spectral=spectral,
         cg_op=cg,
         halo=halo,
         ops_hi=_shard_ops(data.ops_hi, v, f, mesh),

@@ -16,9 +16,14 @@ the same iterations and collectives. The solution is gathered back to the
 real vertex order on every rank; the run history and the log come from
 rank 0 only.
 
-Not ported yet (see ROADMAP.md): a mesh time axis > 1, the sharded spectral
-path, crash-safe snapshots (`snapshot_path`) and profiler traces
-(`profile_dir`); each raises NotImplementedError.
+With `snapshot_path` the state and the host schedules are written to one
+.npz file (`utils.snapshot`) every `snapshot_every` seconds and on loop
+exit, and a run that finds the file resumes from it. On a mesh rank 0
+decides when (its clock) and writes the gathered state; on resume every
+rank reads the file and keeps its shard.
+
+Not ported yet (see ROADMAP.md): a mesh time axis > 1, which raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import contextlib
 import functools
 import io
 import logging
+import os
 import time
 from math import exp, sqrt
 
@@ -56,6 +62,7 @@ from dots_socp_torch.solver.step import (
 )
 from dots_socp_torch.config import LOG_LEVELS
 from dots_socp_torch.utils.history import RunningHistory
+from dots_socp_torch.utils.snapshot import load_snapshot, save_snapshot, state_from_arrays
 from dots_socp_torch.utils.types import CheckpointDotData, GeometryData, SolutionSocpData
 
 KKT_LABELS = [
@@ -145,7 +152,6 @@ def solver_socp(
     snapshot_every=300.0,
     sigma_freeze_error=None,
     phi_refine="auto",
-    profile_dir=None,
     device="cuda",
 ):
     """Solve the SOCP reformulation of DOT on a discrete surface.
@@ -161,20 +167,22 @@ def solver_socp(
         inner CG, whose matvec is the window SpMV kernel).
     mesh : `parallel.distributed.SpaceMesh` (`make_solver_mesh("1xS")`):
         this rank solves its space shard of a blocked layout (replacing
-        pad_multiple) on mesh.device, which replaces `device`. The CG path
-        only; its inner matvec is kernel B2.
-    snapshot_path, profile_dir : not ported yet; raise.
-    `is_multi_threads` and `snapshot_every` are accepted for API parity.
+        pad_multiple) on mesh.device, which replaces `device`. The inner
+        matvec of its CG path is kernel B2; its spectral path sums the
+        shards' partial eigen-coefficients in one all-reduce per solve.
+    snapshot_path : crash-safe periodic snapshot of the state and the host
+        schedules to this .npz path (the JAX package's format); if the file
+        exists, the run RESUMES from it (same n_time and padded vertex
+        count required). Tolerance checkpoints recorded before the snapshot
+        are not replayed on resume.
+    snapshot_every : seconds between periodic snapshots (a final one is
+        always written on loop exit when snapshot_path is set).
+    `is_multi_threads` is accepted for API parity.
     """
     if mesh is not None and mesh.time > 1:
         from dots_socp_torch.parallel.distributed import TIME_AXIS_TODO
 
         raise NotImplementedError(TIME_AXIS_TODO)
-    for name, value in (("snapshot_path", snapshot_path), ("profile_dir", profile_dir)):
-        if value is not None:
-            raise NotImplementedError(
-                f"dots_socp_torch: {name} is not ported yet (see ROADMAP.md)"
-            )
     logging.basicConfig(level=LOG_LEVELS["info"], format="%(message)s")
 
     checkpoint_solutions = []
@@ -282,6 +290,25 @@ def solver_socp(
         phi_dtype=config.phi_dtype,
         device=data.ops.av.device,
     )
+    # --- resume from an on-disk snapshot (every rank reads the file) --------
+    resumed = None
+    if snapshot_path is not None and rank0_decides(os.path.exists(snapshot_path), mesh):
+        arrays, resumed = load_snapshot(snapshot_path)
+        if resumed["n_time"] != n_time or arrays["phi"].shape[1] != config.n_vertices:
+            raise ValueError(
+                f"snapshot at {snapshot_path} was written for n_time="
+                f"{resumed['n_time']}, V={arrays['phi'].shape[1]}; this run has "
+                f"n_time={n_time}, V={config.n_vertices}"
+            )
+        state = state_from_arrays(
+            arrays, config.torch_dtype, phi_dtype=config.phi_dtype, device=state.phi.device
+        )
+        logging.log(
+            LOG_LEVELS["info"],
+            f"Resuming from snapshot {snapshot_path} "
+            f"(iteration {resumed['iteration']}, {resumed['elapsed']:.1f}s elapsed)",
+        )
+
     if space_size > 1:
         data = shard_problem(mesh, data)
         state = shard_state(mesh, state)
@@ -301,11 +328,13 @@ def solver_socp(
     run_history.start()
     run_history.create_tol_progress(target_tol=tol)
 
-    if is_z_scaling:
-        logging.log(LOG_LEVELS["scaling"], "Initially scale z with z factor: 2.0")
-        state = apply_z_scale(state, 2.0)
-    if is_constant_scaling:
-        state = _initial_constant_scaling(config, data, state, n_time)
+    # Initial scalings (already baked into a resumed state).
+    if resumed is None:
+        if is_z_scaling:
+            logging.log(LOG_LEVELS["scaling"], "Initially scale z with z factor: 2.0")
+            state = apply_z_scale(state, 2.0)
+        if is_constant_scaling:
+            state = _initial_constant_scaling(config, data, state, n_time)
 
     def fetch_kkt(state):
         t0 = time.perf_counter()
@@ -329,6 +358,67 @@ def solver_socp(
     is_org_kkt = False
     start_time = time.perf_counter()
     passed = False
+
+    def set_cg_rtol(value):
+        nonlocal data
+        data = data._replace(
+            cg_op=data.cg_op._replace(
+                rtol=torch.tensor(value, dtype=config.torch_dtype, device=device)
+            )
+        )
+
+    if resumed is not None:
+        it = int(resumed["iteration"]) + 1
+        it_done = int(resumed["iteration"])
+        sched.last_adjust_it = int(resumed["last_adjust_it"])
+        sched.z_scale_count = int(resumed["z_scale_count"])
+        cadence.current_interval = int(resumed["cadence_interval"])
+        cadence.counter = int(resumed["cadence_counter"])
+        converged_mask[:] = np.asarray(resumed["converged_mask"], dtype=bool)
+        is_org_kkt = bool(resumed["is_org_kkt"])
+        if resumed.get("tol_checkpoints") is not None:
+            tol_checkpoints = list(resumed["tol_checkpoints"])
+        sigma_frozen = bool(resumed.get("sigma_frozen", False))
+        start_time -= float(resumed["elapsed"])  # time_limit spans the whole run
+        # The adaptive inner tolerance the run had reached. The JAX package
+        # does not write it (its resumed CG run starts again from 1e-3 until
+        # the first validation); without the key this run does the same.
+        if cg_rtol_adaptive and data.cg_op is not None and resumed.get("cg_rtol") is not None:
+            set_cg_rtol(float(resumed["cg_rtol"]))
+
+    def host_schedule_meta(iteration):
+        return {
+            "n_time": n_time,
+            "iteration": int(iteration),
+            "last_adjust_it": int(sched.last_adjust_it),
+            "z_scale_count": int(sched.z_scale_count),
+            "cadence_interval": int(cadence.current_interval),
+            "cadence_counter": int(cadence.counter),
+            "converged_mask": [bool(b) for b in converged_mask],
+            "is_org_kkt": bool(is_org_kkt),
+            "sigma_frozen": bool(sigma_frozen),
+            "tol_checkpoints": tol_checkpoints,
+            "elapsed": time.perf_counter() - start_time,
+            # Port-only key (the JAX loader ignores unknown keys).
+            "cg_rtol": float(data.cg_op.rtol) if data.cg_op is not None else None,
+        }
+
+    last_snapshot_time = time.perf_counter()
+
+    def maybe_snapshot(iteration, force=False):
+        """Write the snapshot when forced or due. On a mesh rank 0's clock
+        decides for every rank (the gather below is a collective), and
+        rank 0 writes the gathered state."""
+        nonlocal last_snapshot_time
+        if snapshot_path is None:
+            return
+        due = (time.perf_counter() - last_snapshot_time) >= snapshot_every
+        if not (force or rank0_decides(due, mesh)):
+            return
+        whole = gather_state(mesh, state) if space_size > 1 else state
+        if mesh is None or mesh.rank == 0:
+            save_snapshot(snapshot_path, whole, host_schedule_meta(iteration))
+        last_snapshot_time = time.perf_counter()
 
     while it < nit:
         # ---- pre-iteration events at iteration `it` ------------------------
@@ -361,7 +451,7 @@ def solver_socp(
             that keys off it (cadence interval, progress, checkpoints,
             is_org_kkt switch, sigma update). sigma_on_device: the segment
             already applied the sigma update."""
-            nonlocal passed, error, is_org_kkt, state, data, sigma_frozen
+            nonlocal passed, error, is_org_kkt, state, sigma_frozen
             passed = bool(np.all(org < tol))
             if check_kkt_step_by_step:
                 cost, lagrangian = map(float, objective_functional(config, data, state))
@@ -392,13 +482,7 @@ def solver_socp(
                             LOG_LEVELS["kkt"],
                             f"CG inner rtol -> {new_rtol:.2e} at iteration {check_it}",
                         )
-                        data = data._replace(
-                            cg_op=data.cg_op._replace(
-                                rtol=torch.tensor(
-                                    new_rtol, dtype=config.torch_dtype, device=device
-                                )
-                            )
-                        )
+                        set_cg_rtol(new_rtol)
 
             if not whether_adjust or check_kkt_step_by_step:
                 newly = [
@@ -503,6 +587,7 @@ def solver_socp(
                 if passed:
                     break
 
+            maybe_snapshot(it_done)
             if passed or is_time_up:
                 break
             continue
@@ -520,10 +605,12 @@ def solver_socp(
         cadence.advance(k - 1)
         cadence.tick(forced=True)
         process_validation(table[:, 0], table[:, 1], it_done, whether_adjust)
+        maybe_snapshot(it_done)
         if passed or is_time_up:
             break
 
     counter_main = it_done if it_done >= 0 else -1
+    maybe_snapshot(counter_main, force=True)
 
     # --- final validation + recovery ---------------------------------------
     org, scaled = fetch_kkt(state)

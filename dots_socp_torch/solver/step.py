@@ -51,7 +51,7 @@ def solve_laplacian(config: ProblemConfig, data: ProblemData, state: SolverState
     """Step 1a: solve the space-time Laplacian system for phi."""
     rhs = laplacian_rhs(config, data, state)
     if config.laplacian_mode == "spectral":
-        return spectral_solve(data.spectral, rhs)
+        return spectral_solve(data.spectral, rhs, mesh=data.mesh)
     return cg_solve(
         data.ops,
         data.cg_op,
@@ -145,10 +145,17 @@ def iteration(config: ProblemConfig, data: ProblemData, state: SolverState):
     )
 
 
+#: Called after every iteration when set (None: nothing is called). The
+#: interface's bounded profiler trace counts iterations through it.
+AFTER_ITERATION = None
+
+
 def run_chunk(config: ProblemConfig, data: ProblemData, state: SolverState, n):
     """Run `n` iterations."""
     for _ in range(int(n)):
         state = iteration(config, data, state)
+        if AFTER_ITERATION is not None:
+            AFTER_ITERATION()
     return state
 
 

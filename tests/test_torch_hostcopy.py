@@ -41,6 +41,7 @@ from dots_socp_tpu.models import registry as j_reg
 from dots_socp_tpu.utils import density as j_udens
 from dots_socp_tpu.utils import evaluate as j_eval
 from dots_socp_tpu.utils import history as j_hist
+from torch_rank_worker import ONE_THREAD_ENV
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -244,8 +245,8 @@ def test_config_equal():
 
 def test_interface_validates_and_maps_alike():
     """The interface's option map and validation are the original's; the
-    port's refuses a mesh or a profiler in opts (its CLI binds the mesh into
-    the solver instead of handing it to JAX)."""
+    port's refuses a mesh in opts (its CLI binds the mesh into the solver
+    instead of handing it to JAX)."""
     from argparse import Namespace
 
     assert t_interface._KEY_MAPPING == j_interface._KEY_MAPPING
@@ -260,6 +261,61 @@ def test_interface_validates_and_maps_alike():
     opts = Namespace(ntime=3, example="plane", n_space=6, mesh_shape="1x2")
     with pytest.raises(ValueError, match="mesh_shape"):
         t_interface.run_dot_surface(opts, solver=lambda *a, **k: None)
+
+
+SWEEP_LOG = """\
+2026-01-05 10:00:00,123 ---- Info: Experiment Setting -------------
+example: ring
+congestion: 0.01
+2026-01-05 10:00:00,200 ---- Discretization ----------------------
+Example name: ring
+Number of points in time: 31
+Number of vertices: 3072
+Number of triangles: 6144
+2026-01-05 10:00:09,000 Transportation cost: 9.803123e-01
+Time of steps                         :    8.31 sec (95.58%)
+Total Iteration                       :     412 iterations
+2026-01-05 10:00:09,100 Converged: yes
+2026-01-05 10:00:10,000 ---- Info: Experiment Setting -------------
+example: hills
+2026-01-05 10:00:10,100 Example name: hills
+Number of vertices: 11716
+Number of triangles: 23040
+Transportation cost: 1.250000e+00
+Time of steps                         :   30.02 sec (99.00%)
+Total Iteration (l.l.)                :     999 iterations
+Converged: time-capped
+2026-01-05 10:01:00,000 ---- Info: Experiment Setting -------------
+Example name: broken_block
+"""
+
+
+def test_log2table_copy_gives_what_the_original_gives(tmp_path):
+    """The port's copy of replication/log2table.py: the same records from
+    the same log (time stamps stripped, the optional Converged column, an
+    incomplete block dropped with a warning) and the same exported files."""
+    import importlib.util
+
+    from dots_socp_torch.replication import log2table as t_l2t
+
+    spec = importlib.util.spec_from_file_location("orig_log2table_copycheck",
+                                                  REPO / "replication" / "log2table.py")
+    j_l2t = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(j_l2t)
+    log = tmp_path / "info.log"
+    log.write_text(SWEEP_LOG)
+    with pytest.warns(UserWarning, match="incomplete experiment block"):
+        records = t_l2t.parse_log(str(log))
+    with pytest.warns(UserWarning, match="incomplete experiment block"):
+        assert records == j_l2t.parse_log(str(log))
+    assert [r["Example"] for r in records] == ["ring", "hills"]
+    assert [r["Converged"] for r in records] == ["yes", "time-capped"]
+    assert t_l2t.FIELDS == j_l2t.FIELDS and t_l2t.OPTIONAL_FIELDS == j_l2t.OPTIONAL_FIELDS
+    for mod, tag in ((t_l2t, "port"), (j_l2t, "orig")):
+        with pytest.warns(UserWarning):
+            mod.log2table(str(log), [str(tmp_path / f"{tag}.{ext}") for ext in ("csv", "tex", "html")])
+    for ext in ("csv", "tex", "html"):
+        assert (tmp_path / f"port.{ext}").read_text() == (tmp_path / f"orig.{ext}").read_text()
 
 
 def test_cli_solve_imports_neither_jax_nor_the_jax_package(tmp_path):
@@ -281,7 +337,7 @@ def test_cli_solve_imports_neither_jax_nor_the_jax_package(tmp_path):
         "assert not bad, bad\n"
         "print('IMPORTS_CLEAN')\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), **ONE_THREAD_ENV)
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]

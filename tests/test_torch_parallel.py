@@ -1,7 +1,8 @@
 """The port's space-sharded layer (`dots_socp_torch.parallel`) against the
 JAX package: the blocked partition, the halo gathers and reductions on four
-gloo CPU ranks, and 30 iterations of the sharded solver on two ranks
-against the single-device port and JAX's sharded solver.
+gloo CPU ranks, and 30 iterations of the sharded solver (CG path on two
+ranks, spectral path on two and four) against the single-device port and
+JAX's sharded solver.
 
 The ranks are subprocesses running `tests/torch_rank_worker.py` (no jax),
 meeting through a file:// rendezvous in the test's tmp_path; the JAX side
@@ -22,10 +23,16 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from dots_socp_torch.parallel import distributed as tpd
 from dots_socp_torch.parallel import partition as tpart
 from dots_socp_tpu.parallel import partition as jpart
-from torch_rank_worker import geometry_inputs, run_ranks
+from torch_rank_worker import ONE_THREAD_ENV, geometry_inputs, one_thread, run_ranks
 
 REPO = Path(__file__).resolve().parents[1]
 N_TIME = 6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_per_worker():
+    with one_thread():
+        yield
 
 
 @pytest.mark.parametrize("n_parts", [2, 4])
@@ -98,7 +105,7 @@ def test_halo_ops_match_reference(plane_geometry, tmp_path):
 
 SOLVE_KW = dict(
     nit=30, tol=1e-12, time_limit=300, precision="float64",
-    # The sharded spectral path is not ported; a fixed tight inner
+    # The CG path (the spectral one follows below); a fixed tight inner
     # tolerance makes each phi-solve exact to rounding on both layouts.
     laplacian_mode="cg", cg_rtol=1e-14,
 )
@@ -143,6 +150,82 @@ def test_sharded_solver_matches_reference(plane_geometry, sharded_solve):
     _assert_solutions_close(sharded_solve[0], ref)
 
 
+SPECTRAL_KW = dict(nit=30, tol=1e-12, time_limit=300, precision="float64")  # auto -> spectral
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["1x2", "1x4"])
+def sharded_spectral(request, plane_geometry, tmp_path_factory):
+    """The port's solver on a 1xS mesh of gloo CPU ranks on the spectral
+    path (the dense factor cut by rows, one all-reduce per phi-solve)."""
+    inputs = dict(geometry_inputs(plane_geometry), n_time=N_TIME, kw_device="cpu",
+                  **{f"kw_{k}": v for k, v in SPECTRAL_KW.items()})
+    world = request.param
+    return world, run_ranks(tmp_path_factory.mktemp(f"spectral{world}"), "solve", world, inputs)
+
+
+def test_sharded_spectral_matches_single_device(plane_geometry, sharded_spectral):
+    """30 iterations of the sharded spectral path reproduce the single-device
+    port (rtol 1e-9, atol 1e-12, the bound of tests/test_parallel.py:20-28),
+    with the same validation points; every rank returns the same solution."""
+    from dots_socp_torch.solver import solver_socp
+
+    _, ranks = sharded_spectral
+    single, history = solver_socp(N_TIME, plane_geometry, device="cpu", **SPECTRAL_KW)
+    for other in ranks[1:]:
+        for key in ("mu", "E", "phi"):
+            np.testing.assert_array_equal(ranks[0][key], other[key])
+    _assert_solutions_close(ranks[0], single)
+    np.testing.assert_array_equal(ranks[0]["kkt_iteration"], history.kkt_iteration)
+    np.testing.assert_allclose(ranks[0]["kkt_errors"], history.kkt_errors, rtol=1e-9, atol=1e-13)
+
+
+def test_sharded_spectral_matches_reference(plane_geometry, sharded_spectral):
+    """The same 30 iterations against JAX's sharded solver_socp on a mesh of
+    the same shape, which takes its spectral path too."""
+    from dots_socp_tpu.parallel.mesh import make_mesh
+    from dots_socp_tpu.solver import solver_socp
+
+    world, ranks = sharded_spectral
+    ref, _ = solver_socp(N_TIME, plane_geometry, mesh=make_mesh(world, time_axis=1), **SPECTRAL_KW)
+    _assert_solutions_close(ranks[0], ref)
+
+
+@pytest.mark.parametrize("n_parts", [2, 4])
+def test_converted_spectral_factor_equals_reference_shards(plane_geometry, n_parts):
+    """convert.py turns JAX's blocked spectral problem into one rank's
+    shard: s and the rows of q equal the block JAX places on that device
+    (`parallel/mesh.py:103-112`), u_time and invfac stay whole; and the
+    port's own build_problem + shard_problem gives the same factor."""
+    from dots_socp_torch.convert import problem_from_reference
+    from dots_socp_torch.parallel.mesh import shard_problem as t_shard_problem
+    from dots_socp_torch.solver.problem import build_problem as t_build_problem
+    from dots_socp_tpu.parallel.mesh import make_mesh, shard_problem
+    from dots_socp_tpu.solver.problem import build_problem
+
+    kw = dict(dtype="float64", space_partitions=n_parts, mesh_axes=(1, n_parts))
+    config, data, _ = build_problem(N_TIME, plane_geometry, **kw)
+    assert data.spectral is not None and data.halo is not None
+    sharded = shard_problem(make_mesh(n_parts, time_axis=1), data)
+    chunk = config.n_vertices // n_parts
+    q_blocks = {sh.index[0].start // chunk: np.asarray(sh.data)
+                for sh in sharded.spectral.q.addressable_shards}
+    s_blocks = {sh.index[0].start // chunk: np.asarray(sh.data)
+                for sh in sharded.spectral.s.addressable_shards}
+    assert sorted(q_blocks) == list(range(n_parts))
+    _, whole, _ = t_build_problem(N_TIME, plane_geometry, device="cpu", **kw)
+    host = jax.tree.map(np.asarray, data)
+    for rank in range(n_parts):
+        mesh = tpd.SpaceMesh(space=n_parts, rank=rank, device=torch.device("cpu"))
+        _, converted = problem_from_reference(config, host, mesh=mesh)
+        built = t_shard_problem(mesh, whole)
+        for factor in (converted.spectral, built.spectral):
+            assert factor.q.shape == (chunk, config.n_vertices)
+            np.testing.assert_array_equal(factor.q.numpy(), q_blocks[rank])
+            np.testing.assert_array_equal(factor.s.numpy(), s_blocks[rank])
+            np.testing.assert_array_equal(factor.u_time.numpy(), np.asarray(data.spectral.u_time))
+            np.testing.assert_array_equal(factor.invfac.numpy(), np.asarray(data.spectral.invfac))
+
+
 def test_cli_sharded_solve_with_explicit_flags(tmp_path):
     """The CLI on a 1x2 mesh with --num_processes / --process_id /
     --coordinator_address (two gloo CPU processes): both exit 0, only rank 0
@@ -163,7 +246,7 @@ def test_cli_sharded_solve_with_explicit_flags(tmp_path):
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(REPO), **ONE_THREAD_ENV)
     procs = [
         subprocess.Popen(
             [sys.executable, "-m", "dots_socp_torch.cli", *argv, "--mesh_shape", "1x2",

@@ -25,9 +25,16 @@ from dots_socp_tpu.solver import step as j_step
 from dots_socp_tpu.solver.kkt import compute_kkt as j_kkt
 from dots_socp_tpu.solver.scaling import apply_z_scale
 from dots_socp_tpu.solver.state import init_state
+from torch_rank_worker import ONE_THREAD_ENV, one_thread
 
 REPO = Path(__file__).resolve().parents[1]
 N_TIME = 7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_per_worker():
+    with one_thread():
+        yield
 
 CONFIGS = {
     # f64 matrix-free CG at a fixed tight inner tolerance, no refinement.
@@ -243,8 +250,9 @@ def test_warm_start_matches_reference(plane_geometry):
 
 def test_port_imports_no_jax():
     """The port's import graph (package, solver, kernel wrappers, CLI and
-    interface, the profiler, the kernel benchmark and chip_smoke.py) leaves
-    jax and the JAX package unimported."""
+    interface, snapshots, the replication scripts, the demo, solve_large,
+    the profiler, the kernel benchmark and chip_smoke.py) leaves jax and the
+    JAX package unimported."""
     code = (
         "import sys\n"
         "import dots_socp_torch, dots_socp_torch.solver, dots_socp_torch.ops.window_spmv\n"
@@ -255,12 +263,16 @@ def test_port_imports_no_jax():
         "import dots_socp_torch.profile_slice, dots_socp_torch.bench_kernels, chip_smoke\n"
         "import dots_socp_torch.kernel_timing\n"
         "import dots_socp_torch.interface, dots_socp_torch.data, dots_socp_torch.models\n"
+        "import dots_socp_torch.utils.snapshot, dots_socp_torch.demo\n"
+        "import dots_socp_torch.replication.main, dots_socp_torch.replication.sweep\n"
+        "import dots_socp_torch.replication.main_versus_exact\n"
+        "import dots_socp_torch.replication.log2table, dots_socp_torch.scripts.solve_large\n"
         "from dots_socp_torch import solver\n"
         "assert callable(solver)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dots_socp_tpu'))\n"
         "assert not bad, bad\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), **ONE_THREAD_ENV)
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
@@ -279,17 +291,30 @@ def test_cuda_request_without_cuda_raises(plane_geometry):
         solver(N_TIME, plane_geometry, nit=5)  # device="cuda" is the default
 
 
-def test_solver_rejects_unported_options(plane_geometry):
+def test_solver_rejects_unported_options(plane_geometry, tmp_path):
+    """What the port still refuses is a mesh time axis > 1; what it took on
+    since (a snapshot path) runs, and `solver_socp` has no parameter that
+    the JAX `solver_socp` lacks other than `device`."""
+    import inspect
+
     from dots_socp_torch.parallel.distributed import SpaceMesh
     from dots_socp_torch.solver import solver_socp
+    from dots_socp_tpu.solver import solver_socp as j_solver_socp
 
     time_mesh = SpaceMesh(space=1, rank=0, device=torch.device("cpu"), time=2)
-    for kw in ({"mesh": time_mesh}, {"snapshot_path": "s.npz"}, {"profile_dir": "p"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            solver_socp(N_TIME, plane_geometry, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        solver_socp(N_TIME, plane_geometry, device="cpu", mesh=time_mesh)
+    with pytest.raises(TypeError, match="profile_dir"):
+        solver_socp(N_TIME, plane_geometry, device="cpu", profile_dir="p")
+    port = list(inspect.signature(inspect.unwrap(solver_socp)).parameters)
+    ref = list(inspect.signature(j_solver_socp).parameters)
+    assert port == ref + ["device"]
+    snap = tmp_path / "s.npz"
+    solver_socp(N_TIME, plane_geometry, device="cpu", nit=3, snapshot_path=str(snap))
+    assert snap.is_file()
 
 
-def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys):
+def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys, tmp_path):
     from dots_socp_torch import cli
 
     base = ["--example", "plane", "--n_space", "8", "--ntime", "4", "--nit", "30",
@@ -298,9 +323,15 @@ def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys):
     assert solution["mu"].shape == (5, geometry["vertices"].shape[0])
     assert np.isfinite(history.kkt_errors).all()
     # A mesh time axis, a mesh without --dist_backend or without a process
-    # group, distributed flags without a mesh, and the unported flags.
+    # group, and distributed flags without a mesh.
     for extra in (["--mesh_shape", "2x1"], ["--mesh_shape", "2"],
-                  ["--mesh_shape", "2", "--dist_backend", "gloo"], ["--process_id", "0"],
-                  ["--profile_dir", "p"], ["--snapshot", "s.npz"]):
+                  ["--mesh_shape", "2", "--dist_backend", "gloo"], ["--process_id", "0"]):
         with pytest.raises(SystemExit):
             cli.main(base + extra)
+    assert "not ported" in capsys.readouterr().err  # the time axis's message
+    # Ported since: --snapshot writes its file and a second call resumes it.
+    snap = tmp_path / "s.npz"
+    cli.main(base + ["--snapshot", str(snap)])
+    assert snap.is_file()
+    _, _, resumed = cli.main(base + ["--snapshot", str(snap), "--nit", "40"])
+    assert np.nanmin(resumed.kkt_iteration) >= 29

@@ -14,12 +14,15 @@ Tasks:
   window -- kernel B2's matvec through the window permutes, the permute
             round trip, and a refined sharded cg_solve
   solve  -- solver_socp on the mesh; every rank writes the solution
+  resume -- solver_socp to `first_nit` iterations with a snapshot, then a
+            second call that resumes from it to `nit`
 
 `run_ranks` starts the ranks for a test and collects their outputs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -38,6 +41,29 @@ from dots_socp_torch.solver.problem import build_problem
 REPO = Path(__file__).resolve().parents[1]
 
 
+#: Environment of a subprocess that should compute on one thread.
+ONE_THREAD_ENV = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+@contextlib.contextmanager
+def one_thread():
+    """PyTorch's intra-op pool and the BLAS's pool cut to one thread inside.
+    Several pytest workers, each with pools as wide as the machine, slow
+    each other down by an order of magnitude; the small problems of the
+    tests gain nothing from threads."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:  # then only PyTorch's pool is cut
+        threadpool_limits = None
+    try:
+        with threadpool_limits(limits=1) if threadpool_limits else contextlib.nullcontext():
+            yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def geometry_inputs(geometry):
     """The geometry's arrays under the worker's geo_ keys."""
     return {f"geo_{k}": np.asarray(v) for k, v in geometry.items() if v is not None}
@@ -48,7 +74,7 @@ def run_ranks(tmp_path, task, world, inputs, device="cpu", timeout=300):
     One thread per rank: several CPU ranks with PyTorch's default thread
     pools slow each other down by an order of magnitude."""
     np.savez(tmp_path / "in.npz", **inputs)
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(REPO), **ONE_THREAD_ENV)
     init = f"file://{tmp_path / 'rendezvous'}"
     procs = [
         subprocess.Popen(
@@ -140,15 +166,21 @@ def task_window(inp, mesh):
     }
 
 
-def task_solve(inp, mesh):
+def task_solve(inp, mesh, **over):
     from dots_socp_torch.solver import solver_socp
 
     kw = {k[3:]: v.item() for k, v in inp.items() if k.startswith("kw_")}
+    kw.update(over)
     solution, history = solver_socp(int(inp["n_time"]), _geometry(inp), mesh=mesh, **kw)
     return {
         "mu": solution["mu"], "E": solution["E"], "phi": solution["phi"],
         "kkt_iteration": history.kkt_iteration, "kkt_errors": history.kkt_errors,
     }
+
+
+def task_resume(inp, mesh):
+    task_solve(inp, mesh, nit=int(inp["first_nit"]))
+    return task_solve(inp, mesh, nit=int(inp["nit"]))
 
 
 def main(argv):
@@ -169,7 +201,7 @@ def main(argv):
         torch.distributed.destroy_process_group()
 
 
-TASKS = {"halo": task_halo, "window": task_window, "solve": task_solve}
+TASKS = {"halo": task_halo, "window": task_window, "solve": task_solve, "resume": task_resume}
 
 if __name__ == "__main__":
     main(sys.argv[1:])
