@@ -20,7 +20,10 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                (every input and output moved once at 3.35 TB/s) and the
                kernel events the profiler recorded for each; and the
                median latency of one call (CUDA events, host launch
-               overhead included).
+               overhead included). Then B1 at the ntime 32 problem, 33
+               modes (two mode groups per tile, the second with one live
+               lane), the shape phase 12's unsharded and 2x1 runs give it,
+               checked and timed the same way.
 4. slice    -- the main path: the port's CLI (`dots_socp_torch.cli.main`,
                which runs the port's `interface.run_dot_surface` with the
                port's solver) on plane n200, ntime 31, tol 1e-4, 100
@@ -44,7 +47,10 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                ELL L @ x on the host, each within 1e-5 * max|y|. The
                exports' all-gather is a concatenation here: the phase tests
                the kernel, not the collective. Times, bound and library call
-               per shard-call as phase 3.
+               per shard-call as phase 3. Then B2 at 2 shards of the
+               ntime 32 problem, 33 modes (two mode groups per tile, the
+               second with one live lane), the shapes of phase 12, checked
+               the same way.
 7. sharded_slice -- the sharded main path: 2 ranks (spawned processes,
                torchrun's environment) run the port's CLI on plane n200,
                ntime 31, float32, --mesh_shape 1x2, 100 iterations; backend
@@ -61,9 +67,9 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                phase 4 plus --snapshot with the same path, resumes to
                nit=100. Checks: the log's "Resuming
                from snapshot" line names iteration 49, the history goes on
-               from 50 to 99, the 7 KKT values and the solution (density mu
-               and momentum E; the CLI's solution holds no phi) agree with
-               phase 4's uninterrupted 100 iterations within RESUME_RTOL, and
+               from 50 to 99, the 7 KKT values and the solution (density mu,
+               momentum E and potential phi) agree with phase 4's
+               uninterrupted 100 iterations within RESUME_RTOL, and
                B1's launches equal the window matvecs in both legs.
 9. replication -- `replication.sweep` on ring (V=3,072) and hills (V=11,716,
                the largest surrogate) x congestions 0.00 and 0.01, ntime 31,
@@ -82,6 +88,26 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                in every rank, and the final KKT table agrees with phase 5's
                within SPECTRAL_KKT_RTOL.
 
+12. time_sharded_slice -- the mesh's time axis on the main path's problem at
+               ntime 32 (the nearest to 31 that a 2-way time axis divides):
+               100 iterations of the CLI unsharded in this process, then on
+               4 ranks with --mesh_shape 2x2 (2 time blocks of 16 slices x 2
+               space shards; nccl with 4 or more cards, else gloo on the one
+               card), then on 2 ranks with --mesh_shape 2x1 (B1 in each
+               time-rank). Checks per rank: the window kernel's launches (B2
+               on 2x2, B1 on 2x1) equal its window matvecs and are > 0,
+               finite KKT, the stop-set error at the last validation at most
+               half the first, the final KKT table within SLICE_KKT_RTOL of
+               the unsharded run's, time collectives were made, and phi, which
+               every time-rank holds whole and computes redundantly, is
+               bit-equal on every rank (else the difference is printed and
+               must stay within PHI_DRIFT_RTOL).
+13. dryrun   -- `dots_socp_torch.dryrun.dryrun_multichip(4)`: a 2x2 mesh of
+               4 spawned gloo ranks on the card runs the whole sharded step
+               (z-scaling, iterations, KKT, sigma update, adaptive segment,
+               50 iterations that halve the stop-set error, the refined CG
+               path with B2) and makes its own asserts.
+
 Then the kernel summary line (a kernel's `launches` is the sum over the
 paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
 and the result line
@@ -89,7 +115,7 @@ and the result line
 Only the port (`dots_socp_torch`) is imported here. The port keeps its own
 copies of the host modules (geometry, data loading, interface), so neither
 `jax` nor the JAX package `dots_socp_tpu` is imported, here or in the ranks
-of phases 7 and 11: the script checks `sys.modules` and fails otherwise.
+of phases 7, 11, 12 and 13: the script checks `sys.modules` and fails otherwise.
 """
 
 from __future__ import annotations
@@ -109,7 +135,7 @@ import torch
 
 import dots_socp_torch.ops.sharded_window as sharded_window
 import dots_socp_torch.ops.window_spmv as window_spmv
-from dots_socp_torch import cli, interface
+from dots_socp_torch import cli, dryrun, interface
 from dots_socp_torch.kernel_timing import (
     device_ms,
     ell_laplacian,
@@ -121,6 +147,7 @@ from dots_socp_torch.kernel_timing import (
     window_bound,
 )
 from dots_socp_torch.ops import _build
+from dots_socp_torch.ops.collectives import COUNTS
 from dots_socp_torch.ops.laplacian import CG_COUNTERS, SpectralFactor, spectral_solve
 from dots_socp_torch.replication import log2table, main_versus_exact, sweep
 from dots_socp_torch.scripts import solve_large
@@ -140,7 +167,7 @@ RANK_TIMEOUT = 600  # seconds a rank of the sharded slice may take
 # Measured 0.0119 on an H100 (gloo, one card); the bound leaves 4x room.
 SLICE_KKT_RTOL = 0.05
 # The resumed run against the uninterrupted one, largest relative difference
-# of the KKT entries, mu and E: the snapshot holds the state exactly and the
+# of the KKT entries, mu, E and phi: the snapshot holds the state exactly and the
 # host schedules and the inner CG tolerance are restored. Measured 0.0 (bit
 # for bit) on an H100; the bound is float32 round-off, no more.
 RESUME_RTOL = 1e-6
@@ -149,6 +176,14 @@ RESUME_RTOL = 1e-6
 # than one GEMM, and 200 float32 iterations carry the difference. Measured
 # 0.0032 on an H100 (gloo, one card); the bound leaves 4x room.
 SPECTRAL_KKT_RTOL = 0.013
+N_TIME_MESH = 32  # ntime of the time-sharded slice: 2 blocks of 16 slices
+# (--mesh_shape, ranks, the count of the window kernel its ranks launch: B2 on
+# space shards, B1 on one) of phase 12
+TIME_MESHES = (("2x2", 4, "launches"), ("2x1", 2, "b1_launches"))
+# phi is whole on every time-rank and each space group solves for it on its
+# own: the largest relative difference between two ranks' phi that the phase
+# accepts where they are not bit-equal (float32 round-off of one iteration).
+PHI_DRIFT_RTOL = 1e-6
 SWEEP_TIME_LIMIT = 20  # seconds per run of the replication sweep
 PROFILE_MAX_BYTES = 200e6
 
@@ -206,15 +241,16 @@ def phase_build():
     emit("build", library=str(path.name), compile_seconds=round(seconds, 3), ptxas=ptxas)
 
 
-def phase_kernel(card):
+def phase_kernel(card, n_time=N_TIME):
     geometry = cli.load_geometry("plane", 200)
-    config, data, _ = build_problem(N_TIME, geometry, dtype="float32", device="cuda")
+    lanes = n_time + 1
+    config, data, _ = build_problem(n_time, geometry, dtype="float32", device="cuda")
     wop = data.cg_op.window if data.cg_op is not None else None
     if config.laplacian_mode != "cg" or wop is None or data.cg_op.ell_w_hi is None:
         raise RuntimeError(f"n200 did not build the refined window CG ({config.laplacian_mode})")
     lap = ell_laplacian(data.cg_op)
     v = lap.shape[0]
-    x = np.random.default_rng(0).standard_normal((N_TIME + 1, v)).astype(np.float32)
+    x = np.random.default_rng(0).standard_normal((lanes, v)).astype(np.float32)
     perm = wop.perm.cpu().numpy()
     iperm = wop.iperm.cpu().numpy()
     xp = torch.from_numpy(np.ascontiguousarray(x[:, perm])).cuda()
@@ -232,8 +268,8 @@ def phase_kernel(card):
     times = kernel_times(lambda: window_spmv.window_matvec(wop, xp),
                          lambda: window_spmv.window_matvec_plain(wop, xp), "window_spmv_kernel",
                          (wop, xp, v))
-    bound = window_bound(wop, v, N_TIME + 1, v)
-    emit("kernel", shape=[N_TIME + 1, v], meta={"tile_rows": wop.tile_rows, "width": wop.width,
+    bound = window_bound(wop, v, lanes, v)
+    emit("kernel", shape=[lanes, v], meta={"tile_rows": wop.tile_rows, "width": wop.width,
          "nnz_width": wop.nnz_width, "nnz_pad": int(wop.lcol.shape[1]),
          "tiles": -(-v // wop.tile_rows)},
          max_abs_err_vs_plain=err_kp, max_abs_err_kernel_vs_f64=err_kr,
@@ -247,8 +283,8 @@ def phase_kernel(card):
             "bound_by": bound["by"], "library_ms": times["library_us"] / 1e3}
 
 
-def run_cli(n_space, nit, extra=()):
-    argv = ["--example", "plane", "--n_space", str(n_space), "--ntime", str(N_TIME),
+def run_cli(n_space, nit, extra=(), n_time=N_TIME):
+    argv = ["--example", "plane", "--n_space", str(n_space), "--ntime", str(n_time),
             "--tol", "1e-4", "--nit", str(nit), "--precision", "float32", "--device", "cuda",
             *extra]
     t0 = time.perf_counter()
@@ -331,11 +367,12 @@ def phase_spectral(card):
     return history.kkt_errors[-1]
 
 
-def phase_sharded_kernel(card, n_shards):
+def phase_sharded_kernel(card, n_shards, n_time=N_TIME):
     geometry = cli.load_geometry("plane", 200)
+    lanes = n_time + 1
     # The window tiles do not depend on the deflation vectors: none are made.
     config, data, _ = build_problem(
-        N_TIME, geometry, dtype="float32", space_partitions=n_shards,
+        n_time, geometry, dtype="float32", space_partitions=n_shards,
         mesh_axes=(1, n_shards), cg_deflation_k=0, device="cpu",
     )
     sw_all = data.cg_op.swindow
@@ -346,7 +383,7 @@ def phase_sharded_kernel(card, n_shards):
     v_chunk = v_pad // n_shards
     # Every shard's state in window order, and the exports as the all-gather
     # would concatenate them.
-    x, shards, xs, buf = shard_inputs(sw_all, n_shards)
+    x, shards, xs, buf = shard_inputs(sw_all, n_shards, lanes)
     y_ref = (lap @ x.astype(np.float64).T).T
     scale = float(np.abs(y_ref).max())
     per_shard, ys, err_kp = [], [], 0.0
@@ -360,13 +397,13 @@ def phase_sharded_kernel(card, n_shards):
         times = kernel_times(lambda: sharded_window.shard_spmv(sw, xl, buf),
                              lambda: sharded_window.sharded_window_matvec_plain(sw, xw),
                              "sharded_window_spmv_kernel", (sw, xw, v_chunk))
-        bound = shard_bound(sw, N_TIME + 1, buf.shape[-1])
+        bound = shard_bound(sw, lanes, buf.shape[-1])
         per_shard.append({
             "rows": v_chunk, "Nw": int(sw.win_codes.shape[0]), "Wb": int(sw.exp_codes.shape[0]),
             **times, "bound_us": bound["ms"] * 1e3, "bound": bound,
         })
     err_kr = float(np.abs(np.concatenate(ys, axis=-1) - y_ref).max())
-    emit("sharded_kernel", shards=n_shards, shape=[N_TIME + 1, v_pad],
+    emit("sharded_kernel", shards=n_shards, shape=[lanes, v_pad],
          meta={"tile_rows": shards[0].tile_rows, "width": shards[0].width,
                "nnz_width": shards[0].nnz_width, "nnz_pad": int(shards[0].lcol.shape[1]),
                "tiles": -(-v_chunk // shards[0].tile_rows)},
@@ -388,21 +425,26 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _mesh_rank(rank, world, port, backend, n_space, nit, results):
+def _mesh_rank(rank, world, port, backend, n_space, nit, mesh_shape, n_time, results):
     """One rank of a sharded phase (a spawned process): torchrun's
     environment, then the port's CLI on plane `n_space` for `nit` iterations;
-    its counts and history go back on `results`."""
+    its counts, its history and the phi of its solution (gathered from every
+    shard on every rank) go back on `results`."""
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     try:
-        sharded_window.KERNEL_LAUNCHES = 0  # count the main path's launches only
+        # Count the main path's launches and collectives only.
+        sharded_window.KERNEL_LAUNCHES = window_spmv.KERNEL_LAUNCHES = 0
         CG_COUNTERS.reset()
-        solution, history, stats = run_cli(n_space, nit, ["--mesh_shape", f"1x{world}",
-                                                          "--dist_backend", backend])
+        COUNTS.reset()
+        solution, history, stats = run_cli(
+            n_space, nit, ["--mesh_shape", mesh_shape, "--dist_backend", backend], n_time)
         results.put((rank, {
             **stats, "launches": sharded_window.KERNEL_LAUNCHES,
             "b1_launches": window_spmv.KERNEL_LAUNCHES, "cg": dict(vars(CG_COUNTERS)),
+            "collectives": COUNTS.snapshot(),
             "kkt": history.kkt_errors, "mass_err": mass_conservation_error(solution["mu"]),
+            "phi": solution["phi"],
             "tf32_pins": tf32_pins(), "forbidden_imports": forbidden_imports(),
         }))
     except BaseException as err:  # reported to the parent, which fails
@@ -410,26 +452,28 @@ def _mesh_rank(rank, world, port, backend, n_space, nit, results):
         raise
 
 
-def run_ranks(phase, n_space, nit, kkt_unsharded):
-    """The port's CLI on SHARDS_SLICE spawned ranks; (backend, per-rank
-    outputs in rank order), each with its KKT history, its stop-set errors
-    and the largest relative difference of its final KKT table from
-    `kkt_unsharded`. A rank that fails, hangs or imports jax fails the
-    phase, and no rank is left running."""
-    backend = "nccl" if torch.cuda.device_count() >= SHARDS_SLICE else "gloo"
+def run_ranks(phase, n_space, nit, kkt_unsharded, mesh_shape=f"1x{SHARDS_SLICE}",
+              world=SHARDS_SLICE, n_time=N_TIME):
+    """The port's CLI on `world` spawned ranks with --mesh_shape `mesh_shape`;
+    (backend, per-rank outputs in rank order), each with its KKT history, its
+    stop-set errors, the largest relative difference of its final KKT table
+    from `kkt_unsharded` and of its phi from rank 0's (0.0: bit-equal). A
+    rank that fails, hangs or imports jax fails the phase, and no rank is
+    left running."""
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_mesh_rank,
-                         args=(r, SHARDS_SLICE, port, backend, n_space, nit, results))
-             for r in range(SHARDS_SLICE)]
+                         args=(r, world, port, backend, n_space, nit, mesh_shape, n_time, results))
+             for r in range(world)]
     for p in procs:
         p.start()
     ranks = {}
     try:
         deadline = time.monotonic() + RANK_TIMEOUT
-        while len(ranks) < SHARDS_SLICE:
+        while len(ranks) < world:
             rank, out = results.get(timeout=max(deadline - time.monotonic(), 1))
             if "error" in out:
                 raise AssertionError(f"{phase} rank {rank} failed: {out['error']}")
@@ -444,14 +488,18 @@ def run_ranks(phase, n_space, nit, kkt_unsharded):
     if any(p.exitcode != 0 for p in procs):
         raise AssertionError(f"{phase} ranks exited {[p.exitcode for p in procs]}")
     outs = []
-    for rank in range(SHARDS_SLICE):
+    phi0 = ranks[0]["phi"]
+    for rank in range(world):
         out = ranks[rank]
         kkt = out["kkt"]
         stop = np.nanmax(kkt[:, STOP_SET], axis=1)
         ref = np.where(kkt_unsharded != 0, kkt_unsharded, np.nan)  # 0 and NaN: no check
         rel = np.abs(kkt[-1] - ref) / np.abs(ref)
+        phi = out.pop("phi")
         out.update(stop_error_first=float(stop[0]), stop_error_last=float(stop[-1]),
-                   kkt_rel_vs_unsharded=float(np.nanmax(rel)))
+                   kkt_rel_vs_unsharded=float(np.nanmax(rel)),
+                   phi_bit_equal_rank0=bool(np.array_equal(phi, phi0)),
+                   phi_rel_vs_rank0=float(np.abs(phi - phi0).max() / np.abs(phi0).max()))
         if out["forbidden_imports"]:
             raise AssertionError(f"{phase} rank {rank} imported {out['forbidden_imports']}")
         outs.append(out)
@@ -478,6 +526,65 @@ def phase_sharded_slice(card, kkt_unsharded):
         if not out["kkt_rel_vs_unsharded"] <= SLICE_KKT_RTOL:
             raise AssertionError(f"rank {rank}: KKT {out['kkt'][-1]} vs unsharded {kkt_unsharded}")
     return sum(out["launches"] for out in outs)
+
+
+def phase_time_sharded_slice(card):
+    """Phase 12. Returns the launches of (B1 unsharded at ntime 32, B2 on
+    2x2, B1 on 2x1), each counted from 0."""
+    window_spmv.KERNEL_LAUNCHES = 0
+    CG_COUNTERS.reset()
+    _, history, stats = run_cli(200, 100, n_time=N_TIME_MESH)
+    b1_unsharded = window_spmv.KERNEL_LAUNCHES
+    kkt_unsharded = history.kkt_errors[-1]
+    emit("time_sharded_slice", mesh="1x1", **stats, launches=b1_unsharded,
+         cg=dict(vars(CG_COUNTERS)), card=card)
+    if not (b1_unsharded > 0 and b1_unsharded == CG_COUNTERS.window_matvecs):
+        raise AssertionError(f"B1 launches {b1_unsharded} != window matvecs at ntime {N_TIME_MESH}")
+    launches = []
+    for mesh_shape, world, kernel in TIME_MESHES:
+        other = "b1_launches" if kernel == "launches" else "launches"
+        t0 = time.perf_counter()
+        backend, outs = run_ranks("time_sharded_slice", 200, 100, kkt_unsharded,
+                                  mesh_shape=mesh_shape, world=world, n_time=N_TIME_MESH)
+        for out in outs:
+            its = out["iterations"]
+            calls, nbytes = out["collectives"]["calls"], out["collectives"]["bytes"]
+            out["time_collectives_per_iteration"] = sum(
+                n for k, n in calls.items() if k.startswith("time_")) / its
+            out["time_collective_bytes_per_iteration"] = sum(
+                n for k, n in nbytes.items() if k.startswith("time_")) / its
+            out["collectives_per_iteration"] = sum(calls.values()) / its
+        emit("time_sharded_slice", mesh=mesh_shape, backend=backend, ranks=world,
+             cards=torch.cuda.device_count(), phase_seconds=time.perf_counter() - t0,
+             per_rank=_printable(outs), card=card)
+        for rank, out in enumerate(outs):
+            if not (out[kernel] > 0 and out[kernel] == out["cg"]["window_matvecs"]
+                    and out[other] == 0):
+                raise AssertionError(f"{mesh_shape} rank {rank}: kernel launches B2 "
+                                     f"{out['launches']} / B1 {out['b1_launches']} against "
+                                     f"{out['cg']['window_matvecs']} window matvecs")
+            if not out["stop_error_last"] <= 0.5 * out["stop_error_first"]:
+                raise AssertionError(f"{mesh_shape} rank {rank}: stop-set error "
+                                     f"{out['stop_error_first']} -> {out['stop_error_last']}")
+            if not np.isfinite(out["mass_err"]):
+                raise AssertionError(f"{mesh_shape} rank {rank}: mass conservation error")
+            if not out["kkt_rel_vs_unsharded"] <= SLICE_KKT_RTOL:
+                raise AssertionError(f"{mesh_shape} rank {rank}: KKT {out['kkt'][-1]} vs "
+                                     f"unsharded {kkt_unsharded}")
+            if not out["time_collectives_per_iteration"] > 0:
+                raise AssertionError(f"{mesh_shape} rank {rank} made no time collective")
+            if not (out["phi_bit_equal_rank0"] or out["phi_rel_vs_rank0"] <= PHI_DRIFT_RTOL):
+                raise AssertionError(f"{mesh_shape} rank {rank}: phi is {out['phi_rel_vs_rank0']} "
+                                     f"off rank 0's (> {PHI_DRIFT_RTOL})")
+        launches.append(sum(out[kernel] for out in outs))
+    return (b1_unsharded, *launches)
+
+
+def phase_dryrun(card):
+    out = dryrun.dryrun_multichip(4)
+    emit("dryrun", **out, card=card)
+    if not all(r.get("b2_launches", 0) > 0 and r["b1_launches"] == 0 for r in out["ranks"]):
+        raise AssertionError(f"the dry run's refined CG path did not launch B2 alone: {out}")
 
 
 def phase_sharded_spectral(card, kkt_single):
@@ -532,9 +639,10 @@ def phase_resume(card, kkt_full, solution_full):
     kkt_rel = float(np.nanmax(np.abs(kkt - ref) / np.abs(ref)))
     mu_rel = _rel_diff(solution["mu"], solution_full["mu"])
     e_rel = _rel_diff(solution["E"], solution_full["E"])
+    phi_rel = _rel_diff(solution["phi"], solution_full["phi"])
     emit("resume", legs=legs, resumed_from=resumed_line and int(resumed_line.group(1)),
          kkt_rel_vs_uninterrupted=kkt_rel, mu_rel_vs_uninterrupted=mu_rel,
-         E_rel_vs_uninterrupted=e_rel, last_kkt=[float(e) for e in kkt], card=card)
+         E_rel_vs_uninterrupted=e_rel, phi_rel_vs_uninterrupted=phi_rel, last_kkt=[float(e) for e in kkt], card=card)
     if resumed_line is None or int(resumed_line.group(1)) != 49:
         raise AssertionError("the second leg's log has no 'Resuming from snapshot' line at 49")
     if not (legs[0]["last_validation"] == 49 and legs[1]["first_validation"] >= 50
@@ -543,9 +651,9 @@ def phase_resume(card, kkt_full, solution_full):
     for leg in legs:
         if not (leg["launches"] > 0 and leg["launches"] == leg["cg"]["window_matvecs"]):
             raise AssertionError(f"B1 launches {leg['launches']} != window matvecs {leg['cg']}")
-    if not max(kkt_rel, mu_rel, e_rel) <= RESUME_RTOL:
+    if not max(kkt_rel, mu_rel, e_rel, phi_rel) <= RESUME_RTOL:
         raise AssertionError(f"the resumed run left the uninterrupted one: KKT {kkt_rel}, "
-                             f"mu {mu_rel}, E {e_rel} > {RESUME_RTOL}")
+                             f"mu {mu_rel}, E {e_rel}, phi {phi_rel} > {RESUME_RTOL}")
     return sum(leg["launches"] for leg in legs)
 
 
@@ -616,12 +724,17 @@ def phase_profile(card):
 def main():
     card = phase_device()
     phase_build()
+    # The kernel line reports B1 at the main path's shape (32 modes), and its
+    # worst error over both mode counts checked.
     kernel = phase_kernel(card)
+    kernel_33 = phase_kernel(card, N_TIME_MESH)  # 33 modes
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_33["max_abs_err"])
     launches, kkt_unsharded, solution_unsharded = phase_slice(card)
     kkt_spectral = phase_spectral(card)
     # The kernel line reports B2 at the main path's shapes, and its worst
     # error over every shard count checked.
     sharded, *others = (phase_sharded_kernel(card, n) for n in SHARDS_KERNEL)
+    others.append(phase_sharded_kernel(card, SHARDS_SLICE, N_TIME_MESH))  # 33 modes
     sharded["max_abs_err"] = max(r["max_abs_err"] for r in [sharded, *others])
     sharded_launches = phase_sharded_slice(card, kkt_unsharded)
     b1_paths = {"slice": launches}
@@ -629,6 +742,9 @@ def main():
     phase_replication(card)
     b1_paths["profile"] = phase_profile(card)
     phase_sharded_spectral(card, kkt_spectral)
+    b1_paths["time_slice_unsharded"], b2_time, b1_paths["time_sharded_slice_2x1"] = (
+        phase_time_sharded_slice(card))
+    phase_dryrun(card)
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
     print(json.dumps({"kernels": [{
@@ -644,8 +760,8 @@ def main():
         "route": "cuda",
         "source": "dots_socp_torch/ops/csrc/window_spmv.cu",
         "replaces": "dots_socp_tpu/ops/sharded_window.py:430",
-        "launches": sharded_launches,
-        "launches_by_path": {"sharded_slice": sharded_launches},
+        "launches": sharded_launches + b2_time,
+        "launches_by_path": {"sharded_slice": sharded_launches, "time_sharded_slice": b2_time},
         **sharded,
     }]}))
     print(nvidia_smi_line())

@@ -8,17 +8,21 @@ port's solver. Run as
     python -m dots_socp_torch.cli --example plane --n_space 200 --ntime 31 \
         --tol 1e-4 --precision float32 --device cuda
 
-A space-sharded solve runs one process per shard under torchrun:
+A sharded solve runs one process per (time, space) shard under torchrun:
 
     torchrun --nproc_per_node 2 -m dots_socp_torch.cli --example plane \
         --n_space 200 --ntime 31 --mesh_shape 1x2 --dist_backend nccl
+    torchrun --nproc_per_node 4 -m dots_socp_torch.cli --example plane \
+        --n_space 200 --ntime 32 --mesh_shape 2x2 --dist_backend nccl
 
 (`gloo` shares one card between the ranks; `nccl` needs one card per
-rank). `--num_processes`, `--process_id` and `--coordinator_address`
-replace torchrun's environment. --mesh_shape and the distributed flags are
-handled here, before `run_dot_surface`: the mesh is bound into the solver
-the interface calls. A mesh time axis > 1 is not ported yet (ROADMAP.md) and
-is rejected. On a mesh only rank 0 logs, saves and traces (--profile_dir).
+rank; --ntime must be a multiple of the time axis). `--num_processes`,
+`--process_id` and `--coordinator_address` replace torchrun's environment;
+under SLURM's srun or Open MPI's mpirun the rank and world size come from
+theirs (`parallel.distributed.cluster_environment`). --mesh_shape and the
+distributed flags are handled here, before `run_dot_surface`: the mesh is
+bound into the solver the interface calls. On a mesh only world rank 0
+logs, saves and traces (--profile_dir).
 """
 
 from __future__ import annotations
@@ -199,8 +203,9 @@ def parse_args(parser=None, return_parser=False):
         default=None,
         type=str,
         help="Device mesh as TxS or a bare shard count S (= 1xS, pure "
-        "spatial sharding; a time axis > 1 is not ported); default: single "
-        "device",
+        "spatial sharding); T > 1 also cuts the (T, ...) arrays into T blocks "
+        "of time slices and needs --ntime to be a multiple of T; default: "
+        "single device",
     )
     dist_group.add_argument(
         "--coordinator_address",
@@ -307,7 +312,7 @@ def parse_args(parser=None, return_parser=False):
         "--dist_backend",
         choices=("nccl", "gloo"),
         default=None,
-        help="torch.distributed backend of a --mesh_shape 1xS solve (S > 1): "
+        help="torch.distributed backend of a --mesh_shape TxS solve (T * S > 1): "
         "nccl (one card per rank) or gloo (the ranks may share one card)",
     )
 
@@ -339,22 +344,21 @@ def load_geometry(example, n_space=None):
 
 
 def _solver_mesh(parser, args):
-    """The SpaceMesh of --mesh_shape (bringing up torch.distributed), or
+    """The SolverMesh of --mesh_shape (bringing up torch.distributed), or
     None for a single-device solve. Bad combinations exit via the parser."""
     from dots_socp_torch.parallel import distributed as pd
 
     dist_flags = [f"--{k}" for k in _DIST_FLAGS if getattr(args, k, None) is not None]
     if args.mesh_shape is None:
         if dist_flags or args.dist_backend is not None:
-            parser.error(f"{' '.join(dist_flags) or '--dist_backend'} needs --mesh_shape 1xS")
+            parser.error(f"{' '.join(dist_flags) or '--dist_backend'} needs --mesh_shape TxS")
         return None
     try:
         time_axis, space_axis = pd.parse_mesh_shape(args.mesh_shape)
     except ValueError as err:
         parser.error(str(err))
-    if time_axis > 1:
-        parser.error(pd.TIME_AXIS_TODO)
-    if space_axis == 1:
+    n_shards = time_axis * space_axis
+    if n_shards == 1:
         return None
     if args.dist_backend is None:
         parser.error(f"--mesh_shape {args.mesh_shape} needs --dist_backend nccl|gloo")
@@ -366,14 +370,14 @@ def _solver_mesh(parser, args):
     )
     if not up:
         parser.error(
-            f"--mesh_shape 1x{space_axis} runs {space_axis} processes: launch under "
-            f"torchrun --nproc_per_node {space_axis}, or pass --num_processes, "
-            "--process_id and --coordinator_address"
+            f"--mesh_shape {time_axis}x{space_axis} runs {n_shards} processes: launch under "
+            f"torchrun --nproc_per_node {n_shards} (or srun / mpirun), or pass "
+            "--num_processes, --process_id and --coordinator_address"
         )
     mesh = pd.make_solver_mesh((time_axis, space_axis), device=args.device)
     print(
-        f"mesh 1x{space_axis}: torch.distributed backend {mesh.backend}, "
-        f"rank {mesh.rank} on {mesh.device}",
+        f"mesh {time_axis}x{space_axis}: torch.distributed backend {mesh.backend}, "
+        f"rank {mesh.world_rank} on {mesh.device}",
         flush=True,
     )
     return mesh
@@ -407,7 +411,7 @@ def run(parser, args, solver_name=None):
     for attr in ("mesh_shape",) + _DIST_FLAGS:
         setattr(args, attr, None)
     quiet = contextlib.ExitStack()
-    if mesh is not None and mesh.rank != 0:
+    if mesh is not None and mesh.world_rank != 0:
         # Rank 0 logs, prints, saves and traces; the others only solve.
         for attr in vars(args):
             if attr.startswith(("save", "show")) and getattr(args, attr) is True:
@@ -417,7 +421,7 @@ def run(parser, args, solver_name=None):
     try:
         with quiet:
             set_logging_level(log_level=args.log_level, log_file=args.log_file)
-            if mesh is not None and mesh.rank != 0:
+            if mesh is not None and mesh.world_rank != 0:
                 logging.getLogger().setLevel(logging.WARNING)
             print_example_info(args, additional_fields=["device", "dist_backend"])
             solver = device_solver(args.device, mesh)

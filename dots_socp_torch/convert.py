@@ -122,7 +122,7 @@ def problem_from_reference(config, data, device="cpu", dtype=None, mesh=None):
     the refinement's float64 leaves and the window's float32 leaves keep
     theirs either way.
     mesh : for a space-sharded problem (built with space_partitions > 1),
-    the `SpaceMesh` whose rank's shard is returned, on mesh.device.
+    the `SolverMesh` whose rank's shard is returned, on mesh.device.
     """
     device = resolve_device(device)
     ref = dataclasses.asdict(config)

@@ -398,7 +398,7 @@ def build_cg_operator(
         (`parallel.partition`); builds the per-shard window operator
         (`swindow`, kernel B2) instead of B1's. JAX builds it only on a TPU
         backend (`laplacian.py:476-478`); the card is the port's.
-    mesh : a `SpaceMesh`; its rank 0 alone computes the Ritz pairs and
+    mesh : a `SolverMesh`; its world rank 0 alone computes the Ritz pairs and
         sends them to the others (concurrent cache writes would race, and
         every shard must deflate with the same vectors).
     """

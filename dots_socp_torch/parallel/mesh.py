@@ -2,16 +2,20 @@
 `dots_socp_tpu/parallel/mesh.py`).
 
 The JAX package hands whole arrays to `jax.device_put` with NamedShardings
-over its ("time", "space") mesh. The port runs one process per space shard:
-`shard_problem` / `shard_state` keep this rank's "space" block of every
-field the reference shards (`problem_shardings` / `state_shardings`,
+over its ("time", "space") mesh. The port runs one process per (time,
+space) shard: `shard_problem` / `shard_state` keep this rank's block of
+every field the reference shards (`problem_shardings` / `state_shardings`,
 `parallel/mesh.py:47-187`), keep the replicated fields whole, and move them
-to the mesh's device. `gather_space` is the inverse, on every rank.
+to the mesh's device. `gather_field` is the inverse, on every rank.
 
-Layout on a (1, S) mesh:
-  vertex fields (..., V)        -> (..., v_chunk)   block rank
-  triangle fields (F, ...)      -> (f_chunk, ...)   block rank
+Layout on a (Tm, S) mesh, this process being shard (t, s):
+  vertex fields (..., V)        -> (..., v_chunk)   block s
+  triangle fields (F, ...)      -> (f_chunk, ...)   block s
   state (T+1, F, 3), (T, 2, F, 3, 3) -> their F block
+  staggered state fields (T, ...) -> also block t of T / Tm time slices;
+                   the centered (T+1, ...) fields keep every slice on every
+                   time-rank (T and T+1 cannot both divide the axis)
+  operators: cut over space only, the same on every time-rank
   spectral factor: s (V,) and the rows of q (V, V) -> block rank; u_time
                    and invfac (T+1, V: eigen-indices, not vertices) whole
   scalars, time operators, shifts, tolerances -> replicated
@@ -19,12 +23,17 @@ Layout on a (1, S) mesh:
 
 from __future__ import annotations
 
-from dots_socp_torch.ops.collectives import space_all_gather
+from dots_socp_torch.ops.collectives import space_all_gather, time_all_gather
 from dots_socp_torch.ops.sharded_window import shard_of
 
 # SolverState fields by the axis that holds F (the rest hold V last, or are
 # 0-d scalars).
 _STATE_F_AXIS = {"B": 1, "E": 1, "dx_phi": 1, "z_mid": 2, "beta_mid": 2}
+# The staggered (T, ...) fields, cut over the mesh's time axis as well (JAX
+# `state_shardings`); the centered (T+1, ...) fields are not.
+STAGGERED_FIELDS = frozenset(
+    ("A", "lambda_c", "z_fst", "z_mid", "z_end", "mu", "beta_fst", "beta_mid", "beta_end", "dt_phi")
+)
 
 
 def _block(n_total, mesh):
@@ -56,7 +65,11 @@ def _shard_ops(ops, v, f, mesh):
 
 def shard_problem(mesh, data):
     """This rank's shard of a problem built with space_partitions =
-    mesh.space (`solver.problem.build_problem`), on mesh.device."""
+    mesh.space (`solver.problem.build_problem`), on mesh.device. Operators
+    are cut over space only: on one space shard (a `Tx1` mesh) the problem
+    stays whole, as built on mesh.device, and only learns its mesh."""
+    if mesh.space == 1:
+        return data._replace(mesh=mesh)
     if data.halo is None:
         raise ValueError("shard_problem needs a blocked problem (space_partitions > 1)")
     v, f = data.ops.av.shape[0], data.ops.area_f.shape[0]
@@ -127,21 +140,26 @@ def shard_state(mesh, state):
     for name, x in zip(state._fields, state):
         if x.dim() == 0:
             fields[name] = x.to(mesh.device)
-        elif name in _STATE_F_AXIS:
+            continue
+        if name in STAGGERED_FIELDS:
+            x = x[mesh.time_block(x.shape[0])]
+        if name in _STATE_F_AXIS:
             fields[name] = _take(x, _STATE_F_AXIS[name], f, mesh)
         else:
             fields[name] = _take(x, x.dim() - 1, v, mesh)
     return type(state)(**fields)
 
 
-def gather_space(mesh, x, name):
+def gather_field(mesh, x, name):
     """The whole of SolverState field `name` from every rank's shard `x`
-    (one all-gather; every rank gets it)."""
+    (one all-gather over space, and one over time for a staggered field;
+    every rank gets it)."""
     if x.dim() == 0:
         return x
-    return space_all_gather(x, mesh, dim=_STATE_F_AXIS.get(name, x.dim() - 1))
+    x = space_all_gather(x, mesh, dim=_STATE_F_AXIS.get(name, x.dim() - 1))
+    return time_all_gather(x, mesh) if name in STAGGERED_FIELDS else x
 
 
 def gather_state(mesh, state):
     """The whole SolverState from every rank's shard, on every rank."""
-    return type(state)(*(gather_space(mesh, x, n) for n, x in zip(state._fields, state)))
+    return type(state)(*(gather_field(mesh, x, n) for n, x in zip(state._fields, state)))

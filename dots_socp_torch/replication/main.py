@@ -6,8 +6,8 @@ sweep of 14 examples x 3 congestion levels).
         --ntime=15 --tol=1e-2 --nit=120 --log_file=out/info.log
 
 The flags are the CLI's (`dots_socp_torch.cli`): --device (default cuda),
-and --mesh_shape 1xS --dist_backend nccl|gloo under torchrun for a
-space-sharded solve. `dots_socp_torch.replication.log2table` turns the log
+and --mesh_shape TxS --dist_backend nccl|gloo under torchrun for a
+solve sharded over space (and, with T > 1, over time). `dots_socp_torch.replication.log2table` turns the log
 into the comparison table.
 """
 

@@ -35,26 +35,13 @@ def cg_histogram(n_time, geometry, device):
     outer iteration's RHS, cold-started (upper bound; warm starts in the
     loop re-use the previous phi)."""
     from dots_socp_torch.ops.laplacian import cg_solve
-    from dots_socp_torch.ops.mesh_ops import grad_space
-    from dots_socp_torch.ops.time_stencils import decouple_space_adjoint, grad_time
-    from dots_socp_torch.solver.problem import build_problem
-    from dots_socp_torch.solver.state import init_state
+    from dots_socp_torch.solver.problem import build_problem, initial_state
     from dots_socp_torch.solver.step import laplacian_rhs
 
     config, data, extras = build_problem(
         n_time, geometry, dtype="float32", laplacian_mode="cg", device=device
     )
-    dt = config.stepsize_time
-    ops = data.ops
-    state = init_state(
-        n_time, config.n_vertices, config.n_triangles,
-        extras["mu0_padded"], extras["mu1_padded"], dt,
-        grad_time_fn=lambda p: grad_time(dt, p),
-        grad_space_fn=lambda p: grad_space(ops, p),
-        decouple_adjoint_fn=decouple_space_adjoint,
-        dtype=config.torch_dtype,
-        device=ops.av.device,
-    )
+    state = initial_state(config, data, extras)
     rhs = laplacian_rhs(config, data, state)
     hist = {}
     for rtol in CG_HISTOGRAM_RTOLS:

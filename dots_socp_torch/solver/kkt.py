@@ -5,8 +5,11 @@
             carry NaN.
 
 On a space shard every norm sums over all shards (`ops.norms`) and the
-incidence ops take the halo path; the finished table is rank 0's on every
-rank, so every host decision taken from it agrees.
+incidence ops take the halo path. On a mesh with a time axis the norms of
+the staggered (T, ...) arrays sum over time as well, those of the centered
+(T+1, ...) arrays over space only, and the maps from T to T+1 slices gather
+over the time group (`ops.time_stencils`). The finished table is world
+rank 0's on every rank, so every host decision taken from it agrees.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ def _norms(config: ProblemConfig, data: ProblemData):
     mesh = data.mesh
 
     def nst(a):  # (T, V), weight av, averaged over T slices
-        return norm_sq_vertex(av, a, T, mesh)
+        return norm_sq_vertex(av, a, T, mesh, staggered=True)
 
     def nsc(a):  # (T+1, V), weight av, averaged over T+1 slices
         return norm_sq_vertex(av, a, T + 1, mesh)
@@ -55,6 +58,7 @@ def kkt_table(config: ProblemConfig, data: ProblemData, state: SolverState):
     spmd = config.spmd_kwargs(data)
     dt = config.stepsize_time
     nst, nsc, nss, nsd = _norms(config, data)
+    mesh = data.mesh
     s = state
     nan = torch.tensor(math.nan, dtype=s.r.dtype, device=s.r.device)
 
@@ -73,7 +77,7 @@ def kkt_table(config: ProblemConfig, data: ProblemData, state: SolverState):
     kkt0 = dual_valued(prim_resi, data.c_prim_q, norm_sum, s.prim_scale)
 
     # --- 1: primal feasibility (q, z) ---------------------------------------
-    dec_b = decouple_space(s.B, s.scale_z)
+    dec_b = decouple_space(s.B, s.scale_z, mesh)
     r_fst = s.z_fst + s.scale_z * s.A - s.constant_d
     r_mid = s.scale_z * (s.z_mid - dec_b)
     r_end = s.z_end - s.scale_z * s.A - s.constant_d
@@ -83,7 +87,7 @@ def kkt_table(config: ProblemConfig, data: ProblemData, state: SolverState):
     # --- 2: dual feasibility (alpha) ----------------------------------------
     dual_aux = (s.r * dt) * (
         s.boundary
-        + div_time(dt, s.mu * ops.av[None, :])
+        + div_time(dt, s.mu * ops.av[None, :], mesh)
         + div_space(ops, s.E * ops.area_f[None, :, None], **spmd)
     ) / ops.av[None, :]
     dual_resi = torch.sqrt(nsc(dual_aux))
@@ -91,7 +95,7 @@ def kkt_table(config: ProblemConfig, data: ProblemData, state: SolverState):
 
     # --- 3: dual feasibility (beta) -----------------------------------------
     aux1 = s.scale_z * (s.beta_end - s.beta_fst)
-    aux2 = decouple_space_adjoint(s.beta_mid, s.scale_z)
+    aux2 = decouple_space_adjoint(s.beta_mid, s.scale_z, mesh)
     norm_sum3 = s.r * (
         torch.sqrt(nst(s.mu) + nss(s.E)) + torch.sqrt(nst(aux1) + nss(aux2))
     )
@@ -102,7 +106,7 @@ def kkt_table(config: ProblemConfig, data: ProblemData, state: SolverState):
     mu_o = (s.dual_scale * s.r) * s.mu
     a_o = s.prim_scale * s.A
     b_o = s.prim_scale * s.B
-    dec_b1 = decouple_space(b_o, 1.0)
+    dec_b1 = decouple_space(b_o, 1.0, mesh)
     sq = (dec_b1 * dec_b1).sum(dim=(1, 4))  # (T, F, 3corner)
     resi_aux = a_o + 0.25 * vertex_reduce(ops, ops.area_f[:, None] * sq, **spmd) / ops.av[None, :]
     norm_sum4 = torch.sqrt(nst(mu_o)) + torch.sqrt(nst(resi_aux))
@@ -112,7 +116,7 @@ def kkt_table(config: ProblemConfig, data: ProblemData, state: SolverState):
 
     # --- 5: complementarity (m, rho o B) -- original units only -------------
     m_o = (s.dual_scale * s.r) * s.E
-    rho_adj = time_center_adjoint(mu_o)  # (T+1, V)
+    rho_adj = time_center_adjoint(mu_o, mesh)  # (T+1, V)
     rho_tri = triangle_mean_gather(ops, rho_adj, **spmd)
     aux5 = rho_tri[:, :, None] * b_o
     norm_sum5 = torch.sqrt(nss(m_o)) + torch.sqrt(nss(aux5))
@@ -125,7 +129,7 @@ def kkt_table(config: ProblemConfig, data: ProblemData, state: SolverState):
     resi6 = torch.sqrt(nst(s.congestion * mu_o - lam_o))
     kkt6 = torch.stack([resi6 / (data.c_comp_rho + norm_sum6), nan])
 
-    return from_rank0(torch.stack([kkt0, kkt1, kkt2, kkt3, kkt4, kkt5, kkt6]), data.mesh)
+    return from_rank0(torch.stack([kkt0, kkt1, kkt2, kkt3, kkt4, kkt5, kkt6]), mesh)
 
 
 #: Standalone entry (tests, final validation). PyTorch runs eagerly, so it

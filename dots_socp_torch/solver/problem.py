@@ -105,7 +105,7 @@ class ProblemData(NamedTuple):
     # problems with phi_refine: the refinement's f64 true residual runs
     # through the halo incidence form.
     ops_hi: Optional[SurfaceOps] = None
-    # The `SpaceMesh` of this rank's shard (set by `shard_problem`).
+    # The `SolverMesh` of this rank's shard (set by `shard_problem`).
     mesh: Optional[object] = None
 
 
@@ -143,8 +143,8 @@ def build_problem(
     mesh_axes : (time, space) mesh axis sizes, stored on the config.
     phi_refine : "auto" | "on" | "off" | bool. auto enables mixed-precision
         phi exactly when laplacian_mode == "cg" and dtype == "float32".
-    mesh : the `SpaceMesh` of the solve whose shards this problem will
-        feed: its rank 0 alone computes the Ritz pairs (`build_cg_operator`).
+    mesh : the `SolverMesh` of the solve whose shards this problem will
+        feed: its world rank 0 alone computes the Ritz pairs (`build_cg_operator`).
 
     extras holds host floats {norm_constant_d, area_mesh}, NumPy av / area_f
     (real sizes), padded mu0/mu1 and the vertex/triangle placement maps.
@@ -339,3 +339,31 @@ def build_problem(
         "triangle_slot": triangle_slot,
     }
     return config, data, extras
+
+
+def initial_state(config: ProblemConfig, data: ProblemData, extras: dict, **init_kw):
+    """The whole initial state of a built problem, on the problem's device:
+    `solver.state.init_state` with this problem's sizes, boundary densities
+    and gradient operators. `init_kw` passes its other arguments on (a warm
+    start, the penalty, the KKT normalisation constants, which stay 1
+    otherwise)."""
+    from dots_socp_torch.ops.mesh_ops import grad_space
+    from dots_socp_torch.ops.time_stencils import decouple_space_adjoint, grad_time
+    from dots_socp_torch.solver.state import init_state
+
+    dt = config.stepsize_time
+    return init_state(
+        config.n_time,
+        config.n_vertices,
+        config.n_triangles,
+        extras["mu0_padded"],
+        extras["mu1_padded"],
+        dt,
+        grad_time_fn=lambda p: grad_time(dt, p),
+        grad_space_fn=lambda p: grad_space(data.ops, p),
+        decouple_adjoint_fn=decouple_space_adjoint,
+        dtype=config.torch_dtype,
+        phi_dtype=config.phi_dtype,
+        device=data.ops.av.device,
+        **init_kw,
+    )

@@ -72,13 +72,14 @@ def apply_prim_dual_scale(state: SolverState, prim_rescale, dual_rescale):
     )
 
 
-def apply_z_scale(state: SolverState, factor):
+def apply_z_scale(state: SolverState, factor, mesh=None):
     """Rescale the cone block by `factor`: z multiplied by the new cumulative
-    scale, betas by its inverse, and (mu, E) re-derived from the betas."""
+    scale, betas by its inverse, and (mu, E) re-derived from the betas.
+    `mesh`: the state's mesh (E takes the time blocks of beta_mid)."""
     f = _scalar(state, factor)
     sz = state.scale_z * f
     mu = sz * (state.beta_fst - state.beta_end)
-    E = -decouple_space_adjoint(state.beta_mid / sz, sz)
+    E = -decouple_space_adjoint(state.beta_mid / sz, sz, mesh)
     return state._replace(
         z_fst=state.z_fst * sz,
         z_mid=state.z_mid * sz,

@@ -7,23 +7,24 @@ semantics. Iterations run in segments (`step.run_chunk_adaptive`) whose
 packed records this loop replays into the run history, the cadence and the
 sigma schedule, exactly as the reference's loop does.
 
-With `mesh` (a `parallel.distributed.SpaceMesh` of shape (1, S)) every rank
-runs this same loop on its space shard (JAX `socp.py:228-239, 357-361`):
-the problem and state are built whole on the host, then cut to the rank's
-shard. Every host decision reads values that are the same on every rank
-(the KKT table is rank 0's, the wall clock is rank 0's), so the ranks run
-the same iterations and collectives. The solution is gathered back to the
-real vertex order on every rank; the run history and the log come from
-rank 0 only.
+With `mesh` (a `parallel.distributed.SolverMesh` of shape (Tm, S)) every
+rank runs this same loop on its (time, space) shard (JAX `socp.py:228-239,
+357-361`): the problem and state are built whole, then cut to the rank's
+shard: operators over space, the staggered (T, ...) state arrays over time
+as well; the centered (T+1, ...) arrays, phi among them, are whole in time
+on every time-rank, which therefore runs the phi-solve of its space group
+redundantly. Every host decision reads values that are the same on every
+rank (the KKT table is world rank 0's, the wall clock is world rank 0's),
+so the ranks run the same iterations and collectives. The solution is
+gathered back to the real vertex order on every rank; the run history and
+the log come from world rank 0 only.
 
 With `snapshot_path` the state and the host schedules are written to one
 .npz file (`utils.snapshot`) every `snapshot_every` seconds and on loop
-exit, and a run that finds the file resumes from it. On a mesh rank 0
-decides when (its clock) and writes the gathered state; on resume every
-rank reads the file and keeps its shard.
-
-Not ported yet (see ROADMAP.md): a mesh time axis > 1, which raises
-NotImplementedError.
+exit, and a run that finds the file resumes from it. On a mesh world rank
+0 decides when (its clock) and writes the gathered state; on resume every
+rank reads the file and keeps its shard, so a snapshot written on one mesh
+shape resumes on another with the same vertex padding.
 """
 
 from __future__ import annotations
@@ -41,10 +42,11 @@ import torch
 
 from dots_socp_torch.ops.collectives import from_rank0, rank0_decides
 from dots_socp_torch.ops.mesh_ops import grad_space
-from dots_socp_torch.parallel.mesh import gather_space, gather_state, shard_problem, shard_state
-from dots_socp_torch.ops.time_stencils import decouple_space_adjoint, grad_time
+from dots_socp_torch.parallel.distributed import check_time_axis
+from dots_socp_torch.parallel.mesh import gather_field, gather_state, shard_problem, shard_state
+from dots_socp_torch.ops.time_stencils import grad_time
 from dots_socp_torch.solver.kkt import _norms, compute_kkt, objective_functional
-from dots_socp_torch.solver.problem import build_problem
+from dots_socp_torch.solver.problem import build_problem, initial_state
 from dots_socp_torch.solver.scaling import (
     apply_penalty_factor,
     apply_prim_dual_scale,
@@ -52,7 +54,6 @@ from dots_socp_torch.solver.scaling import (
     compute_var_norms,
 )
 from dots_socp_torch.solver.schedule import AdaptiveKKTCadence, SigmaSchedule
-from dots_socp_torch.solver.state import init_state
 from dots_socp_torch.solver.step import (
     ADAPTIVE_HEADER,
     ADAPTIVE_REC_SIZE,
@@ -104,11 +105,11 @@ def _host(t) -> np.ndarray:
 
 def _output_on_rank0(fn):
     """Run `fn` with its log and printed output silenced on every rank of
-    a mesh but rank 0 (the ranks record identical run histories)."""
+    a mesh but world rank 0 (the ranks record identical run histories)."""
 
     @functools.wraps(fn)
     def wrapper(*args, mesh=None, **kwargs):
-        if mesh is None or mesh.rank == 0:
+        if mesh is None or mesh.world_rank == 0:
             return fn(*args, mesh=mesh, **kwargs)
         previous = logging.root.manager.disable
         logging.disable(logging.CRITICAL)
@@ -165,11 +166,13 @@ def solver_socp(
     phi_refine : "auto" | "on" | "off" | bool; auto = on exactly for the
         float32 CG path (f64 phi + f64 iterative refinement around the f32
         inner CG, whose matvec is the window SpMV kernel).
-    mesh : `parallel.distributed.SpaceMesh` (`make_solver_mesh("1xS")`):
+    mesh : `parallel.distributed.SolverMesh` (`make_solver_mesh("TxS")`):
         this rank solves its space shard of a blocked layout (replacing
         pad_multiple) on mesh.device, which replaces `device`. The inner
-        matvec of its CG path is kernel B2; its spectral path sums the
-        shards' partial eigen-coefficients in one all-reduce per solve.
+        matvec of its CG path is kernel B2 (B1 on one space shard); its
+        spectral path sums the shards' partial eigen-coefficients in one
+        all-reduce per solve. With T > 1 the rank also holds one block of
+        n_time / T staggered time slices; n_time must be a multiple of T.
     snapshot_path : crash-safe periodic snapshot of the state and the host
         schedules to this .npz path (the JAX package's format); if the file
         exists, the run RESUMES from it (same n_time and padded vertex
@@ -179,10 +182,8 @@ def solver_socp(
         always written on loop exit when snapshot_path is set).
     `is_multi_threads` is accepted for API parity.
     """
-    if mesh is not None and mesh.time > 1:
-        from dots_socp_torch.parallel.distributed import TIME_AXIS_TODO
-
-        raise NotImplementedError(TIME_AXIS_TODO)
+    if mesh is not None:
+        check_time_axis(n_time, mesh.time)  # on every rank, before any collective
     logging.basicConfig(level=LOG_LEVELS["info"], format="%(message)s")
 
     checkpoint_solutions = []
@@ -204,6 +205,7 @@ def solver_socp(
     if pad_multiple is None:
         pad_multiple = 1
     space_size = mesh.space if mesh is not None else 1
+    sharded = mesh is not None and mesh.space * mesh.time > 1
     if mesh is not None:
         device = mesh.device
 
@@ -226,7 +228,7 @@ def solver_socp(
         dtype=precision,
         pad_multiple=pad_multiple,
         space_partitions=space_size,
-        mesh_axes=(1, space_size) if mesh is not None else None,
+        mesh_axes=(mesh.time, space_size) if mesh is not None else None,
         phi_refine=phi_refine,
         # A sharded problem is built whole on the host, then cut into shards.
         device="cpu" if space_size > 1 else device,
@@ -268,17 +270,10 @@ def solver_socp(
         (np.sum(mu0**2 / av) + np.sum(mu1**2 / av)) / (r * dt) ** 2 / (n_time + 1)
     )
 
-    ops = data.ops
-    state = init_state(
-        n_time,
-        config.n_vertices,
-        config.n_triangles,
-        extras["mu0_padded"],
-        extras["mu1_padded"],
-        dt,
-        grad_time_fn=lambda p: grad_time(dt, p),
-        grad_space_fn=lambda p: grad_space(ops, p),
-        decouple_adjoint_fn=decouple_space_adjoint,
+    state = initial_state(
+        config,
+        data,
+        extras,
         init_solution=_pad_init_solution(init_solution or {}, config, extras),
         congestion=congestion,
         tau=tau,
@@ -286,9 +281,6 @@ def solver_socp(
         r=r,
         norm_constant_d=extras["norm_constant_d"],
         norm_boundary=norm_boundary,
-        dtype=config.torch_dtype,
-        phi_dtype=config.phi_dtype,
-        device=data.ops.av.device,
     )
     # --- resume from an on-disk snapshot (every rank reads the file) --------
     resumed = None
@@ -309,7 +301,7 @@ def solver_socp(
             f"(iteration {resumed['iteration']}, {resumed['elapsed']:.1f}s elapsed)",
         )
 
-    if space_size > 1:
+    if sharded:
         data = shard_problem(mesh, data)
         state = shard_state(mesh, state)
     device = data.ops.av.device
@@ -332,7 +324,7 @@ def solver_socp(
     if resumed is None:
         if is_z_scaling:
             logging.log(LOG_LEVELS["scaling"], "Initially scale z with z factor: 2.0")
-            state = apply_z_scale(state, 2.0)
+            state = apply_z_scale(state, 2.0, data.mesh)
         if is_constant_scaling:
             state = _initial_constant_scaling(config, data, state, n_time)
 
@@ -345,8 +337,8 @@ def solver_socp(
     def snapshot_checkpoint(state, iteration, org):
         scale = float(state.r) * float(state.dual_scale)
         return CheckpointDotData(
-            mu=scale * _host(gather_space(mesh, state.mu, "mu"))[:, vertex_slot],
-            E=scale * _host(gather_space(mesh, state.E, "E"))[:, triangle_slot],
+            mu=scale * _host(gather_field(mesh, state.mu, "mu"))[:, vertex_slot],
+            E=scale * _host(gather_field(mesh, state.E, "E"))[:, triangle_slot],
             iteration=iteration,
             time=run_history.get_running_time(),
             kkt=list(org),
@@ -406,17 +398,17 @@ def solver_socp(
     last_snapshot_time = time.perf_counter()
 
     def maybe_snapshot(iteration, force=False):
-        """Write the snapshot when forced or due. On a mesh rank 0's clock
-        decides for every rank (the gather below is a collective), and
-        rank 0 writes the gathered state."""
+        """Write the snapshot when forced or due. On a mesh world rank 0's
+        clock decides for every rank (the gather below is a collective),
+        and world rank 0 writes the gathered state."""
         nonlocal last_snapshot_time
         if snapshot_path is None:
             return
         due = (time.perf_counter() - last_snapshot_time) >= snapshot_every
         if not (force or rank0_decides(due, mesh)):
             return
-        whole = gather_state(mesh, state) if space_size > 1 else state
-        if mesh is None or mesh.rank == 0:
+        whole = gather_state(mesh, state) if sharded else state
+        if mesh is None or mesh.world_rank == 0:
             save_snapshot(snapshot_path, whole, host_schedule_meta(iteration))
         last_snapshot_time = time.perf_counter()
 
@@ -444,7 +436,7 @@ def solver_socp(
                     LOG_LEVELS["scaling"],
                     f"Rescale z at iteration {it} with z factor: {rescale_z}",
                 )
-                state = apply_z_scale(state, rescale_z)
+                state = apply_z_scale(state, rescale_z, data.mesh)
 
         def process_validation(org, scaled, check_it, whether_adjust, sigma_on_device=False):
             """Record one validated KKT table and run every host schedule
@@ -622,7 +614,7 @@ def solver_socp(
     )
     run_history.end()
 
-    if space_size > 1:
+    if sharded:
         state = gather_state(mesh, state)  # every shard, on every rank
     solution = _recover_solution(state, checkpoint_solutions, vertex_slot, triangle_slot)
 
@@ -665,7 +657,7 @@ def _initial_constant_scaling(config, data, state, n_time):
     bt = state.r * state.boundary / data.ops.av[None, :]
     grad_x = grad_space(data.ops, bt, **config.spmd_kwargs(data))
     norms = torch.stack(
-        [torch.sqrt(nsc(bt)), torch.sqrt(nst(grad_time(config.stepsize_time, bt)) + nss(grad_x))]
+        [torch.sqrt(nsc(bt)), torch.sqrt(nst(grad_time(config.stepsize_time, bt, data.mesh)) + nss(grad_x))]
     )
     norm_c, norm_ac = map(float, from_rank0(norms, data.mesh))  # one decision on every rank
     dual_init = sqrt(n_time) * norm_c**2 / norm_ac

@@ -40,7 +40,7 @@ def laplacian_rhs(config: ProblemConfig, data: ProblemData, state: SolverState):
     dt = config.stepsize_time
     rhs_t = (state.A + state.lambda_c - state.mu) * ops.av[None, :]
     rhs_x = (state.B - state.E) * ops.area_f[None, :, None]
-    rhs = div_time(dt, rhs_t) + div_space(ops, rhs_x, **config.spmd_kwargs(data))
+    rhs = div_time(dt, rhs_t, data.mesh) + div_space(ops, rhs_x, **config.spmd_kwargs(data))
     # phi may be f64 (mixed-precision refinement); the RHS stays in the
     # work dtype.
     phi_w = state.phi.to(rhs.dtype)
@@ -67,21 +67,23 @@ def solve_laplacian(config: ProblemConfig, data: ProblemData, state: SolverState
 def solve_proj_soc(config: ProblemConfig, data: ProblemData, state: SolverState):
     """Step 1b: project onto the second-order cones (uses pre-step-2 A, B)."""
     ops = data.ops
-    dec_b = decouple_space(state.B, state.scale_z)
+    dec_b = decouple_space(state.B, state.scale_z, data.mesh)
     to_fst = state.constant_d - state.scale_z * state.A - state.beta_fst
     to_mid = ops.diag_soc[None, None, :, :, None] * (dec_b - state.beta_mid)
     to_end = state.constant_d + state.scale_z * state.A - state.beta_end
     return project_soc(ops, to_fst, to_mid, to_end, **config.spmd_kwargs(data))
 
 
-def solve_q_lambda(config: ProblemConfig, state: SolverState, dt_phi, dx_phi):
-    """Step 2 (and PALM step 0): closed-form diagonal solve for (A, B, lambda)."""
+def solve_q_lambda(config: ProblemConfig, state: SolverState, dt_phi, dx_phi, mesh=None):
+    """Step 2 (and PALM step 0): closed-form diagonal solve for (A, B, lambda).
+    On a mesh with a time axis (`mesh`) B, like every centered array, is
+    computed whole by every time-rank from the gathered cone blocks."""
     sz = state.scale_z
     a1 = sz * (1.0 + state.congestion * state.r)
     a2 = 1.0 + 2.0 * sz * a1
 
     memo_a = dt_phi + state.mu
-    memo_b = decouple_space_adjoint(state.z_mid + state.beta_mid, sz)
+    memo_b = decouple_space_adjoint(state.z_mid + state.beta_mid, sz, mesh)
 
     A = (1.0 / a2) * memo_a + (a1 / a2) * (
         state.z_end + state.beta_end - state.z_fst - state.beta_fst
@@ -102,7 +104,7 @@ def solve_q_lambda(config: ProblemConfig, state: SolverState, dt_phi, dx_phi):
 def iteration(config: ProblemConfig, data: ProblemData, state: SolverState):
     """One full iALM iteration; returns the new state."""
     if config.is_palm:
-        A, B, lambda_c = solve_q_lambda(config, state, state.dt_phi, state.dx_phi)
+        A, B, lambda_c = solve_q_lambda(config, state, state.dt_phi, state.dx_phi, data.mesh)
         state = state._replace(A=A, B=B, lambda_c=lambda_c)
 
     # Step 1: Laplacian solve and SOC projection share the pre-update state.
@@ -112,15 +114,15 @@ def iteration(config: ProblemConfig, data: ProblemData, state: SolverState):
     # Step 2. With refinement phi is f64; its gradients are taken in f64
     # then rounded to the work dtype.
     wd = config.torch_dtype
-    dt_phi = grad_time(config.stepsize_time, phi).to(wd)
+    dt_phi = grad_time(config.stepsize_time, phi, data.mesh).to(wd)
     dx_phi = grad_space(data.ops, phi, **config.spmd_kwargs(data)).to(wd)
     state_z = state._replace(z_fst=z_fst, z_mid=z_mid, z_end=z_end)
-    A, B, lambda_c = solve_q_lambda(config, state_z, dt_phi, dx_phi)
+    A, B, lambda_c = solve_q_lambda(config, state_z, dt_phi, dx_phi, data.mesh)
 
     # Step 3: multiplier ascent
     tau = state.tau
     sz = state.scale_z
-    dec_b = decouple_space(B, sz)
+    dec_b = decouple_space(B, sz, data.mesh)
     mu = state.mu + tau * (dt_phi - A - lambda_c)
     E = state.E + tau * (dx_phi - B)
     beta_fst = state.beta_fst + tau * (z_fst + sz * A - state.constant_d)

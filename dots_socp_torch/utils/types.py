@@ -71,10 +71,13 @@ class SolutionSocpData(TypedDict, total=False):
 
 
 class SolutionDotData(TypedDict, total=False):
-    """DOT-level solution: transported density and momentum field."""
+    """DOT-level solution: transported density and momentum field, and the
+    potential phi (T+1, V) where the solver gives one (it carries no area
+    weight, so it is the SOCP solution's own)."""
 
     mu: np.ndarray
     E: np.ndarray
+    phi: NotRequired[np.ndarray]
     checkpoints: NotRequired[list]
 
 
@@ -114,6 +117,8 @@ def translate_solution_socp_to_dot(
 
     mu_dot, e_dot = _convert(solution_socp["mu"], solution_socp["E"])
     out = SolutionDotData(mu=mu_dot, E=e_dot)
+    if solution_socp.get("phi") is not None:
+        out["phi"] = np.asarray(solution_socp["phi"])
 
     if solution_socp.get("checkpoints"):
         converted = []

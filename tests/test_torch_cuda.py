@@ -186,7 +186,8 @@ def _blocked_window(n, n_parts, tile_rows=None, widen=False):
 
 @pytest.mark.parametrize("tile_rows, widen", [(None, False), (64, False), (128, True)])
 def test_sharded_kernel_matches_plain_and_f64(tile_rows, widen):
-    """B2 on every shard of plane n40 x 4 shards, for 8, 32 and 128 modes,
+    """B2 on every shard of plane n40 x 4 shards, for 8, 32, 33 (a second mode
+    group with one live lane, as ntime 32 gives it) and 128 modes,
     at the mesh's row width and at a wider one: the kernel, which gathers
     its window from the shard's state and the export buffer, against its
     plain version on the window vector, and the shards assembled through the
@@ -198,7 +199,7 @@ def test_sharded_kernel_matches_plain_and_f64(tile_rows, widen):
     assert (sw_all.nnz_width == 7) != widen
     shards = [tsw.shard_of(sw_all, s) for s in range(n_parts)]
     v_chunk = shards[0].state_in.shape[0]
-    for lanes in (8, 32, 128):
+    for lanes in (8, 32, 33, 128):
         x = np.random.default_rng(6).standard_normal((lanes, lap.shape[0])).astype(np.float32)
         xs = [tsw.window_permute(sw, torch.from_numpy(x[:, s * v_chunk:(s + 1) * v_chunk]).cuda())
               for s, sw in enumerate(shards)]
@@ -275,6 +276,36 @@ def test_two_rank_gloo_cg_on_card(tmp_path):
     x_u = tl.cg_solve(data_u.ops, data_u.cg_op, torch.from_numpy(rhs_u).cuda(), max_iters=2000)
     x_u = x_u.cpu().numpy()[:, ex_u["vertex_slot"]]
     assert np.abs(x_u - x_s).max() <= 1e-5 * np.abs(x_u).max()
+
+
+def test_four_rank_gloo_time_sharded_iterations_on_card(tmp_path):
+    """10 iterations on a 2x2 mesh (two time blocks x two space shards), all
+    four gloo ranks on this card: f64 state, f64 refinement to 1e-12 around
+    the f32 inner CG. Every inner matvec of every rank launched B2, phi and
+    every other gathered field are bit-equal on the four ranks, and the
+    state agrees with the same ranks on the CPU (B2's plain version) within
+    1e-8 of each field's largest entry."""
+    _need_cuda()
+    from dots_socp_torch.cli import load_geometry
+    from dots_socp_torch.solver.state import SolverState
+    from torch_rank_worker import geometry_inputs, run_ranks
+
+    kw = dict(dtype="float64", laplacian_mode="cg", cg_deflation_k=16, cg_rtol=1e-12,
+              phi_refine="on")
+    inputs = dict(geometry_inputs(load_geometry("plane", 24)), n_time=6, iterations=10,
+                  **{f"kw_{k}": v for k, v in kw.items()})
+    runs = {}
+    for device in ("cuda", "cpu"):
+        (tmp_path / device).mkdir()
+        runs[device] = run_ranks(tmp_path / device, "chunk", 4, inputs, device=device,
+                                 mesh_shape="2x2")
+    for out in runs["cuda"]:
+        assert out["b2_launches"] == out["window_matvecs"] > 0
+        for name in SolverState._fields:
+            np.testing.assert_array_equal(out[f"st_{name}"], runs["cuda"][0][f"st_{name}"], name)
+    for name in SolverState._fields:
+        got, ref = runs["cuda"][0][f"st_{name}"], runs["cpu"][0][f"st_{name}"]
+        assert np.abs(got - ref).max() <= 1e-8 * max(np.abs(ref).max(), 1e-300), name
 
 
 def _solver_geometry(n):

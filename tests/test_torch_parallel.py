@@ -49,24 +49,28 @@ def test_parse_mesh_shape():
     assert tpd.parse_mesh_shape("1x4") == (1, 4)
     assert tpd.parse_mesh_shape("8") == (1, 8)
     assert tpd.parse_mesh_shape(" 1X8 ") == (1, 8)
+    assert tpd.parse_mesh_shape("2x4") == (2, 4)
     for bad in ("0x4", "2x4x2", "-1"):
         with pytest.raises(ValueError):
             tpd.parse_mesh_shape(bad)
 
 
 def test_make_solver_mesh_rejects_time_axis_and_oversubscription(tmp_path):
-    """A time axis is not ported; a mesh wider than the process group is
-    refused, as the JAX package refuses more devices than it has."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh (with or without a time axis) needs a process group; a mesh
+    wider than the process group is refused, as the JAX package refuses more
+    devices than it has, and so is one narrower than it."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         tpd.make_solver_mesh("2x1", device="cpu")
     assert tpd.initialize_distributed(
         "gloo", init_method=f"file://{tmp_path / 'rendezvous'}", num_processes=1, process_id=0
     )
     try:
-        with pytest.raises(ValueError, match="devices"):
-            tpd.make_solver_mesh("1x4", device="cpu")
+        for wide in ("1x4", "2x1", "2x2"):
+            with pytest.raises(ValueError, match="devices"):
+                tpd.make_solver_mesh(wide, device="cpu")
         mesh = tpd.make_solver_mesh("1", device="cpu")
         assert (mesh.space, mesh.rank, mesh.device.type, mesh.backend) == (1, 0, "cpu", "gloo")
+        assert (mesh.time, mesh.time_rank, mesh.world_rank, mesh.time_group) == (1, 0, 0, None)
     finally:
         dist.destroy_process_group()
 
@@ -215,7 +219,7 @@ def test_converted_spectral_factor_equals_reference_shards(plane_geometry, n_par
     _, whole, _ = t_build_problem(N_TIME, plane_geometry, device="cpu", **kw)
     host = jax.tree.map(np.asarray, data)
     for rank in range(n_parts):
-        mesh = tpd.SpaceMesh(space=n_parts, rank=rank, device=torch.device("cpu"))
+        mesh = tpd.SolverMesh(space=n_parts, rank=rank, device=torch.device("cpu"))
         _, converted = problem_from_reference(config, host, mesh=mesh)
         built = t_shard_problem(mesh, whole)
         for factor in (converted.spectral, built.spectral):

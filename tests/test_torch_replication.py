@@ -227,6 +227,55 @@ def test_module_form_runs_from_the_repository_root(tmp_path):
     assert "Plane" in (tmp_path / "t.html").read_text()
 
 
+def test_replication_main_on_a_time_sharded_mesh(tmp_path):
+    """`python -m dots_socp_torch.replication.main --mesh_shape 2x1` in two
+    gloo CPU processes (the replication entry points take the mesh flags
+    through the CLI's `run`): both exit 0, world rank 0 alone writes the log,
+    and its KKT lines and transport cost equal the single-process run's
+    (the 2x1 solve is the single-device one, block by block)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, **ONE_THREAD_ENV)
+    env.pop("PYTHONPATH", None)
+    argv = ["--example=plane", "--n_space=10", "--ntime=4", "--nit=20", "--tol=1e-3",
+            "--precision=float64", "--device=cpu"]
+
+    def command(outdir, *extra):
+        return [sys.executable, "-m", "dots_socp_torch.replication.main", *argv,
+                f"--log_file={outdir / 'info.log'}", f"--outdir={outdir}", *extra]
+
+    dirs = [tmp_path / name for name in ("rank0", "rank1", "single")]
+    for d in dirs:
+        d.mkdir()
+    procs = [subprocess.Popen(
+        command(dirs[r], "--mesh_shape=2x1", "--dist_backend=gloo", "--num_processes=2",
+                f"--process_id={r}", f"--coordinator_address=127.0.0.1:{port}"),
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    procs.append(subprocess.Popen(command(dirs[2]), cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    assert not (dirs[1] / "info.log").exists()
+
+    def results(path):
+        return [ln for ln in path.read_text().splitlines()
+                if "Org" in ln or "Transportation cost" in ln]
+
+    mesh_lines, single_lines = results(dirs[0] / "info.log"), results(dirs[2] / "info.log")
+    assert len(mesh_lines) == 6 and mesh_lines == single_lines  # 5 "Org" rows, the cost
+
+
 def test_profile_dir_leaves_a_bounded_trace(tmp_path):
     """--profile_dir wraps the solve in torch.profiler and leaves a Chrome
     trace; it covers at most PROFILE_ITERATIONS iterations (here nit=3 ends

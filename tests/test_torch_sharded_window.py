@@ -15,7 +15,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from dots_socp_torch.convert import problem_from_reference
 from dots_socp_torch.ops import laplacian as tl
 from dots_socp_torch.ops import sharded_window as tsw
-from dots_socp_torch.parallel.distributed import SpaceMesh
+from dots_socp_torch.parallel.distributed import SolverMesh
 from dots_socp_torch.parallel.mesh import shard_problem
 from dots_socp_torch.solver import problem as t_problem
 from dots_socp_tpu.ops import sharded_window as jsw
@@ -107,7 +107,7 @@ def test_problem_from_reference_gives_each_rank_its_shard(blocked):
     )
     pd = pd._replace(cg_op=op)
     for rank in range(S):
-        mesh = SpaceMesh(space=S, rank=rank, device=torch.device("cpu"))
+        mesh = SolverMesh(space=S, rank=rank, device=torch.device("cpu"))
         _, a = problem_from_reference(config, jax.tree.map(np.asarray, data), mesh=mesh)
         b = shard_problem(mesh, pd)
         assert a.mesh is b.mesh is mesh

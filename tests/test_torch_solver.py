@@ -292,17 +292,18 @@ def test_cuda_request_without_cuda_raises(plane_geometry):
 
 
 def test_solver_rejects_unported_options(plane_geometry, tmp_path):
-    """What the port still refuses is a mesh time axis > 1; what it took on
-    since (a snapshot path) runs, and `solver_socp` has no parameter that
-    the JAX `solver_socp` lacks other than `device`."""
+    """What the port refuses is an n_time that the mesh's time axis does not
+    divide (JAX `__graft_entry__.py:111-117`), with both numbers in the
+    message; what it took on since (a snapshot path) runs, and `solver_socp`
+    has no parameter that the JAX `solver_socp` lacks other than `device`."""
     import inspect
 
-    from dots_socp_torch.parallel.distributed import SpaceMesh
+    from dots_socp_torch.parallel.distributed import SolverMesh
     from dots_socp_torch.solver import solver_socp
     from dots_socp_tpu.solver import solver_socp as j_solver_socp
 
-    time_mesh = SpaceMesh(space=1, rank=0, device=torch.device("cpu"), time=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    time_mesh = SolverMesh(space=1, rank=0, device=torch.device("cpu"), time=2)
+    with pytest.raises(ValueError, match="n_time=7 is not a multiple of the mesh's time axis 2"):
         solver_socp(N_TIME, plane_geometry, device="cpu", mesh=time_mesh)
     with pytest.raises(TypeError, match="profile_dir"):
         solver_socp(N_TIME, plane_geometry, device="cpu", profile_dir="p")
@@ -322,13 +323,16 @@ def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys, tmp_path):
     solution, geometry, history = cli.main(base)
     assert solution["mu"].shape == (5, geometry["vertices"].shape[0])
     assert np.isfinite(history.kkt_errors).all()
-    # A mesh time axis, a mesh without --dist_backend or without a process
-    # group, and distributed flags without a mesh.
+    # A mesh (with a time axis or without) without --dist_backend or without
+    # a process group, and distributed flags without a mesh.
     for extra in (["--mesh_shape", "2x1"], ["--mesh_shape", "2"],
+                  ["--mesh_shape", "2x1", "--dist_backend", "gloo"],
                   ["--mesh_shape", "2", "--dist_backend", "gloo"], ["--process_id", "0"]):
         with pytest.raises(SystemExit):
             cli.main(base + extra)
-    assert "not ported" in capsys.readouterr().err  # the time axis's message
+    err = capsys.readouterr().err
+    assert "not ported" not in err  # the time axis is
+    assert "--mesh_shape 2x1 runs 2 processes: launch under torchrun --nproc_per_node 2" in err
     # Ported since: --snapshot writes its file and a second call resumes it.
     snap = tmp_path / "s.npz"
     cli.main(base + ["--snapshot", str(snap)])

@@ -1,10 +1,11 @@
-"""One rank of a space-sharded run of the port, for the CPU tests.
+"""One rank of a sharded run of the port, for the CPU tests.
 
-    python tests/torch_rank_worker.py TASK IN_NPZ OUT_DIR RANK WORLD INIT_METHOD [DEVICE]
+    python tests/torch_rank_worker.py TASK IN_NPZ OUT_DIR RANK WORLD INIT_METHOD \
+        [DEVICE [MESH_SHAPE]]
 
 Brings up torch.distributed (gloo, `INIT_METHOD` such as file:///tmp/x),
-makes the (1, WORLD) mesh on DEVICE (default cpu), runs TASK on this
-rank's shard and writes OUT_DIR/rank{RANK}.npz. The inputs (a geometry and
+makes the MESH_SHAPE mesh (default 1xWORLD) on DEVICE (default cpu), runs
+TASK on this rank's shard and writes OUT_DIR/rank{RANK}.npz. The inputs (a geometry and
 seeded arrays in blocked order) come from IN_NPZ, made by the test with
 numpy. This module imports no jax: the JAX side of each comparison runs in
 the pytest process.
@@ -16,6 +17,11 @@ Tasks:
   solve  -- solver_socp on the mesh; every rank writes the solution
   resume -- solver_socp to `first_nit` iterations with a snapshot, then a
             second call that resumes from it to `nit`
+  timeaxis -- on a mesh with a time axis: the sharded time stencils and
+            norms of seeded arrays, shard_state -> gather_state of a seeded
+            state, and the error of an n_time the time axis does not divide
+  chunk  -- `iterations` calls of `step.iteration` from the solver's initial
+            state on the mesh's shards; the gathered state and KKT table
 
 `run_ranks` starts the ranks for a test and collects their outputs.
 """
@@ -36,7 +42,7 @@ from dots_socp_torch.ops import sharded_window as tsw
 from dots_socp_torch.parallel import distributed as pd
 from dots_socp_torch.parallel.halo import halo_gather, halo_reduce
 from dots_socp_torch.parallel.mesh import shard_problem
-from dots_socp_torch.solver.problem import build_problem
+from dots_socp_torch.solver.problem import build_problem, initial_state
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -69,8 +75,9 @@ def geometry_inputs(geometry):
     return {f"geo_{k}": np.asarray(v) for k, v in geometry.items() if v is not None}
 
 
-def run_ranks(tmp_path, task, world, inputs, device="cpu", timeout=300):
-    """Run `task` on `world` gloo ranks; each rank's outputs, in rank order.
+def run_ranks(tmp_path, task, world, inputs, device="cpu", timeout=300, mesh_shape=None):
+    """Run `task` on `world` gloo ranks (a 1 x world mesh, or `mesh_shape`
+    "TxS" with T * S = world); each rank's outputs, in rank order.
     One thread per rank: several CPU ranks with PyTorch's default thread
     pools slow each other down by an order of magnitude."""
     np.savez(tmp_path / "in.npz", **inputs)
@@ -79,7 +86,7 @@ def run_ranks(tmp_path, task, world, inputs, device="cpu", timeout=300):
     procs = [
         subprocess.Popen(
             [sys.executable, str(Path(__file__)), task, str(tmp_path / "in.npz"), str(tmp_path),
-             str(r), str(world), init, device],
+             str(r), str(world), init, device, mesh_shape or f"1x{world}"],
             env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for r in range(world)
@@ -114,7 +121,7 @@ def _block(a, mesh, axis=-1):
 def _problem(inp, mesh, **kw):
     config, data, extras = build_problem(
         int(inp["n_time"]), _geometry(inp), space_partitions=mesh.space,
-        mesh_axes=(1, mesh.space), device="cpu", mesh=mesh, **kw,
+        mesh_axes=(mesh.time, mesh.space), device="cpu", mesh=mesh, **kw,
     )
     return config, shard_problem(mesh, data), extras
 
@@ -183,14 +190,82 @@ def task_resume(inp, mesh):
     return task_solve(inp, mesh, nit=int(inp["nit"]))
 
 
+def _time_block(a, mesh):
+    return a[mesh.time_block(a.shape[0])]
+
+
+def task_timeaxis(inp, mesh):
+    """Arrays come whole; this rank cuts its (time, space) block of each."""
+    from dots_socp_torch.ops import norms, time_stencils as ts
+    from dots_socp_torch.parallel.mesh import gather_state, shard_state
+    from dots_socp_torch.solver import solver_socp
+    from dots_socp_torch.solver.state import SolverState
+
+    dt = 1.0 / int(inp["n_time"])
+    stag = _time_block(_block(inp["stag"], mesh), mesh)  # (T_loc, V_loc)
+    cone = _time_block(_block(inp["cone"], mesh, axis=2), mesh)  # (T_loc, 2, F_loc, 3, 3)
+    cent = _block(inp["cent"], mesh)  # (T+1, V_loc)
+    cent_f = _block(inp["cent_f"], mesh, axis=1)  # (T+1, F_loc, 3)
+    av, area_f = _block(inp["av"], mesh), _block(inp["area_f"], mesh)
+    n_time = int(inp["n_time"])
+    out = {
+        "div_time": ts.div_time(dt, stag, mesh),
+        "time_center_adjoint": ts.time_center_adjoint(stag, mesh),
+        "decouple_space_adjoint": ts.decouple_space_adjoint(cone, 1.7, mesh),
+        "grad_time": ts.grad_time(dt, cent, mesh),
+        "decouple_space": ts.decouple_space(cent_f, 1.7, mesh),
+        "nst": norms.norm_sq_vertex(av, stag, n_time, mesh, staggered=True),
+        "nsc": norms.norm_sq_vertex(av, cent, n_time + 1, mesh),
+        "nss": norms.norm_sq_triangle(area_f, cent_f, n_time + 1, mesh),
+        "nsd": norms.norm_sq_decouple(area_f, cone, n_time, mesh),
+    }
+    whole = SolverState(**{f: torch.from_numpy(inp[f"st_{f}"]) for f in SolverState._fields})
+    shard = shard_state(mesh, whole)
+    out.update({f"shard_{f}": getattr(shard, f) for f in ("A", "phi", "z_mid", "B")})
+    out.update({f"st_{f}": x for f, x in zip(SolverState._fields, gather_state(mesh, shard))})
+    try:
+        solver_socp(n_time - 1, _geometry(inp), mesh=mesh, nit=1)
+        out["indivisible"] = "no error"
+    except ValueError as err:
+        out["indivisible"] = str(err)
+    return out
+
+
+def task_chunk(inp, mesh):
+    from dots_socp_torch.parallel.mesh import gather_state, shard_state
+    from dots_socp_torch.solver.kkt import kkt_table
+    from dots_socp_torch.solver.scaling import apply_z_scale
+    from dots_socp_torch.solver.step import run_chunk
+
+    kw = {k[3:]: v.item() for k, v in inp.items() if k.startswith("kw_")}
+    n_time = int(inp["n_time"])
+    config, whole, extras = build_problem(
+        n_time, _geometry(inp), space_partitions=mesh.space,
+        mesh_axes=(mesh.time, mesh.space), device="cpu", mesh=mesh, **kw,
+    )
+    state = initial_state(config, whole, extras, norm_constant_d=extras["norm_constant_d"])
+    data = shard_problem(mesh, whole)
+    state = apply_z_scale(shard_state(mesh, state), 2.0, mesh)
+    before, launches = tl.CG_COUNTERS.window_matvecs, tsw.KERNEL_LAUNCHES
+    state = run_chunk(config, data, state, int(inp["iterations"]))
+    out = {
+        "kkt": kkt_table(config, data, state),
+        "window_matvecs": torch.tensor(tl.CG_COUNTERS.window_matvecs - before),
+        "b2_launches": torch.tensor(tsw.KERNEL_LAUNCHES - launches),
+    }
+    out.update({f"st_{f}": x for f, x in zip(state._fields, gather_state(mesh, state))})
+    return out
+
+
 def main(argv):
     task, in_npz, out_dir, rank, world, init_method = argv[:6]
     device = argv[6] if len(argv) > 6 else "cpu"
+    mesh_shape = argv[7] if len(argv) > 7 else f"1x{world}"
     pd.initialize_distributed(
         "gloo", init_method=init_method, num_processes=int(world), process_id=int(rank)
     )
     try:
-        mesh = pd.make_solver_mesh(f"1x{world}", device=device)
+        mesh = pd.make_solver_mesh(mesh_shape, device=device)
         with np.load(in_npz) as f:
             inp = {k: f[k] for k in f.files}
         out = TASKS[task](inp, mesh)
@@ -201,7 +276,8 @@ def main(argv):
         torch.distributed.destroy_process_group()
 
 
-TASKS = {"halo": task_halo, "window": task_window, "solve": task_solve, "resume": task_resume}
+TASKS = {"halo": task_halo, "window": task_window, "solve": task_solve, "resume": task_resume,
+         "timeaxis": task_timeaxis, "chunk": task_chunk}
 
 if __name__ == "__main__":
     main(sys.argv[1:])
