@@ -12,7 +12,7 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                against its plain PyTorch version on the card and against
                scipy's float64 L @ x on the host (L from the problem's
                float64 ELL arrays, not the window format), each within
-               1e-5 * max|y|. Times: device time per call over 50 calls
+               1e-5 * max|y|. Times: device time per call over 50+ calls
                (torch.profiler kernel durations) of the wrapper, which must
                be one launch of the kernel and nothing else, of the plain
                version and of the library call (torch.sparse.mm of the same
@@ -107,6 +107,21 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                (z-scaling, iterations, KKT, sigma update, adaptive segment,
                50 iterations that halve the stop-set error, the refined CG
                path with B2) and makes its own asserts.
+14. bench    -- the port's measurement drivers, each through its `main` in
+               this process: the bench lane (`dots_socp_torch.bench`,
+               --repeats 2 of 2000 flagship and 150 n200 iterations),
+               `scripts.bench_large` (n200, 50 iterations),
+               `scripts.profile_large` (n200, chains of 5, --cg_slope),
+               `scripts.refine_cost_bench` (n200, chains of 10),
+               `scripts.bench_matvec` (n200, 20 calls) and
+               `scripts.steady_state_configs --configs smoke`. Checks: each
+               driver's last line parses and is what it returned; every time
+               in it is finite and > 0; the lane's B1 line carries its
+               device time, bound and library call; bench_matvec's variants
+               agree within KERNEL_TOL * max|y|; B1's launches in the phase
+               equal the window matvecs of the CG solves plus the matvecs the
+               drivers chained themselves; and neither jax nor the JAX
+               package was imported.
 
 Then the kernel summary line (a kernel's `launches` is the sum over the
 paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
@@ -115,12 +130,16 @@ and the result line
 Only the port (`dots_socp_torch`) is imported here. The port keeps its own
 copies of the host modules (geometry, data loading, interface), so neither
 `jax` nor the JAX package `dots_socp_tpu` is imported, here or in the ranks
-of phases 7, 11, 12 and 13: the script checks `sys.modules` and fails otherwise.
+of phases 7, 11, 12 and 13, or by the drivers of phase 14: the script checks
+`sys.modules` and fails otherwise.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -135,7 +154,7 @@ import torch
 
 import dots_socp_torch.ops.sharded_window as sharded_window
 import dots_socp_torch.ops.window_spmv as window_spmv
-from dots_socp_torch import cli, dryrun, interface
+from dots_socp_torch import bench, cli, dryrun, interface
 from dots_socp_torch.kernel_timing import (
     device_ms,
     ell_laplacian,
@@ -150,7 +169,14 @@ from dots_socp_torch.ops import _build
 from dots_socp_torch.ops.collectives import COUNTS
 from dots_socp_torch.ops.laplacian import CG_COUNTERS, SpectralFactor, spectral_solve
 from dots_socp_torch.replication import log2table, main_versus_exact, sweep
-from dots_socp_torch.scripts import solve_large
+from dots_socp_torch.scripts import (
+    bench_large,
+    bench_matvec,
+    profile_large,
+    refine_cost_bench,
+    solve_large,
+    steady_state_configs,
+)
 from dots_socp_torch.solver.problem import build_problem
 
 N_TIME = 31
@@ -186,6 +212,22 @@ TIME_MESHES = (("2x2", 4, "launches"), ("2x1", 2, "b1_launches"))
 PHI_DRIFT_RTOL = 1e-6
 SWEEP_TIME_LIMIT = 20  # seconds per run of the replication sweep
 PROFILE_MAX_BYTES = 200e6
+# Phase 14: (name, the driver's main, its arguments), in the order they run.
+BENCH_DRIVERS = (
+    # The lane at half its default depth: the whole script stays near half
+    # its time limit on a slow host.
+    ("bench", bench.main, ["--repeats", "2", "--flagship_iters", "2000", "--large_iters", "150"]),
+    ("bench_large", bench_large.main, ["--n_space", "200", "--iters", "50"]),
+    ("profile_large", profile_large.main, ["--n_space", "200", "--iters", "5", "--cg_slope"]),
+    ("refine_cost_bench", refine_cost_bench.main, ["--n_space", "200", "--chain", "10"]),
+    ("bench_matvec", bench_matvec.main, ["--n_space", "200", "--iters", "20"]),
+    ("steady_state_configs", steady_state_configs.main, ["--configs", "smoke"]),
+)
+# Keys of a driver's line that hold a time (s, ms, µs or a rate); a
+# difference of two times (`cg_fixed_overhead_ms`, `unattributed_ms`) may
+# be negative and is not one of them, nor is a build that was reused (0 s).
+TIME_KEY = re.compile(r"(_ms|_us|_sec|^value|iters_per_sec|^repeats|^variants|^chain_us)$")
+NOT_TIMES = ("cg_fixed_overhead_ms", "unattributed_ms", "kernel_build_sec")
 
 
 def emit(phase, **fields):
@@ -721,6 +763,65 @@ def phase_profile(card):
     return launches
 
 
+def times_in(result, path=""):
+    """(path, value) of every time in a driver's result, nested dicts and
+    lists included."""
+    for key, value in result.items():
+        where = f"{path}.{key}" if path else key
+        if key in NOT_TIMES:
+            continue
+        if isinstance(value, dict):
+            if TIME_KEY.search(key):
+                yield from ((f"{where}.{k}", v) for k, v in value.items())
+            else:
+                yield from times_in(value, where)
+        elif TIME_KEY.search(key):
+            for v in value if isinstance(value, list) else [value]:
+                yield where, v
+
+
+def phase_bench(card):
+    """Phase 14; returns B1's launches in it."""
+    window_spmv.KERNEL_LAUNCHES = 0
+    CG_COUNTERS.reset()
+    t0 = time.perf_counter()
+    results = {}
+    for name, driver, argv in BENCH_DRIVERS:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            returned = driver([*argv, "--device", "cuda"])
+        last = json.loads(printed.getvalue().strip().splitlines()[-1])
+        if last != json.loads(json.dumps(returned)):
+            raise AssertionError(f"{name}: the last line is not the result it returned")
+        emit("bench", driver=name, argv=argv, result=last, card=card)
+        results[name] = last
+    launches = window_spmv.KERNEL_LAUNCHES
+    chained = (results["bench"]["large_mesh"]["chained_matvecs"]
+               + results["refine_cost_bench"]["chained_matvecs"]
+               + results["bench_matvec"]["chained_matvecs"])
+    emit("bench", phase_seconds=time.perf_counter() - t0, launches=launches,
+         cg_window_matvecs=CG_COUNTERS.window_matvecs, chained_matvecs=chained, card=card)
+    for name, result in results.items():
+        bad = [(k, v) for k, v in times_in(result)
+               if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0)]
+        if bad:
+            raise AssertionError(f"{name}: times that are not finite and > 0: {bad}")
+        if result["device"] != "cuda" or result["card"] != card:
+            raise AssertionError(f"{name} did not run on the card: {result['device']}")
+    lane = results["bench"]["large_mesh"]
+    if not all(lane[k] > 0 for k in ("window_matvec_us", "window_bound_us", "library_us")):
+        raise AssertionError(f"the lane's B1 line lacks its time, bound or library call: {lane}")
+    matvec = results["bench_matvec"]
+    if not matvec["max_disagreement"] <= KERNEL_TOL * matvec["max_abs_y"]:
+        raise AssertionError(f"bench_matvec's variants disagree: {matvec['max_disagreement']}")
+    if not (launches > 0 and launches == CG_COUNTERS.window_matvecs + chained):
+        raise AssertionError(f"B1 launches {launches} != window matvecs "
+                             f"{CG_COUNTERS.window_matvecs} + chained {chained}")
+    if forbidden_imports():
+        raise AssertionError(f"the drivers imported {forbidden_imports()}")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -745,6 +846,7 @@ def main():
     b1_paths["time_slice_unsharded"], b2_time, b1_paths["time_sharded_slice_2x1"] = (
         phase_time_sharded_slice(card))
     phase_dryrun(card)
+    b1_paths["bench"] = phase_bench(card)
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
     print(json.dumps({"kernels": [{

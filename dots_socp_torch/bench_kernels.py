@@ -8,7 +8,7 @@ V=194,814), 32 modes, float32, with the tiles the main path's
 kernel B2 on every shard of 2 and of 4 blocked shards. For each, per call:
 
   device_us  -- summed durations of the GPU kernels of one call
-                (torch.profiler, 50 warm calls; `events` says how many of
+                (torch.profiler, 50+ warm calls; `events` says how many of
                 them the profiler recorded and in how many sessions), for
                 the wrapper (`kernel`, with `by_kernel` naming every
                 launch), for the plain PyTorch version (`plain`), for the

@@ -25,33 +25,9 @@ import numpy as np
 import torch
 
 from dots_socp_torch.parallel.spawn import RANK_TIMEOUT, run_on_ranks
+from dots_socp_torch.scripts.common import plane_problem
 
 STOP_SET = [0, 2, 4, 5]
-
-
-def _build(n_space, n_time, dtype, device, mesh=None, **build_kw):
-    """The plane problem and its initial state, cut to `mesh`'s shard when
-    one is given (as `solver_socp` builds them)."""
-    from dots_socp_torch.cli import load_geometry
-    from dots_socp_torch.parallel.mesh import shard_problem, shard_state
-    from dots_socp_torch.solver.problem import build_problem, initial_state
-
-    space = mesh.space if mesh is not None else 1
-    config, data, extras = build_problem(
-        n_time,
-        load_geometry("plane", n_space),
-        dtype=dtype,
-        space_partitions=space,
-        mesh_axes=(mesh.time, space) if mesh is not None else None,
-        # A space-sharded problem is built whole on the host, then cut.
-        device="cpu" if space > 1 else device,
-        mesh=mesh,
-        **build_kw,
-    )
-    state = initial_state(config, data, extras)
-    if mesh is not None:
-        data, state = shard_problem(mesh, data), shard_state(mesh, state)
-    return config, data, state
 
 
 def entry(device="cuda"):
@@ -60,7 +36,7 @@ def entry(device="cuda"):
     next state."""
     from dots_socp_torch.solver.step import iteration
 
-    config, data, state = _build(32, 31, "float32", device)
+    config, data, state = plane_problem(32, 31, "float32", device)
     return partial(iteration, config), (data, state)
 
 
@@ -80,7 +56,7 @@ def _dryrun_on_mesh(mesh, time_axis, space_axis, device):
     # n_time chosen so the (T, ...) arrays divide over the time axis; the
     # (T+1, ...) arrays stay whole in time.
     n_time = 2 * time_axis
-    config, data, state = _build(8, n_time, "float32", device, mesh)
+    config, data, state = plane_problem(8, n_time, "float32", device, mesh)
 
     # Initial z-scaling, a chunk of iterations, the KKT table and a sigma
     # update: everything the real solve dispatches, on the shards.
@@ -125,7 +101,7 @@ def _dryrun_on_mesh(mesh, time_axis, space_axis, device):
     # per-shard window (kernel B2), the f64 true residual through the halo
     # incidence form (`ProblemData.ops_hi`).
     if space_axis > 1:
-        config_r, data_r, state_r = _build(
+        config_r, data_r, state_r = plane_problem(
             8, n_time, "float32", device, mesh,
             laplacian_mode="cg", cg_deflation_k=8, phi_refine=True,
         )

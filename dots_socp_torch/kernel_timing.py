@@ -49,21 +49,28 @@ def median_call_ms(fn, reps=REPS):
 
 def device_ms(fn, reps=REPS, tries=3):
     """Device time per call of `fn`: the mean duration of each GPU kernel it
-    launches over `reps` warm calls (torch.profiler) times that kernel's
-    launches per call, summed. Returns (total ms, {kernel name: ms}, events);
-    `events` says how good the measurement is: {"calls": reps, "sessions":
-    profiler sessions it took, "seen": {kernel name: events recorded}}. The
-    profiler now and then drops events of a session: a kernel seen a few
-    times less than a multiple of `reps` keeps its mean; a session in which
-    some kernel was seen far off any multiple is measured again."""
+    launches over at least `reps` warm calls (torch.profiler) times that
+    kernel's launches per call, summed. Returns (total ms, {kernel name:
+    ms}, events); `events` says how good the measurement is: {"calls": calls
+    made in a session, "sessions": profiler sessions it took, "seen":
+    {kernel name: events recorded}, "timed_by": "torch.profiler" or "cuda
+    events"}. The profiler now and then loses events of a session (a fifth
+    of them, seen on an H100 late in a long process), so a session makes
+    reps + reps // 2 calls and a kernel needs the events of `reps` of them;
+    a session with fewer, or with a kernel seen off any multiple of the
+    calls, is measured again. After `tries` such sessions the same calls are
+    timed between two CUDA events (idle gaps between kernels included) and
+    that time is split over the kernels by their share of what the profiler
+    did record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    calls = reps + reps // 2
     fn()
     torch.cuda.synchronize()
     for session in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         total_us, seen = {}, {}
@@ -71,13 +78,25 @@ def device_ms(fn, reps=REPS, tries=3):
             if e.device_type == DeviceType.CUDA:
                 total_us[e.name] = total_us.get(e.name, 0.0) + e.time_range.elapsed_us()
                 seen[e.name] = seen.get(e.name, 0) + 1
-        per_call = {name: round(n / reps) for name, n in seen.items()}
-        if seen and all(k >= 1 and abs(seen[name] - k * reps) <= max(2, reps // 10)
-                        for name, k in per_call.items()):
+        events = {"calls": calls, "sessions": session, "seen": {k[:60]: n for k, n in seen.items()},
+                  "timed_by": "torch.profiler"}
+        per_call = {name: max(round(n / calls), 1) for name, n in seen.items()}
+        if seen and all(k * reps <= seen[name] <= k * calls + 2 for name, k in per_call.items()):
             by_name = {name: total_us[name] / seen[name] * per_call[name] / 1e3 for name in seen}
-            events = {"calls": reps, "sessions": session, "seen": {k[:60]: n for k, n in seen.items()}}
             return sum(by_name.values()), by_name, events
-    raise RuntimeError(f"torch.profiler kept dropping device events: saw {seen} over {reps} calls")
+    if not seen:
+        raise RuntimeError(f"torch.profiler recorded no device event over {calls} calls")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / calls
+    recorded = sum(total_us.values())
+    events["timed_by"] = "cuda events"
+    return ms, {name: ms * t / recorded for name, t in total_us.items()}, events
 
 
 def operator_csr(op, n_rows, n_cols):

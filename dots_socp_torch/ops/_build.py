@@ -6,11 +6,15 @@ At first use, the sources under `csrc/` compile with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v
 
-into `build/kernels/libdots_torch_kernels_<sha of sources and flags>.so` at
-the repository root (`.gitignore` lists `build/`). A library whose hash
-matches is reused. A missing `nvcc` or a failed compile raises: there is no
-fallback. `nvcc` is looked up on PATH, then under $CUDA_HOME (default
-/usr/local/cuda).
+into `libdots_torch_kernels_<sha of sources and flags>.so` under
+`$DOTS_SOCP_CACHE_DIR/kernels/` when that variable is set (the root the
+factor caches use, `ops/laplacian.py::_ritz_cache_dir`), else under
+`build/kernels/` at the repository root (`.gitignore` lists `build/`); the
+directory is resolved at each build, not at import. The compiler's log and
+the temporary file of a build in progress lie beside the library. A library
+whose hash matches is reused. A missing `nvcc` or a failed compile raises:
+there is no fallback. `nvcc` is looked up on PATH, then under $CUDA_HOME
+(default /usr/local/cuda).
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("window_spmv.cu",)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,12 +51,21 @@ def nvcc_path() -> str:
     )
 
 
+def build_dir() -> Path:
+    """Where the kernel library is built: `$DOTS_SOCP_CACHE_DIR/kernels` when
+    the variable is set, else `<repository>/build/kernels`."""
+    root = os.environ.get("DOTS_SOCP_CACHE_DIR")
+    if root:
+        return Path(root) / "kernels"
+    return Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libdots_torch_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libdots_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, float]:
@@ -65,7 +77,7 @@ def build() -> tuple[Path, float]:
     out = library_path()
     if out.exists():
         return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp)]
     cmd += [str(CSRC / name) for name in SOURCES]

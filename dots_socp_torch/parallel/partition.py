@@ -66,6 +66,10 @@ class BlockedLayout(NamedTuple):
     inc_local: np.ndarray
 
 
+#: Per-shard chunk sizes of the blocked layout are multiples of this.
+LANE = 8
+
+
 def _round_up(x: int, multiple: int) -> int:
     return max(-(-x // multiple) * multiple, multiple)
 
@@ -81,7 +85,7 @@ def _majority_owner(owners3: np.ndarray) -> np.ndarray:
 
 
 def blocked_layout(
-    triangles: np.ndarray, n_vertices: int, n_parts: int, lane: int = 8
+    triangles: np.ndarray, n_vertices: int, n_parts: int, lane: int = LANE
 ) -> BlockedLayout:
     """Compute the blocked layout and halo tables for `n_parts` space shards.
 

@@ -1,0 +1,109 @@
+"""What the port's measurement drivers share: the plane problem as the main
+path builds it, the device and its synchronisation, timed windows, and the
+JSON line each driver ends in.
+
+Every time here is taken by the host clock around a window that ends in a
+device synchronisation (`timed`), so it is what the caller pays on either
+device; on the card `event_ms` adds the device's own time of the same
+window (CUDA events). A driver names the device it ran on in its last line
+(`device_fields`): the card's name and power limit, or "cpu".
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+from dots_socp_torch.ops import resolve_device
+
+
+def add_device_arg(parser):
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device (default cuda; asking for cuda without a card fails; cpu runs "
+        "the kernels' plain versions)")
+
+
+def plane_problem(n_space, n_time, dtype, device, mesh=None, **build_kw):
+    """(config, data, state): the plane problem at resolution `n_space` and
+    its initial state, built by `solver.problem.{build_problem,
+    initial_state}` with the port's defaults (no vertex padding), cut to
+    `mesh`'s shard when one is given (as `solver_socp` builds them). The
+    counterpart of the JAX package's `__graft_entry__._build`."""
+    from dots_socp_torch.cli import load_geometry
+    from dots_socp_torch.parallel.mesh import shard_problem, shard_state
+    from dots_socp_torch.solver.problem import build_problem, initial_state
+
+    space = mesh.space if mesh is not None else 1
+    config, data, extras = build_problem(
+        n_time,
+        load_geometry("plane", n_space),
+        dtype=dtype,
+        space_partitions=space,
+        mesh_axes=(mesh.time, space) if mesh is not None else None,
+        # A space-sharded problem is built whole on the host, then cut.
+        device="cpu" if space > 1 else device,
+        mesh=mesh,
+        **build_kw,
+    )
+    state = initial_state(config, data, extras)
+    if mesh is not None:
+        data, state = shard_problem(mesh, data), shard_state(mesh, state)
+    return config, data, state
+
+
+def on_card(device) -> bool:
+    return resolve_device(device).type == "cuda"
+
+
+def sync(device):
+    if on_card(device):
+        torch.cuda.synchronize()
+
+
+def timed(fn, device):
+    """(fn(), host seconds): the window starts after a device
+    synchronisation and ends in one, so queued work is neither inside it
+    nor left out."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def event_ms(fn, device):
+    """Device milliseconds of `fn`'s window between two CUDA events (idle
+    gaps between its kernels included); None off the card."""
+    if not on_card(device):
+        return None
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return float(start.elapsed_time(end))
+
+
+def normalized(y):
+    """y scaled to unit norm (summed in float64): keeps a chain of dependent
+    applications bounded without changing what each one computes."""
+    return y * torch.rsqrt((y * y).sum(dtype=torch.float64).to(y.dtype) + 1e-30)
+
+
+def device_fields(device) -> dict:
+    """The device a result was measured on: the card's name and power limit
+    as nvidia-smi prints them, or the CPU."""
+    if on_card(device):
+        from dots_socp_torch.kernel_timing import nvidia_smi_line
+
+        return {"device": "cuda", "card": nvidia_smi_line()}
+    return {"device": "cpu", "card": None}
+
+
+def print_result(result: dict):
+    print(json.dumps(result), flush=True)
+    return result

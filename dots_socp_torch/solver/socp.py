@@ -24,7 +24,8 @@ With `snapshot_path` the state and the host schedules are written to one
 exit, and a run that finds the file resumes from it. On a mesh world rank
 0 decides when (its clock) and writes the gathered state; on resume every
 rank reads the file and keeps its shard, so a snapshot written on one mesh
-shape resumes on another with the same vertex padding.
+shape resumes on another with the same space axis (its vertex order and
+padding); the file names that axis, and another one raises.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 from dots_socp_torch.ops.collectives import from_rank0, rank0_decides
 from dots_socp_torch.ops.mesh_ops import grad_space
 from dots_socp_torch.parallel.distributed import check_time_axis
+from dots_socp_torch.parallel.partition import LANE
 from dots_socp_torch.parallel.mesh import gather_field, gather_state, shard_problem, shard_state
 from dots_socp_torch.ops.time_stencils import grad_time
 from dots_socp_torch.solver.kkt import _norms, compute_kkt, objective_functional
@@ -175,9 +177,10 @@ def solver_socp(
         n_time / T staggered time slices; n_time must be a multiple of T.
     snapshot_path : crash-safe periodic snapshot of the state and the host
         schedules to this .npz path (the JAX package's format); if the file
-        exists, the run RESUMES from it (same n_time and padded vertex
-        count required). Tolerance checkpoints recorded before the snapshot
-        are not replayed on resume.
+        exists, the run RESUMES from it (same n_time, padded vertex count
+        and space axis required: the file names the space axis it was
+        written on, and another one raises). Tolerance checkpoints
+        recorded before the snapshot are not replayed on resume.
     snapshot_every : seconds between periodic snapshots (a final one is
         always written on loop exit when snapshot_path is set).
     `is_multi_threads` is accepted for API parity.
@@ -205,6 +208,9 @@ def solver_socp(
     if pad_multiple is None:
         pad_multiple = 1
     space_size = mesh.space if mesh is not None else 1
+    # The vertex layout of this run's space axis (blocked in per-shard chunks
+    # of a multiple of `lane` when it is cut), written into its snapshots.
+    space_layout = {"space_axis": space_size, "lane": LANE if space_size > 1 else None}
     sharded = mesh is not None and mesh.space * mesh.time > 1
     if mesh is not None:
         device = mesh.device
@@ -291,6 +297,18 @@ def solver_socp(
                 f"snapshot at {snapshot_path} was written for n_time="
                 f"{resumed['n_time']}, V={arrays['phi'].shape[1]}; this run has "
                 f"n_time={n_time}, V={config.n_vertices}"
+            )
+        # The vertex order is the space axis's: a file of another space axis
+        # with the same padded V would be read in the wrong order. Every rank
+        # reads the same file, so every rank raises here, before any
+        # collective. A file without the key (the JAX package's) is not checked.
+        written = resumed.get("space_layout")
+        if written is not None and written != space_layout:
+            raise ValueError(
+                f"snapshot at {snapshot_path} was written on space axis "
+                f"{written['space_axis']} (lane {written['lane']}); this run has space axis "
+                f"{space_layout['space_axis']} (lane {space_layout['lane']}): the vertex "
+                "order differs"
             )
         state = state_from_arrays(
             arrays, config.torch_dtype, phi_dtype=config.phi_dtype, device=state.phi.device
@@ -391,8 +409,9 @@ def solver_socp(
             "sigma_frozen": bool(sigma_frozen),
             "tol_checkpoints": tol_checkpoints,
             "elapsed": time.perf_counter() - start_time,
-            # Port-only key (the JAX loader ignores unknown keys).
+            # Port-only keys (the JAX loader ignores unknown keys).
             "cg_rtol": float(data.cg_op.rtol) if data.cg_op is not None else None,
+            "space_layout": space_layout,
         }
 
     last_snapshot_time = time.perf_counter()

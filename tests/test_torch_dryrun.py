@@ -1,7 +1,8 @@
 """The port's dry run (`dots_socp_torch.dryrun`, counterpart of
 `__graft_entry__.py`): `dryrun_multichip` on spawned gloo CPU ranks passes
-its own asserts on a 2x2 and a 1x2 mesh, a failing rank fails the call, and
-`entry()`'s one iteration agrees with the JAX package's."""
+its own asserts on a 2x4 (the JAX package's `dryrun_multichip(8)`), a 2x2
+and a 1x2 mesh, a failing rank fails the call, and `entry()`'s one
+iteration agrees with the JAX package's."""
 
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ def _one_thread_per_worker():
         yield
 
 
-@pytest.mark.parametrize("n_devices, mesh", [(4, (2, 2)), (2, (1, 2))])
+@pytest.mark.parametrize("n_devices, mesh", [(8, (2, 4)), (4, (2, 2)), (2, (1, 2))])
 def test_dryrun_multichip_passes_its_asserts(n_devices, mesh):
     """The sequence of `__graft_entry__.py:78-205` on `n_devices` ranks: the
     time axis is 2 from 4 ranks on; every rank validated at least once, its

@@ -29,8 +29,9 @@ def test_chip_smoke_imports_only_the_port():
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             roots.add((node.module or "").split(".")[0])
-    allowed = {"__future__", "json", "multiprocessing", "os", "pathlib", "re", "socket", "subprocess", "sys", "tempfile",
-               "time", "numpy", "scipy", "torch", "dots_socp_torch"}
+    allowed = {"__future__", "contextlib", "io", "json", "math", "multiprocessing", "os", "pathlib",
+               "re", "socket", "subprocess", "sys", "tempfile", "time", "numpy", "scipy", "torch",
+               "dots_socp_torch"}
     assert roots <= allowed, roots - allowed
 
 

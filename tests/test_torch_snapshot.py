@@ -6,6 +6,7 @@ ranks; and the file is the JAX package's format, resumed across the two
 packages in both directions."""
 
 import json
+import re
 import shutil
 
 import numpy as np
@@ -137,6 +138,40 @@ def test_resume_rejects_another_shape(plane_geometry, tmp_path, other):
     n_time = other.pop("n_time", N_TIME)
     with pytest.raises(ValueError, match="was written for n_time=6, V=182; this run"):
         t_solver(n_time, plane_geometry, **kw, **other)
+
+
+@pytest.mark.parametrize("written_on", ["1x2", "one device"])
+def test_resume_rejects_another_space_axis(tmp_path, written_on):
+    """plane n13 has V=224, a multiple of 16: its blocked layout on 1x2
+    (two chunks of 112) pads to the same V as one device, so the n_time / V
+    guard passes. The file names the space axis it was written on, and a
+    resume on the other one raises a ValueError naming both (on every rank
+    of the mesh, before any collective: no rank hangs), in both directions."""
+    from dots_socp_torch.cli import load_geometry
+
+    geometry = load_geometry("plane", 13)
+    snap = tmp_path / "state.npz"
+    first = dict(KW, precision="float64", nit=5, snapshot_path=str(snap))
+    inputs = lambda **kw: dict(geometry_inputs(geometry), n_time=N_TIME,
+                               **{f"kw_{k}": v for k, v in kw.items()})
+    (tmp_path / "first").mkdir()
+    if written_on == "1x2":
+        run_ranks(tmp_path / "first", "solve", 2, inputs(**first))
+        written, other = {"space_axis": 2, "lane": 8}, {"space_axis": 1, "lane": None}
+    else:
+        t_solver(N_TIME, geometry, device="cpu", **first)
+        written, other = {"space_axis": 1, "lane": None}, {"space_axis": 2, "lane": 8}
+    assert _meta(snap)["space_layout"] == written
+    message = (f"written on space axis {written['space_axis']} .*this run has space axis "
+               f"{other['space_axis']}")
+    second = dict(first, nit=8)
+    if written_on == "1x2":
+        with pytest.raises(ValueError, match=message):
+            t_solver(N_TIME, geometry, device="cpu", **second)
+    else:
+        for rank in run_ranks(tmp_path, "refused", 2, inputs(**second)):
+            assert re.search(message, str(rank["error"])), rank["error"]
+    assert _meta(snap)["iteration"] == 4  # the file was not overwritten
 
 
 def test_load_rejects_another_version(plane_geometry, tmp_path):

@@ -251,8 +251,8 @@ def test_warm_start_matches_reference(plane_geometry):
 def test_port_imports_no_jax():
     """The port's import graph (package, solver, kernel wrappers, CLI and
     interface, snapshots, the replication scripts, the demo, solve_large,
-    the profiler, the kernel benchmark and chip_smoke.py) leaves jax and the
-    JAX package unimported."""
+    the profiler, the kernel benchmark, the bench lane and the measurement
+    drivers, and chip_smoke.py) leaves jax and the JAX package unimported."""
     code = (
         "import sys\n"
         "import dots_socp_torch, dots_socp_torch.solver, dots_socp_torch.ops.window_spmv\n"
@@ -267,6 +267,9 @@ def test_port_imports_no_jax():
         "import dots_socp_torch.replication.main, dots_socp_torch.replication.sweep\n"
         "import dots_socp_torch.replication.main_versus_exact\n"
         "import dots_socp_torch.replication.log2table, dots_socp_torch.scripts.solve_large\n"
+        "import dots_socp_torch.bench, dots_socp_torch.scripts.bench_large\n"
+        "import dots_socp_torch.scripts.profile_large, dots_socp_torch.scripts.refine_cost_bench\n"
+        "import dots_socp_torch.scripts.bench_matvec, dots_socp_torch.scripts.steady_state_configs\n"
         "from dots_socp_torch import solver\n"
         "assert callable(solver)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dots_socp_tpu'))\n"

@@ -17,6 +17,8 @@ Tasks:
   solve  -- solver_socp on the mesh; every rank writes the solution
   resume -- solver_socp to `first_nit` iterations with a snapshot, then a
             second call that resumes from it to `nit`
+  refused -- solver_socp as `solve`, expected to raise a ValueError before
+            any collective; its message (or "no error")
   timeaxis -- on a mesh with a time axis: the sharded time stencils and
             norms of seeded arrays, shard_state -> gather_state of a seeded
             state, and the error of an n_time the time axis does not divide
@@ -190,6 +192,14 @@ def task_resume(inp, mesh):
     return task_solve(inp, mesh, nit=int(inp["nit"]))
 
 
+def task_refused(inp, mesh):
+    try:
+        task_solve(inp, mesh)
+    except ValueError as err:
+        return {"error": str(err)}
+    return {"error": "no error"}
+
+
 def _time_block(a, mesh):
     return a[mesh.time_block(a.shape[0])]
 
@@ -277,6 +287,7 @@ def main(argv):
 
 
 TASKS = {"halo": task_halo, "window": task_window, "solve": task_solve, "resume": task_resume,
+         "refused": task_refused,
          "timeaxis": task_timeaxis, "chunk": task_chunk}
 
 if __name__ == "__main__":
