@@ -122,6 +122,14 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                equal the window matvecs of the CG solves plus the matvecs the
                drivers chained themselves; and neither jax nor the JAX
                package was imported.
+15. wide_slice -- the JAX package's widest configuration (plane n200,
+               ntime 127, float32, CG + f64 refinement: 128 modes, four mode
+               groups per tile, B1's limit): B1 on its tiles checked and
+               timed as in phase 3, then 100 iterations of the CLI checked as
+               in phase 4 (B1's launches equal the window matvecs); then
+               `scripts.records` runs ring at congestion 0.00 to tol 1e-4
+               (a row of the `make main` sweep) and its own comparison must
+               find the row in agreement with the JAX package's record.
 
 Then the kernel summary line (a kernel's `launches` is the sum over the
 paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
@@ -132,10 +140,17 @@ copies of the host modules (geometry, data loading, interface), so neither
 `jax` nor the JAX package `dots_socp_tpu` is imported, here or in the ranks
 of phases 7, 11, 12 and 13, or by the drivers of phase 14: the script checks
 `sys.modules` and fails otherwise.
+
+    python3 chip_smoke.py --phase time_sharded_slice
+
+runs phases 1 and 2 and then the one phase named (12 or 15) with its checks,
+and prints no kernel or result line: phase 12 alone on a machine with four
+cards is the check of a `TxS` mesh over nccl.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -173,6 +188,7 @@ from dots_socp_torch.scripts import (
     bench_large,
     bench_matvec,
     profile_large,
+    records,
     refine_cost_bench,
     solve_large,
     steady_state_configs,
@@ -203,6 +219,7 @@ RESUME_RTOL = 1e-6
 # 0.0032 on an H100 (gloo, one card); the bound leaves 4x room.
 SPECTRAL_KKT_RTOL = 0.013
 N_TIME_MESH = 32  # ntime of the time-sharded slice: 2 blocks of 16 slices
+N_TIME_WIDE = 127  # ntime of phase 15: 128 modes, B1's four mode groups
 # (--mesh_shape, ranks, the count of the window kernel its ranks launch: B2 on
 # space shards, B1 on one) of phase 12
 TIME_MESHES = (("2x2", 4, "launches"), ("2x1", 2, "b1_launches"))
@@ -283,7 +300,7 @@ def phase_build():
     emit("build", library=str(path.name), compile_seconds=round(seconds, 3), ptxas=ptxas)
 
 
-def phase_kernel(card, n_time=N_TIME):
+def phase_kernel(card, n_time=N_TIME, phase="kernel"):
     geometry = cli.load_geometry("plane", 200)
     lanes = n_time + 1
     config, data, _ = build_problem(n_time, geometry, dtype="float32", device="cuda")
@@ -311,7 +328,7 @@ def phase_kernel(card, n_time=N_TIME):
                          lambda: window_spmv.window_matvec_plain(wop, xp), "window_spmv_kernel",
                          (wop, xp, v))
     bound = window_bound(wop, v, lanes, v)
-    emit("kernel", shape=[lanes, v], meta={"tile_rows": wop.tile_rows, "width": wop.width,
+    emit(phase, shape=[lanes, v], meta={"tile_rows": wop.tile_rows, "width": wop.width,
          "nnz_width": wop.nnz_width, "nnz_pad": int(wop.lcol.shape[1]),
          "tiles": -(-v // wop.tile_rows)},
          max_abs_err_vs_plain=err_kp, max_abs_err_kernel_vs_f64=err_kr,
@@ -347,15 +364,15 @@ def run_cli(n_space, nit, extra=(), n_time=N_TIME):
     }
 
 
-def phase_slice(card):
+def phase_slice(card, n_time=N_TIME, phase="slice"):
     window_spmv.KERNEL_LAUNCHES = 0  # count the main path's launches only
     CG_COUNTERS.reset()
-    solution, history, stats = run_cli(200, 100)
+    solution, history, stats = run_cli(200, 100, n_time=n_time)
     launches = window_spmv.KERNEL_LAUNCHES
     counters = dict(vars(CG_COUNTERS))
     stop = np.nanmax(history.kkt_errors[:, STOP_SET], axis=1)
     mass_err = mass_conservation_error(solution["mu"])
-    emit("slice", **stats, launches=launches, cg=counters,
+    emit(phase, **stats, n_time=n_time, launches=launches, cg=counters,
          inner_cg_per_outer=CG_COUNTERS.iterations / max(CG_COUNTERS.solves, 1),
          stop_error_first=float(stop[0]), stop_error_last=float(stop[-1]),
          mass_conservation_error=mass_err, card=card)
@@ -822,11 +839,36 @@ def phase_bench(card):
     return launches
 
 
-def main():
+def phase_wide_slice(card):
+    """Phase 15. Returns B1's kernel fields at 128 modes and its launches on
+    the 100-iteration run."""
+    kernel = phase_kernel(card, N_TIME_WIDE, phase="wide_slice")
+    launches, _, _ = phase_slice(card, N_TIME_WIDE, phase="wide_slice")
+    with tempfile.TemporaryDirectory() as tmp:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            summary = records.main(["--only", "R1", "--examples", "ring", "--congestions", "0.00",
+                                    "--outdir", tmp, "--device", "cuda"])
+    interface.set_logging_level("info")
+    emit("wide_slice", record=summary["lines"], card=card)
+    if not (summary["rows"] == 1 and summary["agrees"]):
+        raise AssertionError(f"ring at congestion 0.00 disagrees with its record: {summary}")
+    return kernel, launches
+
+
+def main(argv=None):
+    alone = {"time_sharded_slice": phase_time_sharded_slice, "wide_slice": phase_wide_slice}
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase", choices=sorted(alone),
+                    help="run the device and build phases and then this phase alone")
+    args = ap.parse_args(argv)
     card = phase_device()
     phase_build()
+    if args.phase:
+        alone[args.phase](card)
+        return 0
     # The kernel line reports B1 at the main path's shape (32 modes), and its
-    # worst error over both mode counts checked.
+    # worst error over every mode count checked (32, 33 and, in phase 15, 128).
     kernel = phase_kernel(card)
     kernel_33 = phase_kernel(card, N_TIME_MESH)  # 33 modes
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_33["max_abs_err"])
@@ -847,6 +889,8 @@ def main():
         phase_time_sharded_slice(card))
     phase_dryrun(card)
     b1_paths["bench"] = phase_bench(card)
+    kernel_128, b1_paths["wide_slice"] = phase_wide_slice(card)
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_128["max_abs_err"])
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
     print(json.dumps({"kernels": [{

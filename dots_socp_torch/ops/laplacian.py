@@ -92,6 +92,14 @@ def build_spectral_factor(
     """Factor the pencil once at setup, with host LAPACK eigh (the
     reference's default, `laplacian.py:102-106`); the factor then moves to
     `device` once."""
+    pairs = spectral_eigenpairs(n_time, stepsize_time, av, lap_space, dtype)
+    return spectral_factor_from_eigh(*pairs, eps=eps, dtype=dtype, device=device)
+
+
+def spectral_eigenpairs(n_time: int, stepsize_time: float, av: np.ndarray, lap_space, dtype):
+    """Host (lam_t, u_time, s, w, q): the time Laplacian's eigenpairs,
+    s = av^{-1/2}, and the eigenpairs of C = av^{-1/2}(-L)av^{-1/2}
+    (float64 eigh; cached as `dtype` stores them)."""
     lap_time = build_time_laplacian(n_time, stepsize_time)
     lam_t, u_time = np.linalg.eigh(lap_time)  # lam_t <= 0 ascending
 
@@ -101,6 +109,12 @@ def build_spectral_factor(
     c = -(s[:, None] * dense * s[None, :])
     c = 0.5 * (c + c.T)  # enforce symmetry
     w, q = _spectral_eigh_cached(lap_space, av, c, dtype)
+    return lam_t, u_time, s, w, q
+
+
+def spectral_factor_from_eigh(lam_t, u_time, s, w, q, eps=0.0, dtype=torch.float32, device="cpu"):
+    """The SpectralFactor of host eigenpairs: the time Laplacian's (lam_t,
+    u_time), C's (w, q) and s = av^{-1/2}, cast to `dtype` on `device`."""
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)

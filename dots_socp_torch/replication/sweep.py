@@ -85,6 +85,8 @@ def warm_up(device):
 
 
 def main(argv=None):
+    """Run the sweep; returns [(example, congestion, run_history)] in the
+    order run."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--ntime", type=int, default=31)
     ap.add_argument("--nit", type=int, default=10000)
@@ -112,6 +114,7 @@ def main(argv=None):
     if not args.no_warmup:
         warm_up(args.device)
 
+    runs = []
     for congestion in args.congestions:
         tag = f"{congestion:.2f}".replace(".", "_")
         c_dir = outdir / f"congestion_{tag}"
@@ -125,6 +128,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             print_example_info(opts)  # the block header log2table splits on
             _, _, history = run_dot_surface(opts=opts, solver=solver, solver_name="socp")
+            runs.append((example, congestion, history))
             errors = np.asarray(history.get_current_kkt_errors(), dtype=float)
             converged = bool(np.all(errors < args.tol))
             logging.log(
@@ -142,6 +146,7 @@ def main(argv=None):
         )
 
     print("[sweep] done", flush=True)
+    return runs
 
 
 if __name__ == "__main__":

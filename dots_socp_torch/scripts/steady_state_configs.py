@@ -37,6 +37,7 @@ CONFIGS = {
 
 
 def run_config(parser, argv, device, warmup_nit=2):
+    """(result, run history) of one config: warm-up, then the measured solve."""
     import numpy as np
 
     from dots_socp_torch import cli
@@ -59,7 +60,7 @@ def run_config(parser, argv, device, warmup_nit=2):
         "iterations": iterations,
         "iters_per_sec": iterations / wall,
         "converged": bool(np.all(errors < opts.tol)),
-    }
+    }, history
 
 
 def main(argv=None):
@@ -78,7 +79,7 @@ def main(argv=None):
     parser = cli.parse_args(return_parser=True)
     results = {}
     for key in args.configs:
-        results[f"config_{key}"] = run_config(parser, CONFIGS[key], device)
+        results[f"config_{key}"], _ = run_config(parser, CONFIGS[key], device)
         print_result({f"config_{key}": results[f"config_{key}"]})
     return print_result({**results, **device_fields(device)})
 

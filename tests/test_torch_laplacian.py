@@ -84,8 +84,8 @@ def test_ell_matvec_matches_reference(mesh):
     np.testing.assert_allclose(port, (lap @ x.T).T, rtol=1e-12, atol=1e-12)
 
 
-def _rhs(av, seed):
-    rhs = np.random.default_rng(seed).standard_normal((T + 1, av.shape[0]))
+def _rhs(av, seed, n_time=T):
+    rhs = np.random.default_rng(seed).standard_normal((n_time + 1, av.shape[0]))
     return rhs - rhs.mean()
 
 
@@ -114,17 +114,20 @@ def test_cg_solve_f64_matches_reference(mesh):
         assert np.abs(diff - diff.mean()).max() < 1e-8
 
 
-def test_cg_solve_refined_window_matches_reference(mesh):
+@pytest.mark.parametrize("n_time", [T, 127], ids=["6_modes", "128_modes"])
+def test_cg_solve_refined_window_matches_reference(mesh, n_time):
     """The refined path: f64 true residual around the f32 inner CG on the
-    window SpMV (port: plain version; JAX: Pallas interpret mode). Same
-    bound as the reference's own test (test_ops.py:485): 1e-6."""
+    window SpMV (port: plain version; JAX: Pallas interpret mode), at 6
+    time modes and at 128 (ntime 127: four mode groups of 32). Same bound
+    as the reference's own test (test_ops.py:485): 1e-6."""
     vertices, triangles, lap, av = mesh
     jops = j_mesh.build_surface_ops(vertices, triangles, dtype=jnp.float64)
     tops = t_mesh.build_surface_ops(vertices, triangles, dtype=torch.float64)
     kw = dict(deflation_k=8, spmv_tile_rows=64, refine=True)
-    jop = jl.build_cg_operator(T, DT, av, lap, dtype=jnp.float64, use_pallas_spmv=True, **kw)
-    top = tl.build_cg_operator(T, DT, av, lap, dtype=torch.float64, **kw)
-    rhs = _rhs(av, 34)
+    jop = jl.build_cg_operator(n_time, 1.0 / n_time, av, lap, dtype=jnp.float64,
+                               use_pallas_spmv=True, **kw)
+    top = tl.build_cg_operator(n_time, 1.0 / n_time, av, lap, dtype=torch.float64, **kw)
+    rhs = _rhs(av, 34, n_time)
     ref = np.asarray(jl.cg_solve(jops, jop, jnp.asarray(rhs), max_iters=600, rtol=1e-8))
     before = tl.CG_COUNTERS.window_matvecs
     port, iters = tl.cg_solve(

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 
 from dots_socp_torch.ops import _build
-from dots_socp_torch.scripts import bench_matvec, common, profile_large, refine_cost_bench
+from dots_socp_torch.scripts import (
+    bench_matvec, common, profile_large, refine_cost_bench, spectral_floor)
 from torch_rank_worker import one_thread
 
 REPO = Path(__file__).resolve().parents[1]
@@ -236,6 +237,25 @@ def test_bench_matvec_ends_in_the_reference_keys():
     assert out["chained_matvecs"] == 2 * 3 + 1
 
 
+def test_spectral_floor_holds_each_float32_solve_against_float64():
+    """On the CPU the "device" is the host: its float32 answers are the
+    host's bit for bit, the float64 one is the reference's own, and the
+    float32 error is rounding-sized on both kinds of right-hand side."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = spectral_floor.main(["--examples", "plane", "--n_space", "12", "--ntime", "7",
+                                   "--pad_multiple", "1", "--rhs", "2", "--device", "cpu"])
+    row, last = (json.loads(ln) for ln in printed.getvalue().strip().splitlines())
+    assert last == out and out["device_over_cpu_f32"] == {"plane": {"gaussian": 1.0,
+                                                                    "smooth": 1.0}}
+    assert (row["example"], row["n_time"], row["v_pad"]) == ("plane", 7, row["vertices"])
+    for errors in (row["rel_l2"], row["rel_energy"]):
+        for kind in ("gaussian", "smooth"):
+            assert errors[kind]["f64_device"] == 0.0
+            assert 0 < errors[kind]["f32_device"] == errors[kind]["f32_cpu"] < 1e-5
+    assert row["repeat_equal"] and not row["allow_tf32"] and row["device"] == "cpu"
+
+
 # ---- every driver: the card or an error -----------------------------------
 
 DRIVERS = {
@@ -245,6 +265,8 @@ DRIVERS = {
     "scripts.refine_cost_bench": ["--n_space", "12", "--ntime", "4"],
     "scripts.bench_matvec": ["--n_space", "12", "--n_time", "4"],
     "scripts.steady_state_configs": ["--configs", "smoke"],
+    "scripts.records": ["--only", "R3"],
+    "scripts.spectral_floor": ["--examples", "plane", "--n_space", "12", "--ntime", "4"],
 }
 
 

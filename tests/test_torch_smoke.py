@@ -29,10 +29,29 @@ def test_chip_smoke_imports_only_the_port():
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             roots.add((node.module or "").split(".")[0])
-    allowed = {"__future__", "contextlib", "io", "json", "math", "multiprocessing", "os", "pathlib",
-               "re", "socket", "subprocess", "sys", "tempfile", "time", "numpy", "scipy", "torch",
-               "dots_socp_torch"}
+    allowed = {"__future__", "argparse", "contextlib", "io", "json", "math", "multiprocessing",
+               "os", "pathlib", "re", "socket", "subprocess", "sys", "tempfile", "time", "numpy",
+               "scipy", "torch", "dots_socp_torch"}
     assert roots <= allowed, roots - allowed
+
+
+@pytest.mark.parametrize("argv", [[], ["--phase", "time_sharded_slice"], ["--phase", "wide_slice"]],
+                         ids=["all", "time_sharded_slice", "wide_slice"])
+def test_chip_smoke_without_a_card_fails_at_phase_one(argv, capsys):
+    """The whole run and each phase that runs alone fail at the device phase
+    when there is no card, and print no line."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        chip_smoke.main(argv)
+    assert capsys.readouterr().out == ""
+
+
+def test_chip_smoke_runs_alone_only_phases_12_and_15():
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--phase", "slice"])
 
 
 def test_smoke_reference_laplacian_is_the_cotan_laplacian():

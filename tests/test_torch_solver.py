@@ -181,16 +181,43 @@ def test_adaptive_segment_decisions_match_reference(setups):
     assert np.isnan(rec_t[n:]).all()
 
 
-@pytest.mark.parametrize("mode", ["cg", "spectral"])
-def test_full_solve_matches_reference(plane_geometry, mode):
-    """solver() at ntime=7, tol=1e-3, f64: the same iteration count and
-    validation points as JAX, and the transport cost within 1e-8 relative."""
+@pytest.fixture(scope="module")
+def small_plane_geometry():
+    """The conftest's plane example at n=8 (V=90): the mesh of the ntime-127
+    cases, whose 128 time modes cost the port's CPU path ~80 ms per
+    iteration at n=12."""
+    from dots_socp_tpu.geometry.generators import generate_plane_mesh
+    from dots_socp_tpu.geometry.surface import triangle_quantities, vertex_areas
+    from dots_socp_tpu.utils.types import GeometryData
+
+    vertices, triangles, edges = generate_plane_mesh(n=8)
+    area_f, _, _ = triangle_quantities(vertices, triangles)
+    av = vertex_areas(triangles, area_f, vertices.shape[0])
+    mu = [av * np.exp(-np.linalg.norm(vertices - c, axis=1) ** 2 / (2 * 0.1**2))
+          for c in (np.array([0.4, 0.4, 0.0]), np.array([0.6, 0.6, 0.0]))]
+    return GeometryData(vertices=vertices, triangles=triangles, edges=edges,
+                        mu0=mu[0] / mu[0].sum(), mu1=mu[1] / mu[1].sum(),
+                        area_triangles=area_f, area_vertices=av)
+
+
+@pytest.mark.parametrize(
+    "mode, n_time, geometry",
+    [("cg", N_TIME, "plane_geometry"), ("spectral", N_TIME, "plane_geometry"),
+     ("cg", 127, "small_plane_geometry"), ("spectral", 127, "small_plane_geometry")],
+    ids=["cg", "spectral", "cg-ntime127", "spectral-ntime127"],
+)
+def test_full_solve_matches_reference(request, mode, n_time, geometry):
+    """solver() at tol=1e-3, f64, at ntime 7 on plane n12 and at ntime 127
+    (128 time modes, the most any record runs) on plane n8: the same
+    iteration count and validation points as JAX, and the transport cost
+    within 1e-8 relative."""
     from dots_socp_torch.solver import solver as t_solver
     from dots_socp_tpu.solver import solver as j_solver
 
+    geometry = request.getfixturevalue(geometry)
     kw = dict(tol=1e-3, nit=2000, time_limit=600, precision="float64", laplacian_mode=mode)
-    sol_t, hist_t = t_solver(N_TIME, plane_geometry, device="cpu", **kw)
-    sol_j, hist_j = j_solver(N_TIME, plane_geometry, **kw)
+    sol_t, hist_t = t_solver(n_time, geometry, device="cpu", **kw)
+    sol_j, hist_j = j_solver(n_time, geometry, **kw)
     np.testing.assert_array_equal(hist_t.kkt_iteration, hist_j.kkt_iteration)
     assert np.all(hist_t.get_current_kkt_errors() < 1e-3)
     cost_t = hist_t.history["Transportation cost"][-1]
@@ -251,8 +278,9 @@ def test_warm_start_matches_reference(plane_geometry):
 def test_port_imports_no_jax():
     """The port's import graph (package, solver, kernel wrappers, CLI and
     interface, snapshots, the replication scripts, the demo, solve_large,
-    the profiler, the kernel benchmark, the bench lane and the measurement
-    drivers, and chip_smoke.py) leaves jax and the JAX package unimported."""
+    the profiler, the kernel benchmark, the bench lane, the measurement
+    drivers, the records driver and spectral_floor, and chip_smoke.py)
+    leaves jax and the JAX package unimported."""
     code = (
         "import sys\n"
         "import dots_socp_torch, dots_socp_torch.solver, dots_socp_torch.ops.window_spmv\n"
@@ -270,6 +298,7 @@ def test_port_imports_no_jax():
         "import dots_socp_torch.bench, dots_socp_torch.scripts.bench_large\n"
         "import dots_socp_torch.scripts.profile_large, dots_socp_torch.scripts.refine_cost_bench\n"
         "import dots_socp_torch.scripts.bench_matvec, dots_socp_torch.scripts.steady_state_configs\n"
+        "import dots_socp_torch.scripts.records, dots_socp_torch.scripts.spectral_floor\n"
         "from dots_socp_torch import solver\n"
         "assert callable(solver)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dots_socp_tpu'))\n"
