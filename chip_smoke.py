@@ -130,6 +130,15 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                `scripts.records` runs ring at congestion 0.00 to tol 1e-4
                (a row of the `make main` sweep) and its own comparison must
                find the row in agreement with the JAX package's record.
+16. spectral_records -- the float32 dense spectral phi solve at the sweep's
+               size: `scripts.spectral_floor` on knots_3, padded to 4,096
+               vertices as the sweep pads it, where the card's error against
+               the float64 solve, in the energy norm, must stay within
+               SPECTRAL_ENERGY_RATIO of the host's on both kinds of
+               right-hand side; then `scripts.records` runs the `make main`
+               rows of SPECTRAL_ROWS to tol 1e-4 (the spectral path, from a
+               fresh factor cache), and each must converge and be found in
+               agreement with the JAX package's record.
 
 Then the kernel summary line (a kernel's `launches` is the sum over the
 paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
@@ -143,7 +152,7 @@ of phases 7, 11, 12 and 13, or by the drivers of phase 14: the script checks
 
     python3 chip_smoke.py --phase time_sharded_slice
 
-runs phases 1 and 2 and then the one phase named (12 or 15) with its checks,
+runs phases 1 and 2 and then the one phase named (12, 15 or 16) with its checks,
 and prints no kernel or result line: phase 12 alone on a machine with four
 cards is the check of a `TxS` mesh over nccl.
 """
@@ -191,6 +200,7 @@ from dots_socp_torch.scripts import (
     records,
     refine_cost_bench,
     solve_large,
+    spectral_floor,
     steady_state_configs,
 )
 from dots_socp_torch.solver.problem import build_problem
@@ -227,6 +237,13 @@ TIME_MESHES = (("2x2", 4, "launches"), ("2x1", 2, "b1_launches"))
 # own: the largest relative difference between two ranks' phi that the phase
 # accepts where they are not bit-equal (float32 round-off of one iteration).
 PHI_DRIFT_RTOL = 1e-6
+# Phase 16: the largest ratio of the card's float32 spectral solve error to
+# the host BLAS's (one product over all of K), in the energy norm (the
+# chained products on the card: 0.7-1.1x; one library GEMM over all of K on
+# the card: 2.5-3.7x), and the sweep's rows (example, congestions) held to
+# their records.
+SPECTRAL_ENERGY_RATIO = 1.25
+SPECTRAL_ROWS = (("knots_3", ("0.00", "0.01")), ("hills", ("0.00",)))
 SWEEP_TIME_LIMIT = 20  # seconds per run of the replication sweep
 PROFILE_MAX_BYTES = 200e6
 # Phase 14: (name, the driver's main, its arguments), in the order they run.
@@ -856,8 +873,40 @@ def phase_wide_slice(card):
     return kernel, launches
 
 
+def phase_spectral_records(card):
+    """Phase 16."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            floor = spectral_floor.main(["--examples", "knots_3", "--variants", "long",
+                                         "--device", "cuda"])
+            summaries = [records.main(["--only", "R1", "--examples", example,
+                                       "--congestions", *congestions, "--outdir", tmp,
+                                       "--device", "cuda"])
+                         for example, congestions in SPECTRAL_ROWS]
+    interface.set_logging_level("info")
+    ratios = floor["energy_device_over_host_blas"]["knots_3"]
+    lines = [line for summary in summaries for line in summary["lines"]]
+    emit("spectral_records", energy_device_over_host_blas=ratios,
+         energy_device_over_cpu=floor["energy_device_over_cpu_f32"]["knots_3"],
+         long_energy_device_over_cpu=floor["variants_energy_device_over_cpu"]["knots_3"]["long"],
+         solve_us=floor["solve_us"]["knots_3"],
+         rows={ln["row"]: {"port": ln["port"], "jax": ln["jax"], "agrees": ln["agrees"]}
+               for ln in lines},
+         phase_seconds=time.perf_counter() - t0, card=card)
+    if not all(r <= SPECTRAL_ENERGY_RATIO for r in ratios.values()):
+        raise AssertionError(f"the card's float32 spectral solve is {ratios} times the host's "
+                             f"error in the energy norm (> {SPECTRAL_ENERGY_RATIO})")
+    rows = sum(len(congestions) for _, congestions in SPECTRAL_ROWS)
+    if not (len(lines) == rows and all(ln["agrees"] for ln in lines)):
+        raise AssertionError(f"sweep rows disagree with their records: "
+                             f"{[s['disagree'] for s in summaries]}")
+
+
 def main(argv=None):
-    alone = {"time_sharded_slice": phase_time_sharded_slice, "wide_slice": phase_wide_slice}
+    alone = {"time_sharded_slice": phase_time_sharded_slice, "wide_slice": phase_wide_slice,
+             "spectral_records": phase_spectral_records}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=sorted(alone),
                     help="run the device and build phases and then this phase alone")
@@ -890,6 +939,7 @@ def main(argv=None):
     phase_dryrun(card)
     b1_paths["bench"] = phase_bench(card)
     kernel_128, b1_paths["wide_slice"] = phase_wide_slice(card)
+    phase_spectral_records(card)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_128["max_abs_err"])
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")

@@ -23,6 +23,7 @@ The host-side builders are numpy/scipy copies of the reference's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import NamedTuple, Optional
 
@@ -175,22 +176,66 @@ def _spectral_eigh_cached(lap_space, av, c, dtype, min_cache_v: int = 4096):
     return w, q
 
 
+# The longest summation chain of `blocked_matmul`. A host BLAS sums K in
+# blocks of a few hundred and the TPU's MXU in passes of 128; the card's
+# SGEMM sums far longer chains. One library GEMM over all of K made the
+# card's float32 spectral solve 2.5-3.7x less accurate than the host's in
+# the energy norm at K = 4,096-12,288 (the `make main` sweep's larger
+# meshes then stalled above tol 1e-4). Chains of 32-256 bring it to
+# 0.4-1.14x of the host's, chains of 512 to 1.5-2.9x
+# (`scripts/spectral_floor.py`, on an H100): 256 is the longest within 1.25x.
+SPECTRAL_BLOCK_K = 256
+
+
+@functools.lru_cache(maxsize=64)
+def chain_length(k: int, longest: int = SPECTRAL_BLOCK_K) -> int:
+    """The chain length `blocked_matmul` sums K in: the largest divisor of
+    k from longest / 2 to longest, so that K splits into equal blocks and
+    no ragged last block costs a product of its own (4,810 -> 185); else
+    `longest`."""
+    for length in range(longest, longest // 2, -1):
+        if k % length == 0:
+            return length
+    return longest
+
+
+def blocked_matmul(a, b, block: int | None = None):
+    """a @ b for a (M, K) and b (K, N) of any strides, summed over K in
+    chains of `block` (default `chain_length(K)`): one batched product of
+    (nb, M, block) x (nb, block, N), the nb partials summed, and the product
+    of a ragged last block of K added; the result is contiguous. The blocks
+    are views (a (V, V) operand's row or column blocks), never a copy."""
+    k = a.shape[-1]
+    block = block or chain_length(k)
+    nb, ragged = divmod(k, block)
+    full = nb * block
+    (m, n), (a0, a1), (b0, b1) = (a.shape[0], b.shape[1]), a.stride(), b.stride()
+    out = torch.bmm(a.as_strided((nb, m, block), (block * a1, a0, a1)),
+                    b.as_strided((nb, block, n), (block * b0, b0, b1))).sum(0)
+    return torch.addmm(out, a[:, full:], b[full:]) if ragged else out
+
+
 def spectral_solve(factor: SpectralFactor, rhs, mesh=None):
     """Apply the space-time Laplacian pseudo-inverse to rhs (T+1, V): two
-    small time-transform GEMMs and two (T+1,V)x(V,V) GEMMs.
+    small time-transform GEMMs and two (V, V) x (V, T+1) GEMMs, the latter
+    summed in short chains over their K (`blocked_matmul`), as a host BLAS
+    and the TPU sum it, on every device and in every dtype.
+
+    The solve runs on the transposed (V, T+1) arrays: with the (V, V)
+    factor on the left the card's library picks faster kernels for the
+    batched products than with it on the right.
 
     On one shard of a space-sharded problem (`mesh`; rhs, `s` and the rows
     of `q` are this shard's vertex block, `u_time` and `invfac` whole) the
     time transforms and scalings are local, the first GEMM gives this
-    shard's partial eigen-coefficients, and one all-reduce of the (T+1, V)
-    array sums them; the second GEMM then gives this shard's block."""
-    y = factor.u_time.T @ rhs  # time transform
-    y = y * factor.s[None, :]
-    coef = space_sum(y @ factor.q, mesh)
-    coef = coef * factor.invfac
-    z = coef @ factor.q.T
-    z = z * factor.s[None, :]
-    return factor.u_time @ z
+    shard's partial eigen-coefficients (K: the shard's vertices), and one
+    all-reduce of the (V, T+1) array sums them; the second GEMM (K: every
+    vertex) then gives this shard's block."""
+    y_t = (rhs.T @ factor.u_time) * factor.s[:, None]  # time transform
+    coef_t = space_sum(blocked_matmul(factor.q.T, y_t), mesh)
+    coef_t = coef_t * factor.invfac.T
+    z_t = blocked_matmul(factor.q, coef_t) * factor.s[:, None]
+    return factor.u_time @ z_t.T
 
 
 class CGOperator(NamedTuple):

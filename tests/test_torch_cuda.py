@@ -380,3 +380,37 @@ def test_two_rank_gloo_spectral_solve_on_card(tmp_path):
         off = np.abs(rank0[key] - single[key]).max() / np.abs(single[key]).max()
         print(f"sharded spectral vs single device, {key}: {off:.3e}")
         assert off <= 1e-4, (key, off)
+
+
+def test_spectral_solve_on_card_holds_the_host_accuracy():
+    """knots_3, padded to 4,096 vertices as the `make main` sweep pads it,
+    ntime 31: the card's float32 spectral solve against float64, in the
+    energy norm, within 1.25x of the host's float32 error (one library GEMM
+    over all of K, the port before the chains, read 2.5-3.7x); and the
+    solve allocates no copy of q (its blocks are views)."""
+    _need_cuda()
+    from dots_socp_torch.scripts import spectral_floor
+
+    out = spectral_floor.main(["--examples", "knots_3", "--variants", "long", "--rhs", "2",
+                               "--device", "cuda"])
+    ratios = out["energy_device_over_host_blas"]["knots_3"]
+    print(f"card over host, energy norm: {ratios}; same code on both: "
+          f"{out['energy_device_over_cpu_f32']['knots_3']}")
+    assert all(r <= 1.25 for r in ratios.values()), ratios
+
+    v, m = 4096, 32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    factor = tl.SpectralFactor(
+        u_time=torch.linalg.qr(torch.randn(m, m, device="cuda", generator=gen))[0],
+        s=torch.rand(v, device="cuda", generator=gen) + 0.5,
+        q=torch.linalg.qr(torch.randn(v, v, device="cuda", generator=gen))[0],
+        invfac=torch.randn(m, v, device="cuda", generator=gen))
+    rhs = torch.randn(m, v, device="cuda", generator=gen)
+    tl.spectral_solve(factor, rhs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tl.spectral_solve(factor, rhs)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra < factor.q.numel() * 4 // 4, extra

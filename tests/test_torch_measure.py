@@ -240,20 +240,69 @@ def test_bench_matvec_ends_in_the_reference_keys():
 def test_spectral_floor_holds_each_float32_solve_against_float64():
     """On the CPU the "device" is the host: its float32 answers are the
     host's bit for bit, the float64 one is the reference's own, and the
-    float32 error is rounding-sized on both kinds of right-hand side."""
+    float32 error is rounding-sized on both kinds of right-hand side; the
+    same under each variant of the two long products, where float64
+    products are the most accurate and the solver's are the `solver`
+    variant's."""
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         out = spectral_floor.main(["--examples", "plane", "--n_space", "12", "--ntime", "7",
-                                   "--pad_multiple", "1", "--rhs", "2", "--device", "cpu"])
+                                   "--pad_multiple", "1", "--rhs", "2", "--variants", "solver",
+                                   "long", "block_16", "f64", "--device", "cpu"])
     row, last = (json.loads(ln) for ln in printed.getvalue().strip().splitlines())
-    assert last == out and out["device_over_cpu_f32"] == {"plane": {"gaussian": 1.0,
-                                                                    "smooth": 1.0}}
+    ones = {"gaussian": 1.0, "smooth": 1.0}
+    assert last == out and out["device_over_cpu_f32"] == {"plane": ones}
+    assert out["energy_device_over_cpu_f32"] == {"plane": ones}
+    assert out["variants_energy_device_over_cpu"] == {
+        "plane": dict.fromkeys(("solver", "long", "block_16", "f64"), ones)}
+    assert set(out["energy_device_over_host_blas"]["plane"]) == {"gaussian", "smooth"}
+    assert out["block_k"] == 256 and out["rows"] == {}
     assert (row["example"], row["n_time"], row["v_pad"]) == ("plane", 7, row["vertices"])
-    for errors in (row["rel_l2"], row["rel_energy"]):
+    for norm in ("rel_l2", "rel_energy"):
         for kind in ("gaussian", "smooth"):
-            assert errors[kind]["f64_device"] == 0.0
-            assert 0 < errors[kind]["f32_device"] == errors[kind]["f32_cpu"] < 1e-5
+            errors = row[norm][kind]
+            assert errors["f64_device"] == 0.0
+            assert 0 < errors["f32_device"] == errors["f32_cpu"] < 1e-5
+            variants = {v: e[norm][kind] for v, e in row["variants"].items()}
+            assert variants["solver"]["device"] == errors["f32_device"]
+            assert all(0 < e["device"] == e["cpu"] < 1e-5 for e in variants.values())
+            assert variants["f64"]["device"] <= min(e["device"] for e in variants.values())
+    assert set(row["solve_us"]) == {"solver", "long", "block_16", "f64"}
+    assert all(len(us) == 3 and min(us) > 0 for us in row["solve_us"].values())
     assert row["repeat_equal"] and not row["allow_tf32"] and row["device"] == "cpu"
+
+
+def test_spectral_floor_runs_each_row_under_each_variant(monkeypatch, tmp_path):
+    """--rows: one records-driver line per row and variant, the run made
+    with the variant's product in `spectral_solve` and the solver's back
+    after it; an unknown variant or row is refused."""
+    from dots_socp_torch.ops import laplacian
+    from dots_socp_torch.scripts import records
+
+    seen = []
+
+    def run(args, record):
+        product = laplacian.blocked_matmul
+        seen.append((args.examples, args.congestions, getattr(product, "keywords", product)))
+        return {(args.examples[0], args.congestions[0]): {
+            "iterations": 3436, "converged": True, "kkt_max": 9e-5, "cost": 0.0, "seconds": 1.0,
+            "it_per_s": 3436.0}}
+
+    monkeypatch.setitem(records.RECORDS, "R1", records.RECORDS["R1"]._replace(run=run))
+    out = run_main(spectral_floor.main, [
+        "--examples", "--rows", "knots_3@0.00", "--row_variants", "long", "block_64",
+        "--outdir", str(tmp_path), "--device", "cpu"])
+    assert seen == [(["knots_3"], ["0.00"], spectral_floor._long_matmul),
+                    (["knots_3"], ["0.00"], {"block": 64})]
+    assert laplacian.blocked_matmul.__name__ == "blocked_matmul"
+    long = out["rows"]["knots_3@0.00"]["long"]
+    assert set(out["rows"]["knots_3@0.00"]) == {"long", "block_64"}
+    assert (long["iterations"], long["converged"], long["kkt_max"]) == (3436, True, 9e-5)
+    assert long["agrees"] is False  # the cost of 0.0 is not the record's
+    with pytest.raises(SystemExit):
+        spectral_floor.main(["--examples", "--variants", "block_x", "--device", "cpu"])
+    with pytest.raises(ValueError, match="not a row of R1"):
+        spectral_floor.main(["--examples", "--rows", "knots_3@0.02", "--device", "cpu"])
 
 
 # ---- every driver: the card or an error -----------------------------------

@@ -35,8 +35,9 @@ def test_chip_smoke_imports_only_the_port():
     assert roots <= allowed, roots - allowed
 
 
-@pytest.mark.parametrize("argv", [[], ["--phase", "time_sharded_slice"], ["--phase", "wide_slice"]],
-                         ids=["all", "time_sharded_slice", "wide_slice"])
+@pytest.mark.parametrize("argv", [[], ["--phase", "time_sharded_slice"], ["--phase", "wide_slice"],
+                                  ["--phase", "spectral_records"]],
+                         ids=["all", "time_sharded_slice", "wide_slice", "spectral_records"])
 def test_chip_smoke_without_a_card_fails_at_phase_one(argv, capsys):
     """The whole run and each phase that runs alone fail at the device phase
     when there is no card, and print no line."""
