@@ -140,6 +140,20 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                fresh factor cache), and each must converge and be found in
                agreement with the JAX package's record.
 
+17. graphs -- the device-resident loops: plane n200 (the CG path) and n64
+               (the spectral flagship), ntime 31, 100 iterations each of the
+               CLI with CUDA graphs (the default; phases 4 and 15 ran so
+               too) and inside `graphs.eager()` (every op launched from the
+               host, the CG's flag read every inner iteration), in this
+               process: phi bit-equal between the two (else within
+               GRAPH_PHI_RTOL), B1's launches counted through the replays
+               equal to the CG's window matvecs; then, through
+               `profile_slice` (n200, inner rtol 5e-4, a 10- against a
+               50-iteration solve in each mode), the host's synchronisations
+               per iteration at most GRAPH_SYNC_RATIO of the eager run's and
+               its launch calls (cudaLaunchKernel and kin, cudaGraphLaunch)
+               at most GRAPH_LAUNCH_CALL_RATIO.
+
 Then the kernel summary line (a kernel's `launches` is the sum over the
 paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
 and the result line
@@ -152,7 +166,7 @@ of phases 7, 11, 12 and 13, or by the drivers of phase 14: the script checks
 
     python3 chip_smoke.py --phase time_sharded_slice
 
-runs phases 1 and 2 and then the one phase named (12, 15 or 16) with its checks,
+runs phases 1 and 2 and then the one phase named (12, 15, 16 or 17) with its checks,
 and prints no kernel or result line: phase 12 alone on a machine with four
 cards is the check of a `TxS` mesh over nccl.
 """
@@ -178,7 +192,7 @@ import torch
 
 import dots_socp_torch.ops.sharded_window as sharded_window
 import dots_socp_torch.ops.window_spmv as window_spmv
-from dots_socp_torch import bench, cli, dryrun, interface
+from dots_socp_torch import bench, cli, dryrun, interface, profile_slice
 from dots_socp_torch.kernel_timing import (
     device_ms,
     ell_laplacian,
@@ -189,7 +203,7 @@ from dots_socp_torch.kernel_timing import (
     shard_inputs,
     window_bound,
 )
-from dots_socp_torch.ops import _build
+from dots_socp_torch.ops import _build, graphs
 from dots_socp_torch.ops.collectives import COUNTS
 from dots_socp_torch.ops.laplacian import CG_COUNTERS, SpectralFactor, spectral_solve
 from dots_socp_torch.replication import log2table, main_versus_exact, sweep
@@ -244,6 +258,13 @@ PHI_DRIFT_RTOL = 1e-6
 # their records.
 SPECTRAL_ENERGY_RATIO = 1.25
 SPECTRAL_ROWS = (("knots_3", ("0.00", "0.01")), ("hills", ("0.00",)))
+# Phase 17: phi of the graphed run against the eager one where they are not
+# bit-equal (the same kernels on the same inputs, measured bit-equal on an
+# H100), and the n200 host synchronisations and launch calls per iteration,
+# graphed over eager, at most (eager: ~34 and ~1,670).
+GRAPH_PHI_RTOL = 0.0
+GRAPH_SYNC_RATIO = 0.25
+GRAPH_LAUNCH_CALL_RATIO = 0.1
 SWEEP_TIME_LIMIT = 20  # seconds per run of the replication sweep
 PROFILE_MAX_BYTES = 200e6
 # Phase 14: (name, the driver's main, its arguments), in the order they run.
@@ -904,9 +925,52 @@ def phase_spectral_records(card):
                              f"{[s['disagree'] for s in summaries]}")
 
 
+def host_calls_per_iteration(n_space, eager):
+    """profile_slice's host synchronisations and launch calls per iteration
+    of plane `n_space`: a BASE- against a (BASE + ITERS)-iteration solve."""
+    geometry = cli.load_geometry("plane", n_space)
+    with graphs.eager() if eager else contextlib.nullcontext():
+        (c0, _), (c1, _) = (profile_slice.profiled_counts(geometry, n)
+                            for n in (profile_slice.BASE, profile_slice.BASE + profile_slice.ITERS))
+    return {k: (c1[k] - c0[k]) / profile_slice.ITERS
+            for k in ("host_syncs", "host_launch_calls", "launches", "device_ms")}
+
+
+def phase_graphs(card):
+    """Phase 17. Returns B1's launches in it."""
+    b1 = 0
+    for n_space in (200, 64):
+        legs, phis = {}, {}
+        for mode in ("graphed", "eager"):
+            window_spmv.KERNEL_LAUNCHES = 0
+            CG_COUNTERS.reset()
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                solution, _, stats = run_cli(n_space, 100)
+            legs[mode] = {**stats, "launches": window_spmv.KERNEL_LAUNCHES,
+                          "cg": dict(vars(CG_COUNTERS))}
+            phis[mode] = solution["phi"]
+            b1 += window_spmv.KERNEL_LAUNCHES
+        bit_equal = bool(np.array_equal(phis["graphed"], phis["eager"]))
+        rel = _rel_diff(phis["graphed"], phis["eager"])
+        emit("graphs", n_space=n_space, **legs, phi_bit_equal=bit_equal, phi_rel=rel, card=card)
+        if not (bit_equal or rel <= GRAPH_PHI_RTOL):
+            raise AssertionError(f"n{n_space}: graphed phi is {rel} off the eager one")
+        for mode, leg in legs.items():
+            if leg["launches"] != leg["cg"]["window_matvecs"] or (n_space == 200) != (leg["launches"] > 0):
+                raise AssertionError(f"n{n_space} {mode}: B1 launches {leg['launches']} against "
+                                     f"{leg['cg']['window_matvecs']} window matvecs")
+    calls = {mode: host_calls_per_iteration(200, mode == "eager") for mode in ("graphed", "eager")}
+    ratios = {k: calls["graphed"][k] / calls["eager"][k] for k in ("host_syncs", "host_launch_calls")}
+    emit("graphs", n_space=200, per_iteration=calls, graphed_over_eager=ratios, card=card)
+    if not (ratios["host_syncs"] <= GRAPH_SYNC_RATIO
+            and ratios["host_launch_calls"] <= GRAPH_LAUNCH_CALL_RATIO):
+        raise AssertionError(f"graphed n200 iteration: host calls over eager {ratios}")
+    return b1
+
+
 def main(argv=None):
     alone = {"time_sharded_slice": phase_time_sharded_slice, "wide_slice": phase_wide_slice,
-             "spectral_records": phase_spectral_records}
+             "spectral_records": phase_spectral_records, "graphs": phase_graphs}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=sorted(alone),
                     help="run the device and build phases and then this phase alone")
@@ -940,6 +1004,7 @@ def main(argv=None):
     b1_paths["bench"] = phase_bench(card)
     kernel_128, b1_paths["wide_slice"] = phase_wide_slice(card)
     phase_spectral_records(card)
+    b1_paths["graphs"] = phase_graphs(card)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_128["max_abs_err"])
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")

@@ -1,0 +1,225 @@
+"""CUDA graphs for the single-device loops: capture once, replay.
+
+The JAX package runs its loops on the device: `run_chunk` is one jitted
+`lax.fori_loop` over the iterations (`dots_socp_tpu/solver/step.py:173-179`)
+and the CG's inner loop a `lax.while_loop` (`ops/laplacian.py:930-955`), so
+the host syncs only at KKT validations. PyTorch launches every op from the
+host. On the card the port records a loop body's launches once as a CUDA
+graph and replays it: one host call per replay, whatever the body launches.
+
+A `Workspace` holds static buffers, a dict of tensors by name, and the
+segments captured over them. A segment is a function of the buffers that
+returns new values for some of them; `Workspace.run(name, fn)` writes those
+values into the buffers in place:
+
+* On a CUDA device the first run of a segment warms it up on a side stream
+  (lazy initialisation: the kernel library, cuBLAS's handle, the window
+  kernel's shared-memory grant) and drops that result, captures the
+  segment into a CUDA graph in the workspace's private memory pool, and
+  replays it; later runs replay. A capture that fails raises, and the
+  buffers are left as they were: nothing falls back to eager.
+* On the CPU it runs the segment eagerly and copies into the same
+  buffers, so the CPU tests go through the same plumbing, aliasing
+  included.
+
+A graph replays the addresses it captured: the buffers and every tensor
+the segment reads besides them (operator leaves). `cached` therefore keys
+an object that owns a workspace by the identity of those tensors and keeps
+them alive while it is cached; a new operator gets a new workspace.
+
+The host counters that a segment ticks where it launches a kernel
+(`register_counter`: kernel B1's launches, the CG's window matvecs) tick
+once while it is captured, where nothing is launched; the capture's ticks
+are taken back and added again at every replay, so each counts the
+launches that ran.
+
+`eager()` turns all of this off for its extent: a segment's values replace
+the dict's entries (no copy, no capture) and nothing is cached, which is
+how PyTorch runs without graphs (the card tests and `chip_smoke.py` hold
+the graphed loops against it). `uncaptured()` keeps the buffers and the
+cache but runs every segment as on the CPU, op by op, on the card too: the
+same loops' launches made from the host, which the card tests count
+against the replays'.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+
+import torch
+
+#: Objects kept by `cached` (least recently used dropped first): a solve
+#: holds its iteration's and its CG's.
+MAX_CACHED = 4
+
+_ENABLED = True
+_CAPTURE = True
+_CACHE: collections.OrderedDict = collections.OrderedDict()
+_COUNTERS: list = []  # (read, write) of every registered host counter
+
+
+def register_counter(read, write):
+    """Count a host counter (`read()` -> int, `write(int)`) through replays."""
+    _COUNTERS.append((read, write))
+
+
+def _counter_values():
+    return [read() for read, _ in _COUNTERS]
+
+
+def _set_counters(values):
+    for (_, write), value in zip(_COUNTERS, values):
+        write(value)
+
+
+def enabled() -> bool:
+    """False inside `eager()`."""
+    return _ENABLED
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every segment eagerly on fresh tensors: no static buffers, no
+    graphs, no cache (the loops as they ran before graphs)."""
+    global _ENABLED
+    before = _ENABLED
+    _ENABLED = False
+    try:
+        yield
+    finally:
+        _ENABLED = before
+
+
+@contextlib.contextmanager
+def uncaptured():
+    """Run the segments into their buffers op by op, on the card too."""
+    global _CAPTURE
+    before = _CAPTURE
+    _CAPTURE = False
+    try:
+        yield
+    finally:
+        _CAPTURE = before
+
+
+def leaves(*trees) -> tuple:
+    """The tensors in nested tuples (NamedTuples), lists and dicts."""
+    found = []
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            found.append(t)
+        elif isinstance(t, (tuple, list)):
+            for u in t:
+                walk(u)
+        elif isinstance(t, dict):
+            for u in t.values():
+                walk(u)
+
+    for tree in trees:
+        walk(tree)
+    return tuple(found)
+
+
+def cached(key, make, keep=()):
+    """The object cached under (`key`, the identities of `keep`), made by
+    `make()` on a miss. `keep` holds every tensor the object's segments read
+    besides its buffers; the cache keeps them alive, so an identity is never
+    reused while its graphs may replay. Inside `eager()`: `make()`, uncached."""
+    if not _ENABLED:
+        return make()
+    full = (key, tuple(id(t) for t in keep))
+    hit = _CACHE.get(full)
+    if hit is not None:
+        _CACHE.move_to_end(full)
+        return hit[0]
+    obj = make()
+    _CACHE[full] = (obj, keep)
+    while len(_CACHE) > MAX_CACHED:
+        _CACHE.popitem(last=False)
+    return obj
+
+
+def release():
+    """Drop every cached object, its buffers and its graphs."""
+    _CACHE.clear()
+
+
+class Workspace:
+    """Static buffers on one device and the segments captured over them."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.bufs: dict = {}
+        self._graphs: dict = {}
+        self._pool = None
+
+    def load(self, name, value):
+        """Copy `value` into the buffer `name` (made on first use)."""
+        if not _ENABLED:
+            self.bufs[name] = value
+            return
+        buf = self.bufs.get(name)
+        if buf is None:
+            self.bufs[name] = value.detach().clone()
+        elif buf is not value:
+            _check_fits(name, buf, value)
+            buf.copy_(value)
+
+    def run(self, name, fn):
+        """Write `fn(self.bufs)`'s values into the buffers."""
+        if not _ENABLED:
+            self.bufs.update(fn(self.bufs))
+            return
+        for key, t in self.bufs.items():
+            if t.device != self.device:
+                raise ValueError(f"segment {name}: buffer {key} is on {t.device}, "
+                                 f"the workspace on {self.device}")
+        if self.device.type != "cuda" or not _CAPTURE:
+            self._write(fn(self.bufs))
+            return
+        captured = self._graphs.get(name)
+        if captured is None:
+            captured = self._capture(name, fn)
+        graph, ticks = captured
+        graph.replay()
+        _set_counters([v + t for v, t in zip(_counter_values(), ticks)])
+
+    def _write(self, values):
+        for key, value in values.items():
+            buf = self.bufs.get(key)
+            if buf is None:  # the CPU's first run (a capture makes them first)
+                self.bufs[key] = value.detach().clone()
+            elif buf is not value:
+                _check_fits(key, buf, value)
+                buf.copy_(value)
+
+    def _capture(self, name, fn):
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            shapes = {k: (v.shape, v.dtype) for k, v in fn(self.bufs).items()}
+        current.wait_stream(side)
+        for key, (shape, dtype) in shapes.items():
+            if key not in self.bufs:
+                self.bufs[key] = torch.empty(shape, dtype=dtype, device=self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = _counter_values()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                self._write(fn(self.bufs))
+            ticks = [a - b for a, b in zip(_counter_values(), before)]
+        finally:
+            _set_counters(before)  # the capture launched nothing
+        self._graphs[name] = (graph, ticks)
+        return graph, ticks
+
+
+def _check_fits(name, buf, value):
+    if buf.shape != value.shape or buf.dtype != value.dtype:
+        raise ValueError(f"buffer {name}: {tuple(value.shape)} {value.dtype} does not fit "
+                         f"{tuple(buf.shape)} {buf.dtype}")

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from dots_socp_torch.ops import graphs
 from dots_socp_torch.ops.collectives import object_from_rank0, space_any, space_sum
 from dots_socp_torch.ops.mesh_ops import SurfaceOps, laplacian_apply
 from dots_socp_torch.ops.sharded_window import (
@@ -294,6 +295,8 @@ class CGCounters:
 
 
 CG_COUNTERS = CGCounters()
+graphs.register_counter(lambda: CG_COUNTERS.window_matvecs,
+                        lambda n: setattr(CG_COUNTERS, "window_matvecs", n))
 
 
 def _ritz_cache_dir() -> str:
@@ -576,6 +579,20 @@ def ell_matvec(op: CGOperator, x, weights=None):
     return (g * w).sum(1).movedim(0, -1)
 
 
+#: Inner CG iterations per block on one device. The host reads the latched
+#: flag once per block; on the card a block is one CUDA graph replay. A
+#: block that outruns the convergence runs up to CG_BLOCK - 1 iterations as
+#: exact no-ops (their matvecs and updates still run, masked). 8 is the
+#: smallest block that keeps plane n200's host reads per iteration under a
+#: quarter of a per-iteration flag's on an H100 (`profile_slice
+#: --cg_blocks`: 4, 8, 12, 16 gave 11.0, 7.7, 6.6, 5.9 reads against 34.2;
+#: each 4 more iterations cost ~1 ms of device time per outer iteration).
+CG_BLOCK = 8
+
+#: Passes of the mixed-precision refinement at most.
+MAX_REFINE = 6
+
+
 def cg_solve(
     ops: SurfaceOps,
     op: CGOperator,
@@ -597,16 +614,27 @@ def cg_solve(
     singular row every iteration, and the breakdown guard (den <= 0 freezes
     the row). `rtol=None` reads `op.rtol`.
 
-    The loops are data-dependent; each iteration reads one flag on the host
-    (where the reference's `lax.while_loop` tested it on device).
+    On one device (`mesh` None) the inner loop carries the reference's
+    `lax.while_loop` predicate on the device as a latched flag,
+    live = any(rr > thresh) & (it < max_iters): every update of an
+    iteration is gated by it, so an iteration after convergence is an exact
+    no-op, and the iterations are counted on the device. The body runs in
+    blocks of `CG_BLOCK` iterations, and the host reads
+    the flag once per block; on the card each block, and the set-up and
+    finish around it, is a CUDA graph replay (`ops.graphs`). The same
+    inputs give the same x and count for every block length, and the same
+    as the host loop below. The refinement keeps one host read per pass,
+    the f64 check after it (1-2 passes after a warm start); the first
+    pass's check rides with its first block's flags (`_BlockedCG`).
 
-    On one shard of a space-sharded problem (`halo`, `mesh` given; the
-    arrays are the shard's): the matvec is kernel B2 on the shard's window
+    On a mesh (`mesh` given; on one shard of a space-sharded problem with
+    `halo`, the arrays the shard's), and inside `graphs.eager()`: the
+    loops read one flag on the host per iteration, on a mesh the same on
+    every rank (`space_any`), so all ranks run the same iterations and make
+    the same collective calls. The matvec is kernel B2 on the shard's window
     (`op.swindow`) in the f32 work dtype, else the halo incidence form;
     every row sum, dot product and deflation product is summed over the
-    shards, and every loop flag is the same on every rank (`space_any`), so
-    all ranks run the same iterations and make the same collective calls.
-    The refinement's f64 true residual then goes through
+    shards. The refinement's f64 true residual then goes through
     `laplacian_apply(ops_hi, ..., halo)`, in native FP64.
 
     Mixed-precision refinement, when the operator carries float64 leaves:
@@ -619,182 +647,360 @@ def cg_solve(
     if rtol is None:
         rtol = op.rtol
     rtol = torch.as_tensor(rtol, dtype=rhs.dtype, device=rhs.device)
-    has_deflation = op.defl_q.shape[-1] > 0
-
-    sharded = halo is not None
-    use_refine = op.ell_w_hi is not None and (not sharded or ops_hi is not None)
-    work = torch.float32 if use_refine else rhs.dtype
-
-    # The window SpMV runs the CG loop in permuted vertex order (permuting
-    # once at entry and exit); its preconditioner arrays come pre-permuted.
-    # On a shard, the per-shard window order of `op.swindow`.
-    wop = op.window
-    use_window = wop is not None and not sharded and work == torch.float32
-    swop = op.swindow
-    use_swindow = swop is not None and sharded and work == torch.float32
-    if use_window:
-        jacobi, defl_q, s_vec, av_vec = wop.jacobi_p, wop.defl_q_p, wop.s_p, wop.av_p
-    elif use_swindow:
-        jacobi, defl_q, s_vec, av_vec = swop.jacobi_p, swop.defl_q_p, swop.s_p, swop.av_p
+    if mesh is None and halo is None and graphs.enabled():
+        block = CG_BLOCK
+        keep = graphs.leaves(ops, op._replace(rtol=None))
+        key = ("cg", rhs.shape, rhs.dtype, rhs.device,
+               None if x0 is None else x0.dtype, int(max_iters), block)
+        solver = graphs.cached(
+            key, lambda: _BlockedCG(ops, op, rhs, x0 is not None, int(max_iters), block), keep)
+        x, iters = solver.solve(rhs, x0, rtol)
+        x = x.clone()  # the workspace's buffer, which the next solve overwrites
     else:
-        jacobi, defl_q, s_vec, av_vec = (
-            op.jacobi.to(work),
-            op.defl_q.to(work),
-            op.s.to(work),
-            ops.av.to(work),
-        )
-    # (k, V), row-major: `coef @ defl_q.T` with the transposed view would
-    # come back column-major, and every CG vector after it (z, p, ap) would
-    # inherit that layout. The window kernels read the state modes-major,
-    # contiguous, in place; this copy, once per solve, keeps it so.
-    defl_qt = defl_q.t().contiguous()
-    shifts_w = op.shifts.to(work)
-    defl_winv_w = op.defl_winv.to(work)
-    ell_w_work = op.ell_w.to(work)
+        x, iters = _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi)
+    return (x, iters) if return_iters else x
 
-    real = op.real_mask if op.real_mask is not None else torch.ones_like(op.s)
-    # Exact real-vertex count (the reference sums in the work dtype, which
-    # agrees below 2^24 vertices).
-    n_real = space_sum(real.sum(dtype=torch.float64), mesh)
 
-    def row_sums(v):
+class _CGSystem:
+    """The pieces of `cg_solve` for one operator, right-hand-side dtype and
+    layout: matvecs, preconditioner, deflations, the inner PCG step."""
+
+    def __init__(self, ops, op, rhs_dtype, halo=None, mesh=None, ops_hi=None):
+        self.op, self.ops, self.halo, self.mesh, self.ops_hi = op, ops, halo, mesh, ops_hi
+        self.has_deflation = op.defl_q.shape[-1] > 0
+        self.sharded = halo is not None
+        self.use_refine = op.ell_w_hi is not None and (not self.sharded or ops_hi is not None)
+        work = self.work = torch.float32 if self.use_refine else rhs_dtype
+
+        # The window SpMV runs the CG loop in permuted vertex order (permuting
+        # once at entry and exit); its preconditioner arrays come pre-permuted.
+        # On a shard, the per-shard window order of `op.swindow`.
+        wop = self.wop = op.window
+        self.use_window = wop is not None and not self.sharded and work == torch.float32
+        swop = self.swop = op.swindow
+        self.use_swindow = swop is not None and self.sharded and work == torch.float32
+        if self.use_window:
+            jacobi, defl_q, s_vec, av_vec = wop.jacobi_p, wop.defl_q_p, wop.s_p, wop.av_p
+        elif self.use_swindow:
+            jacobi, defl_q, s_vec, av_vec = swop.jacobi_p, swop.defl_q_p, swop.s_p, swop.av_p
+        else:
+            jacobi, defl_q, s_vec, av_vec = (
+                op.jacobi.to(work),
+                op.defl_q.to(work),
+                op.s.to(work),
+                ops.av.to(work),
+            )
+        self.jacobi, self.defl_q, self.s_vec, self.av_vec = jacobi, defl_q, s_vec, av_vec
+        # (k, V), row-major: `coef @ defl_q.T` with the transposed view would
+        # come back column-major, and every CG vector after it (z, p, ap) would
+        # inherit that layout. The window kernels read the state modes-major,
+        # contiguous, in place; this copy, made once, keeps it so.
+        self.defl_qt = defl_q.t().contiguous()
+        self.shifts_w = op.shifts.to(work)
+        self.defl_winv_w = op.defl_winv.to(work)
+        self.ell_w_work = op.ell_w.to(work)
+
+        self.real = op.real_mask if op.real_mask is not None else torch.ones_like(op.s)
+        # Exact real-vertex count (the reference sums in the work dtype, which
+        # agrees below 2^24 vertices).
+        self.n_real = space_sum(self.real.sum(dtype=torch.float64), mesh)
+        self.null_w = op.null_row.to(work)
+        if self.use_window:
+            self.real_w = self.real[wop.perm].to(work)
+        elif self.use_swindow:
+            self.real_w = swop.real_p.to(work)
+        else:
+            self.real_w = self.real.to(work)
+        self.n_real_w = self.n_real.to(work)
+
+    def row_sums(self, v):
         """(T+1, V) -> (T+1, 1) sums over every vertex of every shard."""
-        return space_sum(v.sum(dim=1, keepdim=True), mesh)
+        return space_sum(v.sum(dim=1, keepdim=True), self.mesh)
 
-    def deflate(v):
+    def deflate(self, v):
         # Singular rows: project the real-vertex constant out and zero the
         # padding slots.
-        rm = real.to(v.dtype)
-        nr = op.null_row.to(v.dtype)[:, None]
-        mean = row_sums(v * rm[None, :]) / n_real.to(v.dtype)
+        rm = self.real.to(v.dtype)
+        nr = self.op.null_row.to(v.dtype)[:, None]
+        mean = self.row_sums(v * rm[None, :]) / self.n_real.to(v.dtype)
         v = v - nr * mean
         return torch.where(nr > 0, v * rm[None, :], v)
 
-    def matvec(x):
-        if use_window:
-            lap = window_matvec(wop, x)
+    def matvec(self, x):
+        if self.use_window:
+            lap = window_matvec(self.wop, x)
             CG_COUNTERS.window_matvecs += 1
-        elif use_swindow:
-            lap = sharded_window_matvec(swop, mesh, x)
+        elif self.use_swindow:
+            lap = sharded_window_matvec(self.swop, self.mesh, x)
             CG_COUNTERS.window_matvecs += 1
-        elif sharded:
-            lap = laplacian_apply(ops, x, halo, mesh)
+        elif self.sharded:
+            lap = laplacian_apply(self.ops, x, self.halo, self.mesh)
         else:
-            lap = ell_matvec(op, x, weights=ell_w_work)
-        return -(lap + shifts_w[:, None] * av_vec[None, :] * x)
+            lap = ell_matvec(self.op, x, weights=self.ell_w_work)
+        return -(lap + self.shifts_w[:, None] * self.av_vec[None, :] * x)
 
-    def precond(r):
-        z = jacobi * r
-        if has_deflation:
-            coef = space_sum((s_vec[None, :] * r) @ defl_q, mesh)  # (T+1, k)
-            z = z + s_vec[None, :] * ((coef * defl_winv_w) @ defl_qt)
+    def matvec_hi(self, x):
+        op = self.op
+        if self.sharded:
+            # f64 halo incidence form: the ELL rows reach across shards.
+            lap = laplacian_apply(self.ops_hi, x, self.halo, self.mesh)
+        else:
+            lap = ell_matvec(op, x, weights=op.ell_w_hi)
+        return -(lap + op.shifts_hi[:, None] * op.av_hi[None, :] * x)
+
+    def precond(self, r):
+        z = self.jacobi * r
+        if self.has_deflation:
+            coef = space_sum((self.s_vec[None, :] * r) @ self.defl_q, self.mesh)  # (T+1, k)
+            z = z + self.s_vec[None, :] * ((coef * self.defl_winv_w) @ self.defl_qt)
         return z
 
-    def row_thresh(b, tol):
+    def row_thresh(self, b, tol):
         # Per-shift threshold, capped at the mean row norm.
-        b_norm_row = row_sums(b * b)  # (T+1, 1)
+        b_norm_row = self.row_sums(b * b)  # (T+1, 1)
         return tol * tol * torch.maximum(b_norm_row, b_norm_row.mean())
 
-    null_w = op.null_row.to(work)
-    if use_window:
-        real_w = real[wop.perm].to(work)
-    elif use_swindow:
-        real_w = swop.real_p.to(work)
-    else:
-        real_w = real.to(work)
-    n_real_w = n_real.to(work)
+    def dfl(self, v):
+        mean = self.row_sums(v * self.real_w[None, :]) / self.n_real_w
+        v = v - self.null_w[:, None] * mean
+        return torch.where(self.null_w[:, None] > 0, v * self.real_w[None, :], v)
+
+    def rr_rz(self, r, z):
+        # ||r||^2 and r.z per row; on a shard, in one all-reduce.
+        rr, rz = (r * r).sum(dim=1, keepdim=True), (r * z).sum(dim=1, keepdim=True)
+        if self.mesh is None:
+            return rr, rz
+        both = space_sum(torch.cat([rr, rz], dim=1), self.mesh)
+        return both[:, :1], both[:, 1:]
+
+    def permute(self, v):
+        """Eigenbasis, original vertex order -> the inner CG's order."""
+        if self.use_window:
+            return v[:, self.wop.perm]
+        if self.use_swindow:
+            return window_permute(self.swop, v)
+        return v
+
+    def unpermute(self, v):
+        if self.use_window:
+            return v[:, self.wop.iperm]
+        if self.use_swindow:
+            return window_permute(self.swop, v, inverse=True)
+        return v
+
+    def pcg_start(self, b, x):
+        """The inner PCG's state (x, r, p, rz, rr) in the work dtype, for b
+        and x in eigenbasis, original order."""
+        b, x = self.permute(b), self.permute(x)
+        r = self.dfl(b - self.matvec(x))
+        z = self.precond(r)
+        rr, rz = self.rr_rz(r, z)
+        return x, r, z, rz, rr
+
+    def pcg_step(self, x, r, p, rz, rr, active):
+        """One inner PCG iteration on the rows of `active`; the others are
+        frozen (alpha = beta = 0, p and rz kept)."""
+        ap = self.matvec(p)
+        den = self.row_sums(p * ap)
+        # den <= 0 on an active row is rounding-level breakdown on the
+        # singular shift: freeze the row (alpha = beta = 0).
+        step = active & (den > 0)
+        alpha = torch.where(step, rz / torch.clamp(den, min=1e-30), 0.0)
+        x = x + alpha * p
+        r = self.dfl(r - alpha * ap)
+        z = self.precond(r)
+        rr, rz_new = self.rr_rz(r, z)
+        beta = torch.where(step, rz_new / torch.clamp(rz, min=1e-30), 0.0)
+        p = torch.where(step, z + beta * p, p)
+        rz = torch.where(step, rz_new, rz)
+        return x, r, p, rz, rr
+
+
+def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
+    """`cg_solve` with its loops on the host: one flag read per inner
+    iteration and per refinement pass (on a mesh the same on every rank).
+    Returns (x, iters)."""
+    cg = _CGSystem(ops, op, rhs.dtype, halo, mesh, ops_hi)
 
     def pcg_core(b, x, thresh):
-        """Inner PCG in the work dtype; b and x in eigenbasis, original
-        order. Returns (x, iterations)."""
-        if use_window:
-            b = b[:, wop.perm]
-            x = x[:, wop.perm]
-        elif use_swindow:
-            b = window_permute(swop, b)
-            x = window_permute(swop, x)
-
-        def dfl(v):
-            mean = row_sums(v * real_w[None, :]) / n_real_w
-            v = v - null_w[:, None] * mean
-            return torch.where(null_w[:, None] > 0, v * real_w[None, :], v)
-
-        def rr_rz(r, z):
-            # ||r||^2 and r.z per row; on a shard, in one all-reduce.
-            rr, rz = (r * r).sum(dim=1, keepdim=True), (r * z).sum(dim=1, keepdim=True)
-            if mesh is None:
-                return rr, rz
-            both = space_sum(torch.cat([rr, rz], dim=1), mesh)
-            return both[:, :1], both[:, 1:]
-
-        r = dfl(b - matvec(x))
-        z = precond(r)
-        p = z
-        rr, rz = rr_rz(r, z)
+        x, r, p, rz, rr = cg.pcg_start(b, x)
         it = 0
         while it < max_iters:
             active = rr > thresh
             if not space_any(active, mesh):
                 break
-            ap = matvec(p)
-            den = row_sums(p * ap)
-            # den <= 0 on an active row is rounding-level breakdown on the
-            # singular shift: freeze the row (alpha = beta = 0).
-            step = active & (den > 0)
-            alpha = torch.where(step, rz / torch.clamp(den, min=1e-30), 0.0)
-            x = x + alpha * p
-            r = dfl(r - alpha * ap)
-            z = precond(r)
-            rr, rz_new = rr_rz(r, z)
-            beta = torch.where(step, rz_new / torch.clamp(rz, min=1e-30), 0.0)
-            p = torch.where(step, z + beta * p, p)
-            rz = torch.where(step, rz_new, rz)
+            x, r, p, rz, rr = cg.pcg_step(x, r, p, rz, rr, active)
             it += 1
-        if use_window:
-            x = x[:, wop.iperm]
-        elif use_swindow:
-            x = window_permute(swop, x, inverse=True)
         CG_COUNTERS.iterations += it
-        return x, it
+        return cg.unpermute(x), it
 
     CG_COUNTERS.solves += 1
-    if not use_refine:
-        b = deflate(-(op.u_time.T @ rhs))
+    if not cg.use_refine:
+        b = cg.deflate(-(op.u_time.T @ rhs))
         x = torch.zeros_like(b) if x0 is None else op.u_time.T @ x0
-        x, iters = pcg_core(b, x, row_thresh(b, rtol))
-        x = op.u_time @ deflate(x)
-        return (x, iters) if return_iters else x
+        x, iters = pcg_core(b, x, cg.row_thresh(b, rtol))
+        return op.u_time @ cg.deflate(x), iters
 
     # ---- mixed-precision iterative refinement ------------------------------
     CG_COUNTERS.refined_solves += 1
     f64 = torch.float64
     ut = op.u_time_hi
-    b64 = deflate(-(ut.T @ rhs.to(f64)))
-    x64 = torch.zeros_like(b64) if x0 is None else deflate(ut.T @ x0.to(f64))
-    thresh64 = row_thresh(b64, rtol.to(f64))
-    thresh_w = thresh64.to(work)
-
-    def matvec_hi(x):
-        if sharded:
-            # f64 halo incidence form: the ELL rows reach across shards.
-            lap = laplacian_apply(ops_hi, x, halo, mesh)
-        else:
-            lap = ell_matvec(op, x, weights=op.ell_w_hi)
-        return -(lap + op.shifts_hi[:, None] * op.av_hi[None, :] * x)
-
-    max_refine = 6
+    b64 = cg.deflate(-(ut.T @ rhs.to(f64)))
+    x64 = torch.zeros_like(b64) if x0 is None else cg.deflate(ut.T @ x0.to(f64))
+    thresh64 = cg.row_thresh(b64, rtol.to(f64))
+    thresh_w = thresh64.to(cg.work)
     # Per-pass relative target (squared): each correction only has to shrink
     # the true residual ~2 decades; the next pass re-checks in f64.
-    eta2 = torch.tensor(1e-4, dtype=work, device=rhs.device)
+    eta2 = torch.tensor(1e-4, dtype=cg.work, device=rhs.device)
     total = 0
-    for _ in range(max_refine):
-        r64 = deflate(b64 - matvec_hi(x64))
-        if not space_any(row_sums(r64 * r64) > thresh64, mesh):
+    for _ in range(MAX_REFINE):
+        r64 = cg.deflate(b64 - cg.matvec_hi(x64))
+        if not space_any(cg.row_sums(r64 * r64) > thresh64, mesh):
             break
-        r_w = r64.to(work)
-        thresh_pass = torch.maximum(thresh_w, eta2 * row_sums(r_w * r_w))
+        r_w = r64.to(cg.work)
+        thresh_pass = torch.maximum(thresh_w, eta2 * cg.row_sums(r_w * r_w))
         d, it = pcg_core(r_w, torch.zeros_like(r_w), thresh_pass)
         x64 = x64 + d.to(f64)
         total += it
-    x = ut @ deflate(x64)
-    return (x, total) if return_iters else x
+    return ut @ cg.deflate(x64), total
+
+
+class _BlockedCG:
+    """`cg_solve` on one device for one operator and shape: the latched
+    inner loop in blocks of `block` iterations, over the static buffers of a
+    `graphs.Workspace` (one CUDA graph per segment on the card).
+
+    Segments and the host's reads between them (refinement):
+      start  -- the eigenbasis right-hand side, x64, the thresholds, the
+                first pass's f64 residual check -> `unmet`, and that pass's
+                inner PCG state, its `live` gated by `unmet`
+      per pass:
+        block  -- `block` latched iterations; `flags` = [live, it, gate]
+                  read after each; in the first pass `gate` is `unmet`,
+                  which ends the solve there when it is false (the block
+                  then ran as no-ops)
+        finish -- x64 += the correction, and the next pass's check
+        (one read of `unmet`; while it holds)
+        init   -- the next correction's inner PCG state, `live`
+      result -- x = U deflate(x64) -> `out`
+    Without refinement: start (with the PCG state), the blocks, result.
+    The first pass is nearly always needed (the warm start is rarely within
+    tolerance), so reading its `unmet` with the first block's flags saves
+    a host read per solve at the risk of one block of no-ops.
+    """
+
+    def __init__(self, ops, op, rhs, has_x0, max_iters, block):
+        self.cg = _CGSystem(ops, op, rhs.dtype)
+        self.op, self.has_x0 = op, has_x0
+        self.max_iters, self.block = max_iters, block
+        self.ws = graphs.Workspace(rhs.device)
+
+    def solve(self, rhs, x0, rtol):
+        """(x, inner iterations); x is the workspace's `out` buffer."""
+        ws, cg = self.ws, self.cg
+        ws.load("rhs", rhs)
+        ws.load("rtol", rtol)
+        if self.has_x0:
+            ws.load("x0", x0)
+        CG_COUNTERS.solves += 1
+        if not cg.use_refine:
+            ws.run("start", self._start)
+            total = self._blocks()[0]
+        else:
+            CG_COUNTERS.refined_solves += 1
+            ws.run("start", self._start_refined)
+            total, gate = self._blocks()
+            if gate:  # the first pass was needed
+                ws.run("finish", self._finish)
+                for _ in range(MAX_REFINE - 1):
+                    if not bool(ws.bufs["unmet"]):
+                        break
+                    ws.run("init", self._init)
+                    total += self._blocks()[0]
+                    ws.run("finish", self._finish)
+        ws.run("result", self._result)
+        return ws.bufs["out"], total
+
+    def _blocks(self):
+        """Blocks until the flag falls; (the pass's inner iterations, its
+        gate)."""
+        ws = self.ws
+        while True:
+            ws.run("block", self._block)
+            live, it, gate = ws.bufs["flags"].tolist()
+            if not live:
+                break
+        CG_COUNTERS.iterations += it
+        return it, gate
+
+    def _pcg_state(self, b, x, thresh, gate=None):
+        x, r, p, rz, rr = self.cg.pcg_start(b, x)
+        it = torch.zeros((), dtype=torch.int64, device=b.device)
+        if gate is None:
+            gate = torch.ones((), dtype=torch.bool, device=b.device)
+        live = gate & (it < self.max_iters) & (rr > thresh).any()
+        return dict(x=x, r=r, p=p, rz=rz, rr=rr, it=it, live=live, thresh=thresh, gate=gate,
+                    flags=torch.stack([live.long(), it, gate.long()]))
+
+    def _start(self, bufs):
+        cg, op = self.cg, self.op
+        b = cg.deflate(-(op.u_time.T @ bufs["rhs"]))
+        x = op.u_time.T @ bufs["x0"] if self.has_x0 else torch.zeros_like(b)
+        return self._pcg_state(b, x, cg.row_thresh(b, bufs["rtol"]))
+
+    def _start_refined(self, bufs):
+        cg, f64 = self.cg, torch.float64
+        ut = self.op.u_time_hi
+        b64 = cg.deflate(-(ut.T @ bufs["rhs"].to(f64)))
+        if self.has_x0:
+            x64 = cg.deflate(ut.T @ bufs["x0"].to(f64))
+        else:
+            x64 = torch.zeros_like(b64)
+        thresh64 = cg.row_thresh(b64, bufs["rtol"].to(f64))
+        thresh_w = thresh64.to(cg.work)
+        checked = self._check(b64, x64, thresh64)
+        return dict(b64=b64, thresh64=thresh64, thresh_w=thresh_w, **checked,
+                    **self._pass_state(checked["r64"], thresh_w, checked["unmet"]))
+
+    def _check(self, b64, x64, thresh64):
+        cg = self.cg
+        r64 = cg.deflate(b64 - cg.matvec_hi(x64))
+        return dict(x64=x64, r64=r64, unmet=(cg.row_sums(r64 * r64) > thresh64).any())
+
+    def _init(self, bufs):
+        return self._pass_state(bufs["r64"], bufs["thresh_w"])
+
+    def _pass_state(self, r64, thresh_w, gate=None):
+        """The inner PCG state of a refinement pass on the residual r64."""
+        cg = self.cg
+        r_w = r64.to(cg.work)
+        # Per-pass relative target (squared): each correction only has to
+        # shrink the true residual ~2 decades; the next pass re-checks in f64.
+        eta2 = torch.full((), 1e-4, dtype=cg.work, device=r_w.device)
+        thresh = torch.maximum(thresh_w, eta2 * cg.row_sums(r_w * r_w))
+        return self._pcg_state(r_w, torch.zeros_like(r_w), thresh, gate)
+
+    def _block(self, bufs):
+        cg = self.cg
+        x, r, p, rz, rr = (bufs[k] for k in ("x", "r", "p", "rz", "rr"))
+        it, live, thresh = bufs["it"], bufs["live"], bufs["thresh"]
+        for _ in range(self.block):
+            xn, rn, p, rz, rrn = cg.pcg_step(x, r, p, rz, rr, (rr > thresh) & live)
+            x = torch.where(live, xn, x)
+            r = torch.where(live, rn, r)
+            rr = torch.where(live, rrn, rr)
+            it = it + live
+            live = live & (it < self.max_iters) & (rr > thresh).any()
+        return dict(x=x, r=r, p=p, rz=rz, rr=rr, it=it, live=live,
+                    flags=torch.stack([live.long(), it, bufs["gate"].long()]))
+
+    def _finish(self, bufs):
+        cg = self.cg
+        x64 = bufs["x64"] + cg.unpermute(bufs["x"]).to(torch.float64)
+        return self._check(bufs["b64"], x64, bufs["thresh64"])
+
+    def _result(self, bufs):
+        cg = self.cg
+        if cg.use_refine:
+            return dict(out=self.op.u_time_hi @ cg.deflate(bufs["x64"]))
+        return dict(out=self.op.u_time @ cg.deflate(cg.unpermute(bufs["x"])))

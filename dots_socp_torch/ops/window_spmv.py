@@ -22,9 +22,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dots_socp_torch.ops import graphs
+
 #: Launches of the CUDA kernel in this process (the wrapper adds one per
 #: launch; the plain version does not count).
 KERNEL_LAUNCHES = 0
+
+
+def _set_launches(n):
+    global KERNEL_LAUNCHES
+    KERNEL_LAUNCHES = n
+
+
+# A launch recorded in a CUDA graph counts at every replay (`ops.graphs`).
+graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches)
 
 #: Time modes per kernel block: one per warp lane.
 MODE_GROUP = 32

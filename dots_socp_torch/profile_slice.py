@@ -1,25 +1,41 @@
 """Where the time of the port's iALM loop goes, per iteration, on one GPU.
 
-    python -m dots_socp_torch.profile_slice [--n_space 200 64] [--out FILE]
+    python -m dots_socp_torch.profile_slice [--n_space 200 64] [--eager] \
+        [--cg_blocks 4 8 16] [--out FILE]
 
 For each plane resolution, the port's `solver` (ntime 31, float32, on the
 card) runs to BASE and to BASE + ITERS iterations (tol 1e-12, never
-reached), each once unprofiled and once under `torch.profiler`. Every
-per-iteration number is the difference of the two runs divided by ITERS, so
-the setup (host factorizations, host-to-device copies) cancels out:
+reached), each WALL_REPEATS times unprofiled (in turns) and once under
+`torch.profiler`. Every per-iteration number is the difference of the two
+lengths divided by ITERS, so the setup (host factorizations, host-to-device
+copies) and a solve's one-time costs (CUDA graph captures) cancel out:
 
-  wall_ms       -- the loop's wall time (history.running_time), unprofiled
+  wall_ms       -- the loop's wall time (history.running_time), unprofiled,
+                   from the fastest run of each length (`running_time_s`
+                   lists them all: a solve's captures vary by more than 40
+                   spectral iterations take)
   device_ms     -- summed durations of the GPU's kernels and copies
   busy_share    -- device_ms / wall_ms
-  launches      -- GPU kernels launched
+  launches      -- GPU kernels run (a CUDA graph replays its kernels: it
+                   does not make fewer of them)
+  host_launch_calls -- the host's calls that launch device work:
+                   cudaLaunchKernel / cudaLaunchKernelExC / cuLaunchKernel
+                   (one per eager kernel) and cudaGraphLaunch (one per
+                   replay, whatever the graph holds)
   host_syncs    -- cudaStreamSynchronize / cudaDeviceSynchronize /
                    cudaEventSynchronize calls (each blocks the host)
   dtoh_copies   -- device-to-host copies
+  peak_memory_mb -- torch.cuda.max_memory_allocated over the cell's solves
   groups        -- device ms and launches per kernel group (the window SpMV
                    kernel B1, GEMM, reductions, gathers, elementwise, ...)
 
 The inner CG tolerance is fixed (CG_RTOL), so every iteration of the n200
-problem does similar work. One JSON object per resolution is printed
+problem does similar work. --eager runs the solves inside `graphs.eager()`:
+every op launched from the host and the CG's flag read every inner
+iteration, as before CUDA graphs. --cg_blocks profiles each cell once per
+block length of the latched CG (`ops.laplacian.CG_BLOCK`, the inner
+iterations between two host reads), the way its default was chosen. One
+JSON object per resolution (and block length) is printed
 (and written to --out as a list, if given), then the card's name and power
 limit from nvidia-smi.
 """
@@ -27,6 +43,7 @@ limit from nvidia-smi.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 
@@ -35,7 +52,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dots_socp_torch import cli
-from dots_socp_torch.ops import window_spmv
+from dots_socp_torch.ops import graphs, laplacian, window_spmv
 from dots_socp_torch.ops.laplacian import CG_COUNTERS
 
 #: Kernel groups by name; the first group whose pattern a name contains wins.
@@ -51,8 +68,10 @@ GROUPS = (
     ("elementwise", ("elementwise",)),
 )
 N_TIME, BASE, ITERS = 31, 10, 40
+WALL_REPEATS = 3
 CG_RTOL = 5e-4
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cudaGraphLaunch")
 
 
 def group_of(name):
@@ -74,12 +93,20 @@ def solve(geometry, nit):
 
 
 def profiled_counts(geometry, nit):
-    """Device ms, launches, syncs and copies of one solve, by kernel group."""
+    """Device ms, launches, launch calls, syncs and copies of one solve, by
+    kernel group."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         solve(geometry, nit)
-    counts = {"device_ms": 0.0, "launches": 0, "host_syncs": 0, "dtoh_copies": 0}
+    return tally(prof.events())
+
+
+def tally(events):
+    """(counts, groups) of profiler events: device events by kernel group,
+    the host's launch and sync calls by name."""
+    counts = {"device_ms": 0.0, "launches": 0, "host_launch_calls": 0, "host_syncs": 0,
+              "dtoh_copies": 0}
     groups = {}
-    for e in prof.events():
+    for e in events:
         if e.device_type == DeviceType.CUDA:
             ms = e.time_range.elapsed_us() / 1e3
             group = group_of(e.name)
@@ -93,14 +120,28 @@ def profiled_counts(geometry, nit):
                 counts["dtoh_copies"] += 1
         elif e.name in SYNC_CALLS:
             counts["host_syncs"] += 1
+        elif e.name in LAUNCH_CALLS:
+            counts["host_launch_calls"] += 1
     return counts, groups
 
 
-def profile_cell(n_space):
+def profile_cell(n_space, eager=False):
+    with graphs.eager() if eager else contextlib.nullcontext():
+        torch.cuda.reset_peak_memory_stats()
+        cell = _profile_cell(n_space)
+    cell["cg_block"] = None if eager else laplacian.CG_BLOCK
+    cell["peak_memory_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    return cell
+
+
+def _profile_cell(n_space):
     geometry = cli.load_geometry("plane", n_space)
     solve(geometry, 3)  # warm-up: kernel build, caches, allocator
-    hist = {n: solve(geometry, n) for n in (BASE, BASE + ITERS)}
-    wall_ms = (hist[BASE + ITERS].running_time - hist[BASE].running_time) * 1e3 / ITERS
+    times = {BASE: [], BASE + ITERS: []}
+    for _ in range(WALL_REPEATS):
+        for n, runs in times.items():
+            runs.append(solve(geometry, n).running_time)
+    wall_ms = (min(times[BASE + ITERS]) - min(times[BASE])) * 1e3 / ITERS
 
     window_spmv.KERNEL_LAUNCHES = 0
     CG_COUNTERS.reset()
@@ -117,9 +158,11 @@ def profile_cell(n_space):
         "n_space": n_space,
         "vertices": int(geometry["vertices"].shape[0]),
         "n_time": N_TIME,
+        "graphs": graphs.enabled(),
         "iterations": [BASE, BASE + ITERS],
         "cg_rtol": CG_RTOL,
         "wall_ms": wall_ms,
+        "running_time_s": {str(n): runs for n, runs in times.items()},
         **per_it,
         "busy_share": per_it["device_ms"] / wall_ms,
         "inner_cg_per_outer": CG_COUNTERS.iterations / max(CG_COUNTERS.solves, 1),
@@ -131,6 +174,10 @@ def profile_cell(n_space):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n_space", type=int, nargs="+", default=[200, 64])
+    parser.add_argument("--eager", action="store_true",
+                        help="no CUDA graphs: every op launched from the host")
+    parser.add_argument("--cg_blocks", type=int, nargs="+", default=None,
+                        help="block lengths of the latched CG to profile (default: CG_BLOCK)")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -141,10 +188,12 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
     cells = []
     for n in args.n_space:
-        cell = profile_cell(n)
-        cell["card"] = card
-        print(json.dumps(cell), flush=True)
-        cells.append(cell)
+        for block in args.cg_blocks or [laplacian.CG_BLOCK]:
+            laplacian.CG_BLOCK = block
+            cell = profile_cell(n, args.eager)
+            cell["card"] = card
+            print(json.dumps(cell), flush=True)
+            cells.append(cell)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(cells, f, indent=1)

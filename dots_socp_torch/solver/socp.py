@@ -41,6 +41,7 @@ from math import exp, sqrt
 import numpy as np
 import torch
 
+from dots_socp_torch.ops import graphs
 from dots_socp_torch.ops.collectives import from_rank0, rank0_decides
 from dots_socp_torch.ops.mesh_ops import grad_space
 from dots_socp_torch.parallel.distributed import check_time_axis
@@ -622,6 +623,7 @@ def solver_socp(
 
     counter_main = it_done if it_done >= 0 else -1
     maybe_snapshot(counter_main, force=True)
+    graphs.release()  # this solve's static buffers and CUDA graphs
 
     # --- final validation + recovery ---------------------------------------
     org, scaled = fetch_kkt(state)

@@ -8,7 +8,14 @@ One call to `iteration` is the whole per-iteration hot loop:
   step 2   q     <- closed-form diagonal solve for (A, B, lambda_c)
   step 3   duals <- multiplier ascent with step tau
 
-PyTorch runs eagerly, so the chunked runs are Python loops over `iteration`.
+`run_chunk` is a Python loop over `iteration` where the reference has one
+jitted `lax.fori_loop` (`dots_socp_tpu/solver/step.py:173-179`). On one
+device it runs over static buffers (`ops.graphs`), so that on the card an
+iteration is one CUDA graph replay on the spectral path, and on the CG path
+a few: the parts before and after the phi solve, and the CG's own segments
+between them, whose host reads (one per block of inner iterations, one per
+refinement pass) are the iteration's only syncs. On a mesh, and inside
+`graphs.eager()`, every op is launched from the host.
 `run_chunk_adaptive` keeps the reference's packed-record output, so the host
 loop in `socp.py` reads it unchanged; its validations run on the host
 (one KKT-table transfer each) with the device's decisions and dtype.
@@ -19,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dots_socp_torch.ops import graphs
 from dots_socp_torch.ops.cones import project_soc
 from dots_socp_torch.ops.laplacian import cg_solve, spectral_solve
 from dots_socp_torch.ops.mesh_ops import div_space, grad_space
@@ -52,15 +60,23 @@ def solve_laplacian(config: ProblemConfig, data: ProblemData, state: SolverState
     rhs = laplacian_rhs(config, data, state)
     if config.laplacian_mode == "spectral":
         return spectral_solve(data.spectral, rhs, mesh=data.mesh)
+    return _cg_phi(config, data, rhs, state.phi)
+
+
+def _cg_phi(config: ProblemConfig, data: ProblemData, rhs, phi):
+    """The CG phi solve, warm-started at `phi`. On a mesh every rank passes
+    it the mesh, so that its loops read their flags on the host (the space
+    shards' arrays and halo with them)."""
+    layout = config.spmd_kwargs(data) or ({"mesh": data.mesh} if data.mesh is not None else {})
     return cg_solve(
         data.ops,
         data.cg_op,
         rhs,
-        x0=state.phi,
+        x0=phi,
         max_iters=config.cg_max_iters,
         rtol=None,  # data.cg_op.rtol, adapted by the host loop
         ops_hi=data.ops_hi,
-        **config.spmd_kwargs(data),
+        **layout,
     )
 
 
@@ -101,14 +117,18 @@ def solve_q_lambda(config: ProblemConfig, state: SolverState, dt_phi, dx_phi, me
     return A, B, lambda_c
 
 
-def iteration(config: ProblemConfig, data: ProblemData, state: SolverState):
-    """One full iALM iteration; returns the new state."""
-    if config.is_palm:
-        A, B, lambda_c = solve_q_lambda(config, state, state.dt_phi, state.dx_phi, data.mesh)
-        state = state._replace(A=A, B=B, lambda_c=lambda_c)
+def _palm_step(config: ProblemConfig, data: ProblemData, state: SolverState):
+    """PALM's step 0 (the q/lambda solve on the last gradients); the state
+    as it is otherwise."""
+    if not config.is_palm:
+        return state
+    A, B, lambda_c = solve_q_lambda(config, state, state.dt_phi, state.dx_phi, data.mesh)
+    return state._replace(A=A, B=B, lambda_c=lambda_c)
 
-    # Step 1: Laplacian solve and SOC projection share the pre-update state.
-    phi = solve_laplacian(config, data, state)
+
+def _after_phi(config: ProblemConfig, data: ProblemData, state: SolverState, phi):
+    """Steps 1b, 2 and 3 of the iteration, given its phi."""
+    # Step 1b shares the pre-update state with the Laplacian solve.
     z_fst, z_mid, z_end = solve_proj_soc(config, data, state)
 
     # Step 2. With refinement phi is f64; its gradients are taken in f64
@@ -147,18 +167,77 @@ def iteration(config: ProblemConfig, data: ProblemData, state: SolverState):
     )
 
 
+def iteration(config: ProblemConfig, data: ProblemData, state: SolverState):
+    """One full iALM iteration; returns the new state."""
+    state = _palm_step(config, data, state)
+    phi = solve_laplacian(config, data, state)
+    return _after_phi(config, data, state, phi)
+
+
+class _GraphedIteration:
+    """`iteration` on one device over the static buffers of a
+    `graphs.Workspace`, which hold the state between iterations: the
+    spectral path is one segment; the CG path is the segment before the
+    phi solve (PALM's step 0 and the right-hand side), `cg_solve`'s own
+    segments (into the buffer `phi_next`), and the segment after it. A
+    state comes in and goes out as a copy, so no caller keeps an alias of a
+    buffer that a later replay overwrites."""
+
+    def __init__(self, config: ProblemConfig, data: ProblemData, state: SolverState):
+        self.config, self.data = config, data
+        self.ws = graphs.Workspace(state.phi.device)
+
+    def load(self, state: SolverState):
+        for name, value in zip(SolverState._fields, state):
+            self.ws.load(name, value)
+
+    def state(self) -> SolverState:
+        return SolverState(*(self.ws.bufs[name].clone() for name in SolverState._fields))
+
+    def step(self, data: ProblemData):
+        """One iteration; `data` carries the CG's current inner tolerance."""
+        config, ws = self.config, self.ws
+        if config.laplacian_mode == "spectral":
+            ws.run("iteration", lambda b: iteration(config, self.data, _state_of(b))._asdict())
+            return
+        ws.run("before", self._before)
+        ws.load("phi_next", _cg_phi(config, data, ws.bufs["rhs"], ws.bufs["phi"]))
+        ws.run("after", lambda b: _after_phi(config, self.data, _state_of(b), b["phi_next"])._asdict())
+
+    def _before(self, bufs):
+        state = _palm_step(self.config, self.data, _state_of(bufs))
+        rhs = laplacian_rhs(self.config, self.data, state)
+        return {"rhs": rhs, "A": state.A, "B": state.B, "lambda_c": state.lambda_c}
+
+
+def _state_of(bufs) -> SolverState:
+    return SolverState(*(bufs[name] for name in SolverState._fields))
+
+
 #: Called after every iteration when set (None: nothing is called). The
 #: interface's bounded profiler trace counts iterations through it.
 AFTER_ITERATION = None
 
 
 def run_chunk(config: ProblemConfig, data: ProblemData, state: SolverState, n):
-    """Run `n` iterations."""
+    """Run `n` iterations: on one device over the static buffers of a cached
+    `_GraphedIteration` (CUDA graphs on the card), the state copied in and
+    out; on a mesh or inside `graphs.eager()`, `iteration` by iteration."""
+    runner = None
+    if data.mesh is None and graphs.enabled():
+        cg_op = data.cg_op._replace(rtol=None) if data.cg_op is not None else None
+        key = ("iteration", config, tuple((t.shape, t.dtype, t.device) for t in state))
+        runner = graphs.cached(key, lambda: _GraphedIteration(config, data, state),
+                               graphs.leaves(data._replace(cg_op=cg_op)))
+        runner.load(state)
     for _ in range(int(n)):
-        state = iteration(config, data, state)
+        if runner is None:
+            state = iteration(config, data, state)
+        else:
+            runner.step(data)
         if AFTER_ITERATION is not None:
             AFTER_ITERATION()
-    return state
+    return state if runner is None else runner.state()
 
 
 def run_chunk_kkt(config: ProblemConfig, data: ProblemData, state: SolverState, n):

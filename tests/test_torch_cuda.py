@@ -414,3 +414,97 @@ def test_spectral_solve_on_card_holds_the_host_accuracy():
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
     assert extra < factor.q.numel() * 4 // 4, extra
+
+
+def _spectral_problem(n, iterations):
+    """Plane n on the card (float32, spectral path, ntime 7) and its state
+    after `iterations` eager iterations."""
+    from dots_socp_torch.cli import load_geometry
+    from dots_socp_torch.ops import graphs
+    from dots_socp_torch.solver import step
+    from dots_socp_torch.solver.problem import build_problem, initial_state
+
+    config, data, extras = build_problem(7, load_geometry("plane", n), laplacian_mode="spectral",
+                                         dtype="float32", device="cuda")
+    with graphs.eager():
+        state = step.run_chunk(config, data, initial_state(config, data, extras), iterations)
+    return config, data, state
+
+
+def test_graphed_spectral_iteration_equals_eager():
+    """The spectral iteration as one CUDA graph replay per iteration: 5
+    replays give the state of 5 eager iterations bit for bit (the same
+    kernels on the same inputs; cuBLAS picks the same algorithms under
+    capture), twice in a row through the cached graph."""
+    _need_cuda()
+    from dots_socp_torch.ops import graphs
+    from dots_socp_torch.solver import step
+
+    config, data, state = _spectral_problem(24, 3)
+    graphed = state
+    for _ in range(2):
+        with graphs.eager():
+            state = step.run_chunk(config, data, state, 5)
+        graphed = step.run_chunk(config, data, graphed, 5)
+        for name, a, b in zip(state._fields, graphed, state):
+            assert torch.equal(a, b), name
+    graphs.release()
+
+
+def test_graphed_cg_blocks_equal_eager_and_count_each_replay():
+    """cg_solve (f64 refinement around the f32 inner CG on kernel B1) with
+    its segments captured: x and the inner count equal the eager host
+    loop's bit for bit, and once captured, B1's launches counted through
+    the replays equal the launches of the same blocked loop run op by op
+    (`graphs.uncaptured()`) and the window matvecs; the blocks' no-op
+    iterations launch B1 too, so at least as often as the host loop."""
+    _need_cuda()
+    from dots_socp_torch.ops import graphs
+
+    vertices, triangles, av, lap = _plane(24)
+    T = 7
+    ops = t_mesh.build_surface_ops(vertices, triangles, dtype=torch.float64, device="cuda")
+    op = tl.build_cg_operator(T, 1.0 / T, av, lap, dtype=torch.float64, deflation_k=16,
+                              refine=True, coords=vertices, device="cuda")
+    rhs = np.random.default_rng(9).standard_normal((T + 1, av.shape[0]))
+    rhs = torch.from_numpy(rhs - rhs.mean()).cuda()
+    kw = dict(max_iters=600, rtol=1e-8, return_iters=True)
+
+    def counted(fn):
+        launches, matvecs = tw.KERNEL_LAUNCHES, tl.CG_COUNTERS.window_matvecs
+        x, iters = fn()
+        torch.cuda.synchronize()
+        return x, iters, tw.KERNEL_LAUNCHES - launches, tl.CG_COUNTERS.window_matvecs - matvecs
+
+    with graphs.eager():
+        x_e, it_e, launches_e, matvecs_e = counted(lambda: tl.cg_solve(ops, op, rhs, **kw))
+    with graphs.uncaptured():
+        x_u, it_u, launches_u, matvecs_u = counted(lambda: tl.cg_solve(ops, op, rhs, **kw))
+    tl.cg_solve(ops, op, rhs, **kw)  # warm-up and capture
+    x_g, it_g, launches_g, matvecs_g = counted(lambda: tl.cg_solve(ops, op, rhs, **kw))
+    assert it_g == it_u == it_e > 0
+    assert torch.equal(x_g, x_e) and torch.equal(x_u, x_e)
+    assert launches_g == launches_u == matvecs_g == matvecs_u
+    assert launches_u >= launches_e == matvecs_e > it_e
+    graphs.release()
+
+
+def test_capture_of_a_wrong_segment_raises_and_runs_nothing():
+    """On the card a segment is captured or the call raises: a segment that
+    reads a value on the host cannot be captured (the capture raises, the
+    buffers keep their values and no graph is kept), and a buffer on
+    another device is refused before anything runs."""
+    _need_cuda()
+    from dots_socp_torch.ops import graphs
+
+    x = torch.arange(4.0, device="cuda")
+    ws = graphs.Workspace(x.device)
+    ws.load("x", x)
+    with pytest.raises(RuntimeError):
+        ws.run("host_read", lambda b: {"x": b["x"] * float(b["x"].sum())})
+    torch.cuda.synchronize()
+    assert torch.equal(ws.bufs["x"], x) and not ws._graphs
+    ws.bufs["cpu"] = torch.zeros(2)
+    with pytest.raises(ValueError, match="cpu"):
+        ws.run("double", lambda b: {"x": 2 * b["x"]})
+    assert torch.equal(ws.bufs["x"], x)
