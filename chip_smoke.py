@@ -154,6 +154,23 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                its launch calls (cudaLaunchKernel and kin, cudaGraphLaunch)
                at most GRAPH_LAUNCH_CALL_RATIO.
 
+18. adaptive -- the adaptive segment on the device (KKT validations, the
+               cadence and sigma decisions in the `validate` segment, the
+               state in the graph workspace for the whole segment): plane
+               n64 (spectral) and n200 (CG) to tol 1e-4 as the bench lane's
+               --converge runs them (fresh factor cache), with CUDA graphs
+               and inside `graphs.eager()`: the same iteration counts and
+               validation points in both, the counts ADAPTIVE_ITERATIONS
+               (the bench lane's before the segment moved to the device),
+               phi bit-equal (else within GRAPH_PHI_RTOL); then, through
+               `profile_slice`, n64's last NEAR_ITERS iterations before
+               convergence (validations at or near every iteration), where
+               the host may make at most one synchronisation per validation
+               (besides one per segment for its records) and at most
+               ADAPTIVE_LAUNCH_CALLS launch calls per validation beyond the
+               iterations' own replays, however many kernels the KKT table
+               launches.
+
 Then the kernel summary line (a kernel's `launches` is the sum over the
 paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
 and the result line
@@ -166,7 +183,7 @@ of phases 7, 11, 12 and 13, or by the drivers of phase 14: the script checks
 
     python3 chip_smoke.py --phase time_sharded_slice
 
-runs phases 1 and 2 and then the one phase named (12, 15, 16 or 17) with its checks,
+runs phases 1 and 2 and then the one phase named (12, 15, 16, 17 or 18) with its checks,
 and prints no kernel or result line: phase 12 alone on a machine with four
 cards is the check of a `TxS` mesh over nccl.
 """
@@ -265,6 +282,12 @@ SPECTRAL_ROWS = (("knots_3", ("0.00", "0.01")), ("hills", ("0.00",)))
 GRAPH_PHI_RTOL = 0.0
 GRAPH_SYNC_RATIO = 0.25
 GRAPH_LAUNCH_CALL_RATIO = 0.1
+# Phase 18: the bench lane's iteration counts to tol 1e-4 (plane n64, n200)
+# before the adaptive segment moved to the device, and the host launch calls
+# per validation beyond the iterations' replays, at most (one `validate`
+# replay, and room for a segment boundary in the window).
+ADAPTIVE_ITERATIONS = {64: 1272, 200: 1131}
+ADAPTIVE_LAUNCH_CALLS = 3
 SWEEP_TIME_LIMIT = 20  # seconds per run of the replication sweep
 PROFILE_MAX_BYTES = 200e6
 # Phase 14: (name, the driver's main, its arguments), in the order they run.
@@ -968,9 +991,76 @@ def phase_graphs(card):
     return b1
 
 
+def converge(n_space):
+    """Plane `n_space` to the bench lane's tolerance as its --converge runs
+    it; (solution, run history, the segment's host reads)."""
+    from dots_socp_torch.solver import solver
+
+    geometry = cli.load_geometry("plane", n_space)
+    kw = {"laplacian_mode": "cg"} if n_space == 200 else {}
+    reads = graphs.HOST_READS
+    solution, history = solver(N_TIME, geometry, nit=bench.CONVERGE_NIT, tol=bench.CONVERGE_TOL,
+                               time_limit=3000, precision="float32", device="cuda", **kw)
+    torch.cuda.synchronize()
+    return solution, history, graphs.HOST_READS - reads
+
+
+def phase_adaptive(card):
+    """Phase 18. Returns B1's launches in it."""
+    t0, b1 = time.perf_counter(), 0
+    with bench.fresh_cache_dir():
+        for n_space, expect in ADAPTIVE_ITERATIONS.items():
+            legs, runs = {}, {}
+            for mode in ("graphed", "eager"):
+                window_spmv.KERNEL_LAUNCHES = 0
+                with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                    solution, history, reads = converge(n_space)
+                b1 += window_spmv.KERNEL_LAUNCHES
+                runs[mode] = (solution["phi"], np.asarray(history.kkt_iteration))
+                legs[mode] = {"iterations": int(history.kkt_iteration[-1]),
+                              "validations": len(history.kkt_iteration),
+                              "converged": bool(np.all(history.get_current_kkt_errors()
+                                                       < bench.CONVERGE_TOL)),
+                              "solve_sec": history.running_time, "host_reads": reads,
+                              "b1_launches": window_spmv.KERNEL_LAUNCHES}
+            bit_equal = bool(np.array_equal(runs["graphed"][0], runs["eager"][0]))
+            rel = _rel_diff(runs["graphed"][0], runs["eager"][0])
+            emit("adaptive", n_space=n_space, **legs, phi_bit_equal=bit_equal, phi_rel=rel,
+                 expected_iterations=expect, card=card)
+            if not np.array_equal(runs["graphed"][1], runs["eager"][1]):
+                raise AssertionError(f"n{n_space}: graphed and eager validate at other iterations")
+            for mode, leg in legs.items():
+                if not (leg["converged"] and leg["iterations"] == expect):
+                    raise AssertionError(f"n{n_space} {mode}: {leg['iterations']} iterations "
+                                         f"(converged {leg['converged']}), expected {expect}")
+            if not (bit_equal or rel <= GRAPH_PHI_RTOL):
+                raise AssertionError(f"n{n_space}: graphed phi is {rel} off the eager one")
+
+        # The validations' host cost where the cadence interval is 1 or near it.
+        geometry = cli.load_geometry("plane", 64)
+        last = ADAPTIVE_ITERATIONS[64] + 1
+        (c0, _), (c1, _) = (profile_slice.profiled_counts(geometry, n, profile_slice.NEAR_TOL)
+                            for n in (last - profile_slice.NEAR_ITERS, last))
+    d = {k: c1[k] - c0[k] for k in c0}
+    segments = d["host_reads"] - d["validations"]
+    per_validation = {
+        "host_syncs": (d["host_syncs"] - segments) / d["validations"],
+        "host_launch_calls": (d["host_launch_calls"] - profile_slice.NEAR_ITERS) / d["validations"],
+        "launches": d["launches"] / d["validations"],
+    }
+    emit("adaptive", n_space=64, window=[last - profile_slice.NEAR_ITERS, last], deltas=d,
+         segments=segments, per_validation=per_validation,
+         phase_seconds=time.perf_counter() - t0, card=card)
+    if not (d["validations"] > 0 and per_validation["host_syncs"] <= 1
+            and per_validation["host_launch_calls"] <= ADAPTIVE_LAUNCH_CALLS):
+        raise AssertionError(f"n64 near tolerance: host calls per validation {per_validation}")
+    return b1
+
+
 def main(argv=None):
     alone = {"time_sharded_slice": phase_time_sharded_slice, "wide_slice": phase_wide_slice,
-             "spectral_records": phase_spectral_records, "graphs": phase_graphs}
+             "spectral_records": phase_spectral_records, "graphs": phase_graphs,
+             "adaptive": phase_adaptive}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=sorted(alone),
                     help="run the device and build phases and then this phase alone")
@@ -1005,6 +1095,7 @@ def main(argv=None):
     kernel_128, b1_paths["wide_slice"] = phase_wide_slice(card)
     phase_spectral_records(card)
     b1_paths["graphs"] = phase_graphs(card)
+    b1_paths["adaptive"] = phase_adaptive(card)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_128["max_abs_err"])
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")

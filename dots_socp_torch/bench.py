@@ -26,7 +26,9 @@ bound (`kernel_timing.window_bound`) and the library call
 (`torch.sparse.mm`, `kernel_timing.library_ms`), with the tile rows and
 the window width. Not measured on the CPU.
 
---converge: both cells to tol=1e-4, and their iteration counts, with
+--converge: both cells to tol=1e-4, and their iteration counts,
+validations (KKT tables recorded, the final one after the loop included)
+and loop seconds, with
 DOTS_SOCP_CACHE_DIR at a fresh temporary directory for the whole run: the
 host eigh and Ritz factors are computed in the run (a factor from another
 LAPACK build moves float32 counts), and on the card the kernel library is
@@ -206,6 +208,7 @@ def run(args):
             kkt = np.asarray(history.get_current_kkt_errors(), dtype=float)
             recorded = np.asarray(history.kkt_iteration)
             converge[name] = {"iterations": int(recorded[np.isfinite(recorded)][-1]),
+                              "validations": len(history.kkt_iteration),
                               "converged": bool(np.all(kkt < CONVERGE_TOL)),
                               "solve_sec": history.running_time}
         result["converge"] = converge

@@ -33,6 +33,11 @@ once while it is captured, where nothing is launched; the capture's ticks
 are taken back and added again at every replay, so each counts the
 launches that ran.
 
+Between replays the host reads what it must decide on with `read`: a copy
+into pinned host memory and one event synchronisation, counted in
+`HOST_READS`. A read runs on the host between segments, never inside one,
+so it counts where it happens; nothing is taken back at a capture.
+
 `eager()` turns all of this off for its extent: a segment's values replace
 the dict's entries (no copy, no capture) and nothing is cached, which is
 how PyTorch runs without graphs (the card tests and `chip_smoke.py` hold
@@ -57,6 +62,10 @@ _ENABLED = True
 _CAPTURE = True
 _CACHE: collections.OrderedDict = collections.OrderedDict()
 _COUNTERS: list = []  # (read, write) of every registered host counter
+_STAGING: dict = {}  # (device, shape, dtype) -> (pinned host tensor, event) of `read`
+
+#: Host reads of device values through `read` in this process.
+HOST_READS = 0
 
 
 def register_counter(read, write):
@@ -101,6 +110,26 @@ def uncaptured():
         yield
     finally:
         _CAPTURE = before
+
+
+def read(t: torch.Tensor) -> torch.Tensor:
+    """`t` on the host, a CPU tensor of its own: from a CUDA tensor one
+    non-blocking copy into a pinned buffer and one event synchronisation
+    (the host waits for the work before the copy, no more)."""
+    global HOST_READS
+    HOST_READS += 1
+    if t.device.type != "cuda":
+        return t.detach().clone()
+    key = (t.device, t.shape, t.dtype)
+    staged = _STAGING.get(key)
+    if staged is None:
+        staged = _STAGING[key] = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True),
+                                  torch.cuda.Event())
+    host, event = staged
+    host.copy_(t, non_blocking=True)
+    event.record(torch.cuda.current_stream(t.device))
+    event.synchronize()
+    return host.clone()
 
 
 def leaves(*trees) -> tuple:
@@ -185,6 +214,13 @@ class Workspace:
         graph, ticks = captured
         graph.replay()
         _set_counters([v + t for v, t in zip(_counter_values(), ticks)])
+
+    def drop(self, segment, *buffers):
+        """Forget the captured `segment` and the named buffers (made anew
+        by the segment's next run, at their new shapes)."""
+        self._graphs.pop(segment, None)
+        for name in buffers:
+            self.bufs.pop(name, None)
 
     def _write(self, values):
         for key, value in values.items():

@@ -25,19 +25,29 @@ copies) and a solve's one-time costs (CUDA graph captures) cancel out:
   host_syncs    -- cudaStreamSynchronize / cudaDeviceSynchronize /
                    cudaEventSynchronize calls (each blocks the host)
   dtoh_copies   -- device-to-host copies
+  host_reads    -- the adaptive segment's reads of the device (`graphs.read`:
+                   one per validation, one of the records per segment)
   peak_memory_mb -- torch.cuda.max_memory_allocated over the cell's solves
   groups        -- device ms and launches per kernel group (the window SpMV
                    kernel B1, GEMM, reductions, gathers, elementwise, ...)
 
 The inner CG tolerance is fixed (CG_RTOL), so every iteration of the n200
-problem does similar work. --eager runs the solves inside `graphs.eager()`:
-every op launched from the host and the CG's flag read every inner
-iteration, as before CUDA graphs. --cg_blocks profiles each cell once per
-block length of the latched CG (`ops.laplacian.CG_BLOCK`, the inner
-iterations between two host reads), the way its default was chosen. One
-JSON object per resolution (and block length) is printed
-(and written to --out as a list, if given), then the card's name and power
-limit from nvidia-smi.
+problem does similar work.
+
+`near_tolerance`, a second window of each cell, is read the same way at the
+end of a solve to NEAR_TOL: a solve that converges after N iterations against
+one cut at N - NEAR_ITERS. There the KKT cadence's interval is 1 or near it
+(`validations_per_iteration` says how near), so the validations' host cost
+per iteration shows directly; the first window sees them only at the
+sigma cadence of the early iterations (every 3 or 7).
+
+--eager runs the solves inside `graphs.eager()`: every op launched from the
+host and the CG's flag read every inner iteration, as before CUDA graphs.
+--cg_blocks profiles each cell once per block length of the latched CG
+(`ops.laplacian.CG_BLOCK`, the inner iterations between two host reads),
+the way its default was chosen. One JSON object per resolution (and block
+length) is printed (and written to --out as a list, if given), then the
+card's name and power limit from nvidia-smi.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ GROUPS = (
     ("elementwise", ("elementwise",)),
 )
 N_TIME, BASE, ITERS = 31, 10, 40
+NEAR_TOL, NEAR_ITERS, NEAR_NIT = 1e-4, 20, 4000
 WALL_REPEATS = 3
 CG_RTOL = 5e-4
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
@@ -81,23 +92,27 @@ def group_of(name):
     return "other"
 
 
-def solve(geometry, nit):
+def solve(geometry, nit, tol=1e-12):
     from dots_socp_torch.solver import solver
 
     _, history = solver(
-        N_TIME, geometry, nit=nit, tol=1e-12, precision="float32",
+        N_TIME, geometry, nit=nit, tol=tol, precision="float32",
         cg_rtol=CG_RTOL, device="cuda",
     )
     torch.cuda.synchronize()
     return history
 
 
-def profiled_counts(geometry, nit):
+def profiled_counts(geometry, nit, tol=1e-12):
     """Device ms, launches, launch calls, syncs and copies of one solve, by
-    kernel group."""
+    kernel group, and its validations (KKT tables recorded)."""
+    reads = graphs.HOST_READS
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solve(geometry, nit)
-    return tally(prof.events())
+        history = solve(geometry, nit, tol)
+    counts, groups = tally(prof.events())
+    counts["validations"] = len(history.kkt_iteration)
+    counts["host_reads"] = graphs.HOST_READS - reads
+    return counts, groups
 
 
 def tally(events):
@@ -137,36 +152,50 @@ def profile_cell(n_space, eager=False):
 def _profile_cell(n_space):
     geometry = cli.load_geometry("plane", n_space)
     solve(geometry, 3)  # warm-up: kernel build, caches, allocator
-    times = {BASE: [], BASE + ITERS: []}
-    for _ in range(WALL_REPEATS):
-        for n, runs in times.items():
-            runs.append(solve(geometry, n).running_time)
-    wall_ms = (min(times[BASE + ITERS]) - min(times[BASE])) * 1e3 / ITERS
-
     window_spmv.KERNEL_LAUNCHES = 0
     CG_COUNTERS.reset()
-    (c0, g0), (c1, g1) = (profiled_counts(geometry, n) for n in (BASE, BASE + ITERS))
-    per_it = {k: (c1[k] - c0[k]) / ITERS for k in c0}
-    groups = {
-        name: {
-            "ms": (g1[name]["ms"] - g0.get(name, {}).get("ms", 0.0)) / ITERS,
-            "launches": (g1[name]["launches"] - g0.get(name, {}).get("launches", 0)) / ITERS,
-        }
-        for name in g1
-    }
-    return {
+    cell = {
         "n_space": n_space,
         "vertices": int(geometry["vertices"].shape[0]),
         "n_time": N_TIME,
         "graphs": graphs.enabled(),
-        "iterations": [BASE, BASE + ITERS],
         "cg_rtol": CG_RTOL,
+        **_window(geometry, BASE, BASE + ITERS, 1e-12),
+    }
+    cell["inner_cg_per_outer"] = CG_COUNTERS.iterations / max(CG_COUNTERS.solves, 1)
+    cell["b1_launches_in_profiled_runs"] = window_spmv.KERNEL_LAUNCHES
+    converged = int(solve(geometry, NEAR_NIT, NEAR_TOL).kkt_iteration[-1]) + 1
+    cell["near_tolerance"] = {"tol": NEAR_TOL, "converged_at": converged,
+                              **_window(geometry, converged - NEAR_ITERS, converged, NEAR_TOL)}
+    return cell
+
+
+def _window(geometry, short, long, tol):
+    """Per-iteration numbers of the iterations between a `short` and a
+    `long` solve at `tol`."""
+    iters = long - short
+    times = {short: [], long: []}
+    for _ in range(WALL_REPEATS):
+        for n, runs in times.items():
+            runs.append(solve(geometry, n, tol).running_time)
+    wall_ms = (min(times[long]) - min(times[short])) * 1e3 / iters
+
+    (c0, g0), (c1, g1) = (profiled_counts(geometry, n, tol) for n in (short, long))
+    per_it = {k: (c1[k] - c0[k]) / iters for k in c0}
+    groups = {
+        name: {
+            "ms": (g1[name]["ms"] - g0.get(name, {}).get("ms", 0.0)) / iters,
+            "launches": (g1[name]["launches"] - g0.get(name, {}).get("launches", 0)) / iters,
+        }
+        for name in g1
+    }
+    per_it["validations_per_iteration"] = per_it.pop("validations")
+    return {
+        "iterations": [short, long],
         "wall_ms": wall_ms,
         "running_time_s": {str(n): runs for n, runs in times.items()},
         **per_it,
         "busy_share": per_it["device_ms"] / wall_ms,
-        "inner_cg_per_outer": CG_COUNTERS.iterations / max(CG_COUNTERS.solves, 1),
-        "b1_launches_in_profiled_runs": window_spmv.KERNEL_LAUNCHES,
         "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"])),
     }
 

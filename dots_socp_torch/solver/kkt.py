@@ -60,7 +60,7 @@ def kkt_table(config: ProblemConfig, data: ProblemData, state: SolverState):
     nst, nsc, nss, nsd = _norms(config, data)
     mesh = data.mesh
     s = state
-    nan = torch.tensor(math.nan, dtype=s.r.dtype, device=s.r.device)
+    nan = s.r.new_full((), math.nan)  # a fill on the device: nothing copied from the host
 
     def dual_valued(resi, const, norm_sum, scale):
         return torch.stack([resi / (const / scale + norm_sum), resi / (const + norm_sum)])

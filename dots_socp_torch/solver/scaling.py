@@ -1,6 +1,7 @@
 """Rescaling machinery as state transforms (counterpart of
 `dots_socp_tpu/solver/scaling.py`): each returns a new state; the host
-scheduler triggers them between iterations."""
+scheduler triggers them between iterations, and the adaptive segment's
+validation applies the sigma factor on the device."""
 
 from __future__ import annotations
 
@@ -35,6 +36,13 @@ def compute_var_norms(config: ProblemConfig, data: ProblemData, state: SolverSta
 
 
 def _scalar(state: SolverState, value):
+    """`value` as a 0-d tensor of the state's dtype: a tensor (a decision
+    made on the device, e.g. in a captured validation) as it lies, with no
+    host round trip; a Python number copied to the state's device."""
+    if isinstance(value, torch.Tensor):
+        if value.device != state.r.device:
+            raise ValueError(f"factor on {value.device}, the state on {state.r.device}")
+        return value.to(state.r.dtype)
     return torch.as_tensor(value, dtype=state.r.dtype, device=state.r.device)
 
 

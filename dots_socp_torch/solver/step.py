@@ -16,12 +16,17 @@ a few: the parts before and after the phi solve, and the CG's own segments
 between them, whose host reads (one per block of inner iterations, one per
 refinement pass) are the iteration's only syncs. On a mesh, and inside
 `graphs.eager()`, every op is launched from the host.
-`run_chunk_adaptive` keeps the reference's packed-record output, so the host
-loop in `socp.py` reads it unchanged; its validations run on the host
-(one KKT-table transfer each) with the device's decisions and dtype.
+`run_chunk_adaptive` is the reference's device-resident segment with its
+packed-record output, so the host loop in `socp.py` reads it unchanged: its
+validations and decisions run on the device over the same buffers (one
+`validate` replay each), and the host reads one small tensor per
+validation to learn how many iterations come next.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -179,20 +184,36 @@ class _GraphedIteration:
     `graphs.Workspace`, which hold the state between iterations: the
     spectral path is one segment; the CG path is the segment before the
     phi solve (PALM's step 0 and the right-hand side), `cg_solve`'s own
-    segments (into the buffer `phi_next`), and the segment after it. A
-    state comes in and goes out as a copy, so no caller keeps an alias of a
-    buffer that a later replay overwrites."""
+    segments (into the buffer `phi_next`), and the segment after it. The
+    KKT table (`table`) and a validation of the adaptive segment
+    (`validate`) are segments over the same buffers. A state comes in and
+    goes out as a copy, so no caller keeps an alias of a buffer that a
+    later replay overwrites."""
 
     def __init__(self, config: ProblemConfig, data: ProblemData, state: SolverState):
         self.config, self.data = config, data
         self.ws = graphs.Workspace(state.phi.device)
+        self.bufs = self.ws.bufs
 
     def load(self, state: SolverState):
         for name, value in zip(SolverState._fields, state):
             self.ws.load(name, value)
 
+    def load_segment(self, values: dict):
+        """The adaptive segment's scalars and records, copied to the card;
+        records of another shape (another `max_checks`) drop the captured
+        validation with the old buffer."""
+        recs = self.bufs.get("recs")
+        if recs is not None and recs.shape != values["recs"].shape:
+            self.ws.drop("validate", "recs")
+        for name, value in values.items():
+            self.ws.load(name, value.to(self.ws.device))
+
     def state(self) -> SolverState:
-        return SolverState(*(self.ws.bufs[name].clone() for name in SolverState._fields))
+        return SolverState(*(self.bufs[name].clone() for name in SolverState._fields))
+
+    def run(self, name, fn):
+        self.ws.run(name, fn)
 
     def step(self, data: ProblemData):
         """One iteration; `data` carries the CG's current inner tolerance."""
@@ -210,6 +231,31 @@ class _GraphedIteration:
         return {"rhs": rhs, "A": state.A, "B": state.B, "lambda_c": state.lambda_c}
 
 
+class _HostIteration:
+    """`_GraphedIteration`'s interface over a plain dict, every op launched
+    from the host: on a mesh (gloo cannot be captured) and inside
+    `graphs.eager()`."""
+
+    def __init__(self, config: ProblemConfig):
+        self.config = config
+        self.bufs: dict = {}
+
+    def load(self, state: SolverState):
+        self.bufs.update(state._asdict())
+
+    def load_segment(self, values: dict):
+        self.bufs.update({k: v.to(self.bufs["r"].device) for k, v in values.items()})
+
+    def state(self) -> SolverState:
+        return _state_of(self.bufs)
+
+    def run(self, name, fn):
+        self.bufs.update(fn(self.bufs))
+
+    def step(self, data: ProblemData):
+        self.bufs.update(iteration(self.config, data, _state_of(self.bufs))._asdict())
+
+
 def _state_of(bufs) -> SolverState:
     return SolverState(*(bufs[name] for name in SolverState._fields))
 
@@ -219,31 +265,43 @@ def _state_of(bufs) -> SolverState:
 AFTER_ITERATION = None
 
 
-def run_chunk(config: ProblemConfig, data: ProblemData, state: SolverState, n):
-    """Run `n` iterations: on one device over the static buffers of a cached
-    `_GraphedIteration` (CUDA graphs on the card), the state copied in and
-    out; on a mesh or inside `graphs.eager()`, `iteration` by iteration."""
-    runner = None
-    if data.mesh is None and graphs.enabled():
+def _runner(config: ProblemConfig, data: ProblemData, state: SolverState):
+    """The cached `_GraphedIteration` of this problem on one device, else
+    (a mesh, `graphs.eager()`) a `_HostIteration`; `state` loaded."""
+    if data.mesh is not None or not graphs.enabled():
+        runner = _HostIteration(config)
+    else:
         cg_op = data.cg_op._replace(rtol=None) if data.cg_op is not None else None
         key = ("iteration", config, tuple((t.shape, t.dtype, t.device) for t in state))
         runner = graphs.cached(key, lambda: _GraphedIteration(config, data, state),
                                graphs.leaves(data._replace(cg_op=cg_op)))
-        runner.load(state)
+    runner.load(state)
+    return runner
+
+
+def _iterate(runner, data: ProblemData, n):
     for _ in range(int(n)):
-        if runner is None:
-            state = iteration(config, data, state)
-        else:
-            runner.step(data)
+        runner.step(data)
         if AFTER_ITERATION is not None:
             AFTER_ITERATION()
-    return state if runner is None else runner.state()
+
+
+def run_chunk(config: ProblemConfig, data: ProblemData, state: SolverState, n):
+    """Run `n` iterations: on one device over the static buffers of a cached
+    `_GraphedIteration` (CUDA graphs on the card), the state copied in and
+    out; on a mesh or inside `graphs.eager()`, `iteration` by iteration."""
+    runner = _runner(config, data, state)
+    _iterate(runner, data, n)
+    return runner.state()
 
 
 def run_chunk_kkt(config: ProblemConfig, data: ProblemData, state: SolverState, n):
-    """`run_chunk` followed by the (7, 2) KKT table (a device tensor)."""
-    state = run_chunk(config, data, state, n)
-    return state, kkt_table(config, data, state)
+    """`run_chunk` followed by the (7, 2) KKT table (a device tensor), one
+    more segment over the same buffers (JAX `step.py:385-400`)."""
+    runner = _runner(config, data, state)
+    _iterate(runner, data, n)
+    runner.run("table", lambda b: {"table": kkt_table(config, data, _state_of(b))})
+    return runner.state(), runner.bufs["table"].clone()
 
 
 # sigma-schedule constants (must match `schedule.SigmaSchedule`).
@@ -255,45 +313,146 @@ _GAP_FACTORS_ASC = (  # ascending thresholds; last satisfied wins
     (5.0, 1.35), (10.0, 1.40), (20.0, 1.60), (35.0, 1.75), (50.0, 2.00),
 )
 _SIGMA_LOWER, _SIGMA_UPPER = 1e-3, 1e3
+_MIN_INTERVAL, _MAX_INTERVAL = 1, 37  # AdaptiveKKTCadence defaults
+_ONE_OVER_LN10 = 0.4342944819032518
 
 #: Packed layout of one per-check record in `run_chunk_adaptive` output.
 ADAPTIVE_REC_SIZE = 17  # [it_offset, adjusted, sigma_factor, table(7x2)]
 ADAPTIVE_HEADER = 4  # [n_checks, it_total, last_adjust_it, is_org_kkt]
 
-_STOP_IDX = [0, 2, 4, 5]
-_PRIM_POS = [0, 1]
-_DUAL_POS = [2, 3]
+_STOP_IDX = (0, 2, 4, 5)
 
 
-def _next_adjust(it: int, last_adjust: int) -> int:
-    """Smallest absolute iteration a >= it with a - last_adjust >= gap(a)
-    (mirror of `SigmaSchedule.next_adjust_iteration`)."""
-    best = 1 << 30
-    for lo, hi, gap in zip(_ADJ_LOS, _ADJ_HIS, _ADJ_GAPS):
-        cand = max(lo, it, last_adjust + gap)
-        if cand < hi:
-            best = min(best, cand)
-    return best
+@functools.lru_cache(maxsize=None)
+def _adjust_tables(device):
+    """`_ADJ_LOS`, `_ADJ_HIS`, `_ADJ_GAPS` as int32 tensors on `device`,
+    made once (outside any capture: the first validation runs warm-up)."""
+    return tuple(torch.tensor(t, dtype=torch.int32, device=device)
+                 for t in (_ADJ_LOS, _ADJ_HIS, _ADJ_GAPS))
 
 
-def _nanmax(values, npd):
-    finite = values[~np.isnan(values)]
-    return finite.max() if finite.size else npd(np.nan)
+def _device_next_adjust(it, last_adjust):
+    """Smallest absolute iteration a >= it with a - last_adjust >= gap(a),
+    int32 (JAX `step.py:197-205`; `SigmaSchedule.next_adjust_iteration`)."""
+    los, his, gaps = _adjust_tables(it.device)
+    cand = torch.maximum(torch.maximum(los, it), last_adjust + gaps)
+    return torch.where(cand < his, cand, 1 << 30).amin()
 
 
-def _sigma_factor(sigma, gap, npd):
-    """Applied multiplicative sigma factor in the work dtype (mirror of
-    `SigmaSchedule.updated_sigma`, incl. the [1e-3, 1e3] safeguard)."""
-    one = npd(1.0)
-    g = one / gap if gap < one else gap
-    fac = one
+def _device_sigma_factor(sigma, prim_dual_gap):
+    """Applied multiplicative sigma factor in sigma's dtype (JAX
+    `step.py:208-217`; `SigmaSchedule.updated_sigma`, incl. the [1e-3, 1e3]
+    safeguard)."""
+    g = torch.where(prim_dual_gap < 1.0, 1.0 / prim_dual_gap, prim_dual_gap)
+    fac = torch.ones_like(sigma)
     for threshold, f in _GAP_FACTORS_ASC:
-        if g > npd(threshold):
-            fac = npd(f)
-    if gap < one:
-        fac = one / fac
-    new_sigma = np.clip(sigma * fac, npd(_SIGMA_LOWER), npd(_SIGMA_UPPER))
+        fac = torch.where(g > threshold, f, fac)
+    fac = torch.where(prim_dual_gap < 1.0, 1.0 / fac, fac)
+    new_sigma = torch.clamp(sigma * fac, _SIGMA_LOWER, _SIGMA_UPPER)
     return new_sigma / sigma
+
+
+def next_interval(err, tol):
+    """Iterations to the next validation, int32 (JAX `step.py:285-294`;
+    `AdaptiveKKTCadence.set_error_and_tolerance`)."""
+    ratio = err / torch.clamp(tol, min=1e-10)
+    # log10 as `jnp.log10` computes it, log(x) * (1 / ln 10) in the dtype:
+    # torch.log10 (the C library's) differs from it by an ulp at the
+    # interval's boundaries 10^(k/36), and the truncation below by one.
+    log_ratio = torch.log(ratio) * _ONE_OVER_LN10
+    lin = (_MIN_INTERVAL + log_ratio * (_MAX_INTERVAL - _MIN_INTERVAL)).to(torch.int32)
+    iv = torch.where(log_ratio > 1.0, _MAX_INTERVAL, torch.clamp(lin, min=_MIN_INTERVAL))
+    iv = torch.where(ratio <= 1.0, _MIN_INTERVAL, iv)
+    return torch.where(torch.isfinite(err), iv, _MAX_INTERVAL).to(torch.int32)
+
+
+def _nanmax(x):
+    """The largest entry that is not NaN; NaN when every entry is."""
+    nan = torch.isnan(x)
+    return torch.where(nan.all(), math.nan, torch.where(nan, -math.inf, x).amax())
+
+
+def _plan(b, max_checks):
+    """The next stride of the segment: `na` (the next sigma adjustment), `j`
+    (iterations before the next validation, JAX `step.py:302-306`) and the
+    host's `flags` [live, j, n, it_total, last_adjust, is_org], `live` the
+    while-loop's condition (`:296-298`)."""
+    it_cur = b["it0"] + b["it_total"]
+    na = _device_next_adjust(it_cur, b["last_adjust"])
+    j = torch.minimum(torch.minimum(b["j_next"], b["k_bound"] - b["it_total"]),
+                      torch.clamp(na - it_cur + 1, min=1))
+    live = ~b["done"] & (b["it_total"] < b["k_bound"]) & (b["n"] < max_checks)
+    flags = torch.stack([live.to(torch.int32), j, b["n"], b["it_total"], b["last_adjust"],
+                         b["is_org"].to(torch.int32)])
+    return {"na": na, "j": j, "flags": flags}
+
+
+def _validate(config: ProblemConfig, data: ProblemData, b, max_checks):
+    """One validation after the stride of `j` iterations (the body of JAX
+    `step.py:310-365` after its fori_loop): the KKT table, the decisions,
+    the sigma factor applied to the state, the record into row `n` of
+    `recs`, and the next stride's plan. Every value a 0-d tensor on the
+    state's device: nothing is read on the host."""
+    dtype = config.torch_dtype
+    it_total = b["it_total"] + b["j"]
+    a = b["it0"] + it_total - 1  # absolute index of the just-finished iteration
+    state = _state_of(b)
+    tol = b["tol"]
+
+    table = kkt_table(config, data, state)
+    org, scaled = table[:, 0], table[:, 1]
+    err = _nanmax(torch.stack([org[i] for i in _STOP_IDX]))
+    passed = (org < tol).all()
+    done = passed | (err <= b["next_checkpoint"])
+    # org/scaled switch precedes the sigma update (host order).
+    is_org = b["is_org"] | (_nanmax(scaled) < 5 * tol)
+    # Sticky tail freeze, latched before the factor at this validation.
+    frozen = b["frozen"] | (err < b["sigma_freeze"])
+
+    adjust_now = (a == b["na"]) & ~passed
+    col = torch.where(is_org, org, scaled)
+    prim_error, dual_error = _nanmax(col[0:2]), _nanmax(col[2:4])
+    gap_ok = torch.isfinite(prim_error) & torch.isfinite(dual_error) & (dual_error > 0)
+    gap = torch.where(gap_ok, prim_error / torch.where(dual_error > 0, dual_error, 1.0), 1.0)
+    factor = torch.where(adjust_now & gap_ok & ~frozen,
+                         _device_sigma_factor(state.r, gap), 1.0).to(dtype)
+    state = apply_penalty_factor(state, factor)
+
+    rec = torch.cat([torch.stack([it_total.to(dtype), adjust_now.to(dtype), factor]),
+                     table.reshape(-1).to(dtype)])
+    out = dict(
+        state._asdict(),
+        table=table,
+        recs=b["recs"].index_copy(0, b["n"].reshape(1).long(), rec[None]),
+        n=b["n"] + 1,
+        it_total=it_total,
+        j_next=next_interval(err, tol),
+        last_adjust=torch.where(adjust_now, a, b["last_adjust"]),
+        is_org=is_org,
+        frozen=frozen,
+        done=done,
+    )
+    return {**out, **_plan({**b, **out}, max_checks)}
+
+
+def segment_scalars(config: ProblemConfig, it0, k_bound, j_first, aux, max_checks):
+    """The segment's scalars and empty records on the host (JAX
+    `step.py:275-283, 367-370`), its first stride planned by the same code
+    as every later one; `load_segment` copies them to the device once."""
+    dtype = config.torch_dtype
+    aux = torch.as_tensor(np.asarray(aux))
+
+    def i32(v):
+        return torch.tensor(int(v), dtype=torch.int32)
+
+    scalars = dict(
+        it0=i32(it0), k_bound=i32(k_bound), j_next=i32(j_first), it_total=i32(0), n=i32(0),
+        last_adjust=aux[0].to(torch.int32), is_org=aux[1] > 0.5,
+        frozen=torch.tensor(False), done=torch.tensor(False),
+        tol=aux[2].to(dtype), next_checkpoint=aux[3].to(dtype), sigma_freeze=aux[4].to(dtype),
+        recs=torch.full((max_checks, ADAPTIVE_REC_SIZE), math.nan, dtype=dtype),
+    )
+    return {**scalars, **_plan(scalars, max_checks)}
 
 
 def run_chunk_adaptive(
@@ -309,14 +468,18 @@ def run_chunk_adaptive(
     """Solver segment: iterations, adaptive-cadence KKT validations and sigma
     updates, up to `k_bound` iterations or `max_checks` validations.
 
-    The semantics of the reference's device-resident segment
-    (`dots_socp_tpu/solver/step.py:221-382`): the adaptive KKT cadence
-    (interval 1 at tolerance, 37 beyond 10x away, log-linear between), the
-    sigma cadence and gap lookup with safeguards, the org/scaled column
-    switch once the scaled errors are below 5 tol, the sticky sigma freeze,
-    and the early exit at a tolerance checkpoint or convergence. Each
-    validation copies the (7, 2) table to the host and decides there, in
-    the config's dtype.
+    The reference's device-resident segment (`dots_socp_tpu/solver/step.py:
+    220-382`): the adaptive KKT cadence (interval 1 at tolerance, 37 beyond
+    10x away, log-linear between), the sigma cadence and gap lookup with
+    safeguards, the org/scaled column switch once the scaled errors are
+    below 5 tol, the sticky sigma freeze, and the early exit at a tolerance
+    checkpoint or convergence, all decided on the device in the config's
+    dtype (`_validate`). On one device the state stays in the
+    `_GraphedIteration`'s buffers for the whole segment (loaded once,
+    cloned out once); each validation is one `validate` replay, after
+    which the host reads `flags` (one small copy) to know how many
+    iteration replays come next; the records are read once at the end.
+    On a mesh and inside `graphs.eager()` the same code runs op by op.
 
     aux = [last_adjust_it, is_org_kkt (0/1), tol, next_checkpoint,
     sigma_freeze]. Returns (state, packed) with packed a numpy array
@@ -324,66 +487,14 @@ def run_chunk_adaptive(
        rec_0 ... rec_{max_checks-1}],
     rec = [it_offset (1-based), adjusted (0/1), sigma_factor, table.ravel()].
     """
-    min_int, max_int = 1, 37  # AdaptiveKKTCadence defaults
-    npd = config.np_dtype
-    aux = np.asarray(aux, dtype=npd)
-    it0, k_bound, j_next = int(it0), int(k_bound), int(j_first)
-    last_adjust = int(aux[0])
-    is_org = bool(aux[1] > 0.5)
-    tol, next_checkpoint, sigma_freeze = aux[2], aux[3], aux[4]
-    recs = np.full((max_checks, ADAPTIVE_REC_SIZE), np.nan, dtype=npd)
-
-    def next_interval(err):
-        # Parity with AdaptiveKKTCadence.set_error_and_tolerance.
-        if not np.isfinite(err):
-            return max_int
-        ratio = err / np.maximum(tol, npd(1e-10))
-        if ratio <= 1.0:
-            return min_int
-        log_ratio = np.log10(ratio)
-        if log_ratio > 1.0:
-            return max_int
-        return max(min_int, int(min_int + log_ratio * (max_int - min_int)))
-
-    n = it_total = 0
-    frozen = done = False
-    while not done and it_total < k_bound and n < max_checks:
-        it_cur = it0 + it_total
-        na = _next_adjust(it_cur, last_adjust)
-        j = min(j_next, k_bound - it_total, max(na - it_cur + 1, 1))
-        state = run_chunk(config, data, state, j)
-        it_total += j
-        a = it0 + it_total - 1  # absolute index of the just-finished iteration
-
-        table = kkt_table(config, data, state).cpu().numpy().astype(npd)
-        org, scaled = table[:, 0], table[:, 1]
-        with np.errstate(invalid="ignore"):
-            err = _nanmax(org[_STOP_IDX], npd)
-            passed = bool(np.all(org < tol))
-            done = passed or bool(err <= next_checkpoint)
-            # org/scaled switch precedes the sigma update (host order).
-            is_org = is_org or bool(_nanmax(scaled, npd) < 5 * tol)
-            # Sticky tail freeze, latched before the factor at this validation.
-            frozen = frozen or bool(err < sigma_freeze)
-
-        adjust_now = a == na and not passed
-        col = org if is_org else scaled
-        prim_error = _nanmax(col[_PRIM_POS], npd)
-        dual_error = _nanmax(col[_DUAL_POS], npd)
-        gap_ok = bool(np.isfinite(prim_error) and np.isfinite(dual_error) and dual_error > 0)
-        factor = npd(1.0)
-        if adjust_now and gap_ok and not frozen:
-            sigma = npd(state.r.item())
-            factor = _sigma_factor(sigma, prim_error / dual_error, npd)
-        if factor != 1.0:
-            state = apply_penalty_factor(state, factor)
-        if adjust_now:
-            last_adjust = a
-
-        recs[n, :3] = (it_total, float(adjust_now), factor)
-        recs[n, 3:] = table.ravel()
-        n += 1
-        j_next = next_interval(err)
-
-    header = np.asarray([n, it_total, last_adjust, float(is_org)], dtype=npd)
-    return state, np.concatenate([header, recs.ravel()])
+    scalars = segment_scalars(config, it0, k_bound, j_first, aux, max_checks)
+    flags = scalars["flags"].tolist()
+    runner = _runner(config, data, state)
+    runner.load_segment(scalars)
+    while flags[0]:
+        _iterate(runner, data, flags[1])
+        runner.run("validate", lambda b: _validate(config, data, b, max_checks))
+        flags = graphs.read(runner.bufs["flags"]).tolist()
+    recs = graphs.read(runner.bufs["recs"]).numpy()
+    header = np.asarray(flags[2:], dtype=recs.dtype)
+    return runner.state(), np.concatenate([header, recs.ravel()])

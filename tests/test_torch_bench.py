@@ -113,6 +113,7 @@ def test_lane_converge_uses_fresh_factors(monkeypatch):
     assert conv["tol"] == 1e-2 and conv["cache_dir"] == "fresh temporary directory"
     for cell in ("flagship", "large_mesh"):
         assert conv[cell]["converged"] and conv[cell]["iterations"] > 0
+        assert 2 <= conv[cell]["validations"] <= conv[cell]["iterations"] + 2
     assert len(set(seen)) == 1 and "dots_bench_cache_" in seen[0]
     assert not os.path.exists(seen[0])
     assert os.environ["DOTS_SOCP_CACHE_DIR"] == "/nonexistent/before"

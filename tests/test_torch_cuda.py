@@ -508,3 +508,77 @@ def test_capture_of_a_wrong_segment_raises_and_runs_nothing():
     with pytest.raises(ValueError, match="cpu"):
         ws.run("double", lambda b: {"x": 2 * b["x"]})
     assert torch.equal(ws.bufs["x"], x)
+
+
+def _adaptive_problem(n):
+    """Plane n on the card (float32, ntime 31): n64 on the spectral path,
+    n200 on the CG path (inner rtol 5e-4), and its initial state."""
+    from dots_socp_torch.cli import load_geometry
+    from dots_socp_torch.solver.problem import build_problem, initial_state
+
+    mode = "cg" if n == 200 else "spectral"
+    config, data, extras = build_problem(31, load_geometry("plane", n), laplacian_mode=mode,
+                                         dtype="float32", cg_rtol=5e-4, device="cuda")
+    return config, data, initial_state(config, data, extras)
+
+
+@pytest.mark.parametrize("n", [64, 200])
+def test_graphed_adaptive_segment_equals_eager(n):
+    """The adaptive segment with its validations captured (`validate`, one
+    replay each; the state in the workspace for the whole segment) against
+    the same segment inside `graphs.eager()`, on plane n64 (spectral) and
+    n200 (CG): the packed records and every state array bit for bit, the
+    first call (captures) and the second (replays) alike, and one host read
+    per validation plus one of the records."""
+    _need_cuda()
+    from dots_socp_torch.ops import graphs
+    from dots_socp_torch.solver import step
+
+    config, data, state = _adaptive_problem(n)
+    args = (0, 120, 1, np.asarray([-1.0, 0.0, 1e-3, -np.inf, -np.inf]), 64)
+    with graphs.eager():
+        state_e, packed_e = step.run_chunk_adaptive(config, data, state, *args)
+    for _ in range(2):
+        reads = graphs.HOST_READS
+        state_g, packed_g = step.run_chunk_adaptive(config, data, state, *args)
+        assert graphs.HOST_READS - reads == int(packed_g[0]) + 1
+        np.testing.assert_array_equal(packed_g, packed_e)
+        for name, a, b in zip(state_g._fields, state_g, state_e):
+            assert torch.equal(a, b), name
+    assert int(packed_g[0]) >= 10 and packed_g[4 + 1::step.ADAPTIVE_REC_SIZE][:10].sum() >= 3
+    graphs.release()
+
+
+def test_validate_segment_launches_the_same_kernels_as_its_replay():
+    """Under `graphs.uncaptured()` the `validate` segment launches, op by op,
+    the kernels and copies that its CUDA graph replays (the same names, as
+    many of each), and both write the same flags."""
+    _need_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dots_socp_torch.ops import graphs
+    from dots_socp_torch.solver import step
+
+    config, data, state = _adaptive_problem(64)
+    aux = np.asarray([-1.0, 0.0, 1e-3, -np.inf, -np.inf])
+    runner = step._runner(config, data, state)
+
+    def validate():
+        runner.load(state)
+        runner.load_segment(step.segment_scalars(config, 0, 50, 1, aux, 8))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            runner.run("validate", lambda b: step._validate(config, data, b, 8))
+            torch.cuda.synchronize()
+        names = sorted(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+        return names, runner.bufs["flags"].tolist()
+
+    with graphs.uncaptured():
+        validate()  # the constant tables, cuBLAS and the allocator warmed
+        eager_names, eager_flags = validate()
+    validate()  # warm-up and capture
+    replay_names, replay_flags = validate()
+    assert eager_names and replay_names == eager_names
+    assert replay_flags == eager_flags
+    graphs.release()

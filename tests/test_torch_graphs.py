@@ -180,7 +180,8 @@ def _solve_legs(geometry, kw, snap):
 @pytest.mark.parametrize("mode", ["cg", "spectral"])
 def test_buffered_solve_equals_the_solve_without_buffers(mode, tmp_path, monkeypatch):
     """The public solve through `run_chunk`'s static buffers (the CG path:
-    the segments before and after the phi solve and `cg_solve`'s own) equals
+    the segments before and after the phi solve and `cg_solve`'s own; the
+    adaptive segment's validations, decided on the device) equals
     the same solve inside `graphs.eager()`, bit for bit: solutions,
     checkpoints, the resumed leg and the KKT history."""
     geometry, kw = _plane_n13(mode)
@@ -194,6 +195,7 @@ def test_buffered_solve_equals_the_solve_without_buffers(mode, tmp_path, monkeyp
     with graphs.eager():
         plain = _solve_legs(geometry, kw, str(tmp_path / "b.npz"))
     expect = {"before", "after", "start", "init", "block", "finish", "result"} if mode == "cg" else {"iteration"}
+    expect.add("validate")  # the adaptive segment's validations
     assert segments == expect
     assert not graphs._CACHE  # released with the solve
     for leg_b, leg_p in zip(buffered[:2], plain[:2]):
