@@ -6,7 +6,8 @@ Phases, in order; each prints one JSON line, and a failing phase raises
 (exit code != 0, no result line):
 
 1. device   -- CUDA must be present; the card's name and power limit.
-2. build    -- nvcc builds the window SpMV kernel from the sources.
+2. build    -- nvcc builds the kernels from the sources (B1 / B2 and K4,
+               one nvcc per source, all started together).
 3. kernel   -- at plane n200 (V=46,431, T+1=32 modes, float32), with the
                tiles the main path's `build_cg_operator` makes: the kernel
                against its plain PyTorch version on the card and against
@@ -29,7 +30,10 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                port's solver) on plane n200, ntime 31, tol 1e-4, 100
                iterations, float32, on the card. Checks: the CG phi-solve
                with f64 refinement ran, every inner matvec launched the
-               kernel, the KKT values are finite, the stop-set error at the
+               kernel, every inner iteration after it was K4's STAGES
+               launches (`count_k4`: so in phases 8, 10, 12's unsharded
+               run, 14, 15, 17, 18 and 19 too; on a mesh, none), the KKT
+               values are finite, the stop-set error at the
                last validation is at most half the first, the mass
                conservation error (RMS over time layers of total mass
                minus 1) is finite.
@@ -171,6 +175,24 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                iterations' own replays, however many kernels the KKT table
                launches.
 
+19. cg_step -- kernel K4, the single-device CG's inner iteration after the
+               matvec (`ops/cg_step.py`): on plane n200's operator and a
+               settled inner state (`scripts.common.settled_cg_state`) with
+               one frozen row, one with p = 0 (den = 0, the breakdown guard)
+               and the null row, every stage's outputs (the wrapper's trace)
+               against `cg_step_plain`'s within KERNEL_TOL * max|.|; with
+               live false every output keeps its bits; two launches on the
+               same inputs bit-equal. Times per call (device, profiler): K4
+               with the GEMMs between its launches, its plain version, the
+               whole inner iteration (B1 + K4) live and as a no-op, and on
+               the torch route, beside the byte bound (`cg_step_bound`).
+               Then n200 to tol 1e-4 (fresh factors, as phase 18) on K4's
+               route and inside `cg_step.torch_route()`: both
+               ADAPTIVE_ITERATIONS[200] iterations at the same validation
+               points, final KKT within SLICE_KKT_RTOL, the transport cost
+               within the records' rule (`scripts.records.COST_RTOL`,
+               `COST_ATOL`).
+
 Then the kernel summary line (a kernel's `launches` is the sum over the
 paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
 and the result line
@@ -183,7 +205,7 @@ of phases 7, 11, 12 and 13, or by the drivers of phase 14: the script checks
 
     python3 chip_smoke.py --phase time_sharded_slice
 
-runs phases 1 and 2 and then the one phase named (12, 15, 16, 17 or 18) with its checks,
+runs phases 1 and 2 and then the one phase named (12, 15, 16, 17, 18 or 19) with its checks,
 and prints no kernel or result line: phase 12 alone on a machine with four
 cards is the check of a `TxS` mesh over nccl.
 """
@@ -207,12 +229,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import dots_socp_torch.ops.cg_step as cg_step
 import dots_socp_torch.ops.sharded_window as sharded_window
 import dots_socp_torch.ops.window_spmv as window_spmv
 from dots_socp_torch import bench, cli, dryrun, interface, profile_slice
 from dots_socp_torch.kernel_timing import (
+    cg_step_bound,
     device_ms,
     ell_laplacian,
+    launch_times_us,
     library_ms,
     median_call_ms,
     nvidia_smi_line,
@@ -226,6 +251,7 @@ from dots_socp_torch.ops.laplacian import CG_COUNTERS, SpectralFactor, spectral_
 from dots_socp_torch.replication import log2table, main_versus_exact, sweep
 from dots_socp_torch.scripts import (
     bench_large,
+    common,
     bench_matvec,
     profile_large,
     records,
@@ -288,6 +314,13 @@ GRAPH_LAUNCH_CALL_RATIO = 0.1
 # replay, and room for a segment boundary in the window).
 ADAPTIVE_ITERATIONS = {64: 1272, 200: 1131}
 ADAPTIVE_LAUNCH_CALLS = 3
+# Phase 19: plane n200's settled inner CG state with these rows changed: one
+# frozen (its threshold above its residual) and one with p = 0 (den = 0, the
+# breakdown guard); the null row (shift 0) is the last, as built.
+CG_STEP_FROZEN_ROW, CG_STEP_BREAKDOWN_ROW = 5, 9
+# Kernel K4's launches on each path that drives the single-device CG, each
+# counted from 0 (`count_k4`).
+K4_PATHS = {}
 SWEEP_TIME_LIMIT = 20  # seconds per run of the replication sweep
 PROFILE_MAX_BYTES = 200e6
 # Phase 14: (name, the driver's main, its arguments), in the order they run.
@@ -306,6 +339,27 @@ BENCH_DRIVERS = (
 # be negative and is not one of them, nor is a build that was reused (0 s).
 TIME_KEY = re.compile(r"(_ms|_us|_sec|^value|iters_per_sec|^repeats|^variants|^chain_us)$")
 NOT_TIMES = ("cg_fixed_overhead_ms", "unattributed_ms", "kernel_build_sec")
+
+
+def reset_counts():
+    """B1's and K4's launch counts and the CG's counters to 0: what follows
+    is one path's."""
+    window_spmv.KERNEL_LAUNCHES = cg_step.KERNEL_LAUNCHES = 0
+    CG_COUNTERS.reset()
+
+
+def count_k4(path, expected=True):
+    """K4's launches since `reset_counts`, added to K4_PATHS[path]; on a
+    single-device CG path (`expected`) there must be some, STAGES for each
+    fused inner iteration, elsewhere none."""
+    n = cg_step.KERNEL_LAUNCHES
+    if expected and not (n > 0 and n == cg_step.STAGES * CG_COUNTERS.fused_steps):
+        raise AssertionError(f"{path}: K4 launches {n} against {CG_COUNTERS.fused_steps} fused "
+                             f"inner iterations")
+    if not expected and n:
+        raise AssertionError(f"{path}: K4 launched {n} times off the single-device CG path")
+    K4_PATHS[path] = K4_PATHS.get(path, 0) + n
+    return n
 
 
 def emit(phase, **fields):
@@ -426,14 +480,14 @@ def run_cli(n_space, nit, extra=(), n_time=N_TIME):
 
 
 def phase_slice(card, n_time=N_TIME, phase="slice"):
-    window_spmv.KERNEL_LAUNCHES = 0  # count the main path's launches only
-    CG_COUNTERS.reset()
+    reset_counts()  # count the main path's launches only
     solution, history, stats = run_cli(200, 100, n_time=n_time)
     launches = window_spmv.KERNEL_LAUNCHES
+    k4 = count_k4(phase)
     counters = dict(vars(CG_COUNTERS))
     stop = np.nanmax(history.kkt_errors[:, STOP_SET], axis=1)
     mass_err = mass_conservation_error(solution["mu"])
-    emit(phase, **stats, n_time=n_time, launches=launches, cg=counters,
+    emit(phase, **stats, n_time=n_time, launches=launches, k4_launches=k4, cg=counters,
          inner_cg_per_outer=CG_COUNTERS.iterations / max(CG_COUNTERS.solves, 1),
          stop_error_first=float(stop[0]), stop_error_last=float(stop[-1]),
          mass_conservation_error=mass_err, card=card)
@@ -465,8 +519,9 @@ def tf32_is_off(pins):
 
 def phase_spectral(card):
     pins = tf32_pins()
-    CG_COUNTERS.reset()
+    reset_counts()
     _, history, stats = run_cli(64, 200)
+    count_k4("spectral", expected=False)
     if CG_COUNTERS.solves:
         raise AssertionError("the n64 flagship solve took the CG path")
     # The same GEMM chain in f32 and in f64 on the card.
@@ -554,14 +609,15 @@ def _mesh_rank(rank, world, port, backend, n_space, nit, mesh_shape, n_time, res
                       WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     try:
         # Count the main path's launches and collectives only.
-        sharded_window.KERNEL_LAUNCHES = window_spmv.KERNEL_LAUNCHES = 0
-        CG_COUNTERS.reset()
+        sharded_window.KERNEL_LAUNCHES = 0
+        reset_counts()
         COUNTS.reset()
         solution, history, stats = run_cli(
             n_space, nit, ["--mesh_shape", mesh_shape, "--dist_backend", backend], n_time)
         results.put((rank, {
             **stats, "launches": sharded_window.KERNEL_LAUNCHES,
-            "b1_launches": window_spmv.KERNEL_LAUNCHES, "cg": dict(vars(CG_COUNTERS)),
+            "b1_launches": window_spmv.KERNEL_LAUNCHES, "k4_launches": cg_step.KERNEL_LAUNCHES,
+            "cg": dict(vars(CG_COUNTERS)),
             "collectives": COUNTS.snapshot(),
             "kkt": history.kkt_errors, "mass_err": mass_conservation_error(solution["mu"]),
             "phi": solution["phi"],
@@ -622,6 +678,8 @@ def run_ranks(phase, n_space, nit, kkt_unsharded, mesh_shape=f"1x{SHARDS_SLICE}"
                    phi_rel_vs_rank0=float(np.abs(phi - phi0).max() / np.abs(phi0).max()))
         if out["forbidden_imports"]:
             raise AssertionError(f"{phase} rank {rank} imported {out['forbidden_imports']}")
+        if out["k4_launches"]:  # a mesh keeps the torch route
+            raise AssertionError(f"{phase} rank {rank} launched K4 {out['k4_launches']} times")
         outs.append(out)
     return backend, outs
 
@@ -651,10 +709,10 @@ def phase_sharded_slice(card, kkt_unsharded):
 def phase_time_sharded_slice(card):
     """Phase 12. Returns the launches of (B1 unsharded at ntime 32, B2 on
     2x2, B1 on 2x1), each counted from 0."""
-    window_spmv.KERNEL_LAUNCHES = 0
-    CG_COUNTERS.reset()
+    reset_counts()
     _, history, stats = run_cli(200, 100, n_time=N_TIME_MESH)
     b1_unsharded = window_spmv.KERNEL_LAUNCHES
+    count_k4("time_slice_unsharded")
     kkt_unsharded = history.kkt_errors[-1]
     emit("time_sharded_slice", mesh="1x1", **stats, launches=b1_unsharded,
          cg=dict(vars(CG_COUNTERS)), card=card)
@@ -733,6 +791,7 @@ def phase_resume(card, kkt_full, solution_full):
     def leg(history, **fields):
         its = history.kkt_iteration[np.isfinite(history.kkt_iteration)]
         legs.append({**fields, "launches": window_spmv.KERNEL_LAUNCHES,
+                     "k4_launches": count_k4("resume"),
                      "cg": dict(vars(CG_COUNTERS)), "first_validation": int(its.min()),
                      "last_validation": int(its.max()), "snapshot_bytes": os.path.getsize(snap)})
 
@@ -740,16 +799,14 @@ def phase_resume(card, kkt_full, solution_full):
         snap, log = str(Path(tmp) / "state.npz"), Path(tmp) / "leg2.log"
         # First leg: solve_large to nit=50, with its forced snapshot on exit
         # and its cold CG histogram.
-        window_spmv.KERNEL_LAUNCHES = 0
-        CG_COUNTERS.reset()
+        reset_counts()
         _, history, result = solve_large.main(
             ["--n_space", "200", "--ntime", str(N_TIME), "--tol", "1e-4", "--nit", "50",
              "--snapshot", snap, "--device", "cuda"])
         torch.cuda.synchronize()
         leg(history, **result)
         # Second leg: the CLI, as phase 4 ran it, resumes the same file.
-        window_spmv.KERNEL_LAUNCHES = 0
-        CG_COUNTERS.reset()
+        reset_counts()
         solution, history, stats = run_cli(200, 100, ["--snapshot", snap, "--log_file", str(log)])
         leg(history, **stats)
         interface.set_logging_level("info")  # release the log file
@@ -817,10 +874,10 @@ def phase_replication(card):
 
 def phase_profile(card):
     with tempfile.TemporaryDirectory() as tmp:
-        window_spmv.KERNEL_LAUNCHES = 0
-        CG_COUNTERS.reset()
+        reset_counts()
         _, _, stats = run_cli(200, 12, ["--profile_dir", tmp])
         launches = window_spmv.KERNEL_LAUNCHES
+        k4 = count_k4("profile")
         trace = Path(tmp) / "solve_trace.json"
         if not trace.is_file():
             raise AssertionError("--profile_dir left no trace file")
@@ -830,7 +887,7 @@ def phase_profile(card):
     b1 = [e for e in kernels if "window_spmv_kernel" in e.get("name", "")]
     emit("profile", **stats, trace_bytes=size, events=len(events), kernel_events=len(kernels),
          window_spmv_kernel_events=len(b1), traced_iterations=interface.PROFILE_ITERATIONS,
-         launches=launches, card=card)
+         launches=launches, k4_launches=k4, card=card)
     if not b1:
         raise AssertionError("the trace names no window_spmv_kernel among its CUDA kernel events")
     if not size <= PROFILE_MAX_BYTES:
@@ -860,8 +917,7 @@ def times_in(result, path=""):
 
 def phase_bench(card):
     """Phase 14; returns B1's launches in it."""
-    window_spmv.KERNEL_LAUNCHES = 0
-    CG_COUNTERS.reset()
+    reset_counts()
     t0 = time.perf_counter()
     results = {}
     for name, driver, argv in BENCH_DRIVERS:
@@ -874,6 +930,7 @@ def phase_bench(card):
         emit("bench", driver=name, argv=argv, result=last, card=card)
         results[name] = last
     launches = window_spmv.KERNEL_LAUNCHES
+    count_k4("bench")
     chained = (results["bench"]["large_mesh"]["chained_matvecs"]
                + results["refine_cost_bench"]["chained_matvecs"]
                + results["bench_matvec"]["chained_matvecs"])
@@ -965,11 +1022,11 @@ def phase_graphs(card):
     for n_space in (200, 64):
         legs, phis = {}, {}
         for mode in ("graphed", "eager"):
-            window_spmv.KERNEL_LAUNCHES = 0
-            CG_COUNTERS.reset()
+            reset_counts()
             with graphs.eager() if mode == "eager" else contextlib.nullcontext():
                 solution, _, stats = run_cli(n_space, 100)
             legs[mode] = {**stats, "launches": window_spmv.KERNEL_LAUNCHES,
+                          "k4_launches": count_k4("graphs", expected=n_space == 200),
                           "cg": dict(vars(CG_COUNTERS))}
             phis[mode] = solution["phi"]
             b1 += window_spmv.KERNEL_LAUNCHES
@@ -1012,9 +1069,10 @@ def phase_adaptive(card):
         for n_space, expect in ADAPTIVE_ITERATIONS.items():
             legs, runs = {}, {}
             for mode in ("graphed", "eager"):
-                window_spmv.KERNEL_LAUNCHES = 0
+                reset_counts()
                 with graphs.eager() if mode == "eager" else contextlib.nullcontext():
                     solution, history, reads = converge(n_space)
+                k4 = count_k4("adaptive", expected=n_space == 200)
                 b1 += window_spmv.KERNEL_LAUNCHES
                 runs[mode] = (solution["phi"], np.asarray(history.kkt_iteration))
                 legs[mode] = {"iterations": int(history.kkt_iteration[-1]),
@@ -1022,7 +1080,7 @@ def phase_adaptive(card):
                               "converged": bool(np.all(history.get_current_kkt_errors()
                                                        < bench.CONVERGE_TOL)),
                               "solve_sec": history.running_time, "host_reads": reads,
-                              "b1_launches": window_spmv.KERNEL_LAUNCHES}
+                              "b1_launches": window_spmv.KERNEL_LAUNCHES, "k4_launches": k4}
             bit_equal = bool(np.array_equal(runs["graphed"][0], runs["eager"][0]))
             rel = _rel_diff(runs["graphed"][0], runs["eager"][0])
             emit("adaptive", n_space=n_space, **legs, phi_bit_equal=bit_equal, phi_rel=rel,
@@ -1057,10 +1115,154 @@ def phase_adaptive(card):
     return b1
 
 
+def _stage_errors(kernel, plain, null_rows):
+    """Per stage output of `cg_step`'s trace: max |kernel - plain| over
+    max |plain|; the mean on the null rows only (where the kernel keeps it),
+    over the largest term it averages (max |r1| there: the mean of a
+    deflated row is ~0); the step mask, it and live equal (0.0) or not
+    (1.0)."""
+    errors = {}
+    for key, k in kernel.items():
+        ref = plain.get(key)
+        if ref is None:
+            continue
+        scale = ref
+        if key == "mean":
+            k, ref, scale = k[null_rows], ref[null_rows], plain["r1"][null_rows]
+        if k.dtype == torch.bool or not k.is_floating_point():
+            errors[key] = 0.0 if torch.equal(k, ref) else 1.0
+        else:
+            errors[key] = float((k - ref).abs().max()) / (float(scale.abs().max()) or 1.0)
+    return errors
+
+
+def phase_cg_step(card):
+    """Phase 19. Returns K4's fields of the kernel line."""
+    t0 = time.perf_counter()
+    cg, st = common.settled_cg_state(200, N_TIME, "cuda")
+    names = ("x", "r", "p", "rz", "rr", "it", "live")
+    rows, n = st["x"].shape
+    k = cg.leaves.defl_q.shape[-1]
+    null_rows = torch.nonzero(cg.null_w > 0).flatten()
+    thresh = st["thresh"].clone()
+    thresh[CG_STEP_FROZEN_ROW] = 2 * st["rr"][CG_STEP_FROZEN_ROW]
+    st["p"][CG_STEP_BREAKDOWN_ROW] = 0.0
+    max_iters = 2**31 - 1
+    lap = window_spmv.window_matvec(cg.wop, st["p"])
+
+    def fresh():
+        return tuple(st[key].clone() for key in names)
+
+    # Each stage against the plain version, on the same inputs.
+    traced = {"kernel": {}, "plain": {}}
+    cg_step.cg_step(lap, *fresh(), thresh, max_iters, cg.leaves, trace=traced["kernel"])
+    cg_step.cg_step_plain(lap, *fresh(), thresh, max_iters, cg.leaves, trace=traced["plain"])
+    torch.cuda.synchronize()
+    errors = _stage_errors(traced["kernel"], traced["plain"], null_rows)
+
+    def pair(key):  # the mean is kept on the null rows only
+        k, p = traced["kernel"][key], traced["plain"][key]
+        return (k[null_rows], p[null_rows]) if key == "mean" else (k, p)
+
+    bit_equal = {key: bool(torch.equal(*pair(key))) for key in errors}
+    step = traced["kernel"]["step"].flatten().tolist()
+    # With live false, every output keeps its bits.
+    idle = fresh()
+    idle[names.index("live")].fill_(False)
+    kept = [t.clone() for t in idle]
+    cg_step.cg_step(lap, *idle, thresh, max_iters, cg.leaves)
+    # Two launches on the same inputs.
+    once, twice = fresh(), fresh()
+    cg_step.cg_step(lap, *once, thresh, max_iters, cg.leaves)
+    cg_step.cg_step(lap, *twice, thresh, max_iters, cg.leaves)
+    torch.cuda.synchronize()
+    noop_bits = all(torch.equal(a, b) for a, b in zip(idle, kept))
+    repeat_bits = all(torch.equal(a, b) for a, b in zip(once, twice))
+
+    # Device time per call: K4's launches and the GEMMs between them, the
+    # plain version, and the whole inner iteration (B1 + K4) live, no-op
+    # and on the torch route; each state advances as it is timed.
+    on_k, on_p, on_it, on_noop, on_torch = fresh(), fresh(), fresh(), fresh(), fresh()
+    on_noop[names.index("live")].fill_(False)
+    ms_k, by_kernel, ev_k = device_ms(
+        lambda: cg_step.cg_step(lap, *on_k, thresh, max_iters, cg.leaves), REPS)
+    ms_p, _, ev_p = device_ms(
+        lambda: cg_step.cg_step_plain(lap, *on_p, thresh, max_iters, cg.leaves), REPS)
+    ms_it, _, _ = device_ms(lambda: cg.fused_step(*on_it, thresh, max_iters), REPS)
+    ms_noop, by_noop, _ = device_ms(lambda: cg.fused_step(*on_noop, thresh, max_iters), REPS)
+    on_stages = fresh()
+    by_stage = launch_times_us(
+        lambda: cg_step.cg_step(lap, *on_stages, thresh, max_iters, cg.leaves),
+        "cg_step_", cg_step.STAGES)
+    ms_torch, by_torch, _ = device_ms(lambda: cg.gated_step(*on_torch, thresh, max_iters), REPS)
+    bound = cg_step_bound(rows, n, k)
+    it_bound = cg_step_bound(rows, n, k, cg.wop)
+
+    # A whole solve on each route, in one process, from fresh factors.
+    legs, runs = {}, {}
+    with bench.fresh_cache_dir():
+        for route in ("cg_step", "torch"):
+            reset_counts()
+            with cg_step.torch_route() if route == "torch" else contextlib.nullcontext():
+                solution, history, _ = converge(200)
+            k4 = count_k4("cg_step", expected=route == "cg_step")
+            runs[route] = (np.asarray(history.kkt_iteration), history.kkt_errors[-1],
+                           solution["phi"])
+            legs[route] = {"iterations": int(history.kkt_iteration[-1]),
+                           "validations": len(history.kkt_iteration),
+                           "converged": bool(np.all(history.get_current_kkt_errors()
+                                                    < bench.CONVERGE_TOL)),
+                           "cost": float(history.history["Transportation cost"][-1]),
+                           "solve_sec": history.running_time, "k4_launches": k4,
+                           "b1_launches": window_spmv.KERNEL_LAUNCHES,
+                           "inner_cg_iterations": CG_COUNTERS.iterations}
+    kkt_k, kkt_t = runs["cg_step"][1], runs["torch"][1]
+    ref = np.where(kkt_t != 0, kkt_t, np.nan)
+    kkt_rel = float(np.nanmax(np.abs(kkt_k - ref) / np.abs(ref)))
+    cost_k, cost_t = legs["cg_step"]["cost"], legs["torch"]["cost"]
+    cost_ok = abs(cost_k - cost_t) <= records.COST_RTOL * abs(cost_t) + records.COST_ATOL
+    phi_bits = bool(np.array_equal(runs["cg_step"][2], runs["torch"][2]))
+    emit("cg_step", shape=[rows, n], deflation_rank=k, null_rows=null_rows.tolist(),
+         step=step, stage_rel_err=errors, stage_bit_equal=bit_equal, noop_bit_equal=noop_bits,
+         rerun_bit_equal=repeat_bits,
+         device_us={"cg_step": ms_k * 1e3, "plain": ms_p * 1e3,
+                    "by_kernel": {name[:80]: t * 1e3 for name, t in by_kernel.items()},
+                    "k4_by_stage": by_stage,
+                    "iteration": ms_it * 1e3, "iteration_noop": ms_noop * 1e3,
+                    "iteration_noop_by_kernel": {name[:80]: t * 1e3 for name, t in by_noop.items()},
+                    "iteration_torch_route": ms_torch * 1e3,
+                    "iteration_torch_route_kernels": len(by_torch)},
+         bound_us={"cg_step": bound["ms"] * 1e3, "iteration": it_bound["ms"] * 1e3},
+         bound=bound, iteration_bound=it_bound,
+         profiler_events={"cg_step": ev_k, "plain": ev_p}, solves=legs,
+         kkt_rel_kernel_vs_torch=kkt_rel, phi_bit_equal_kernel_vs_torch=phi_bits,
+         phase_seconds=time.perf_counter() - t0, card=card)
+    if not all(e <= KERNEL_TOL for e in errors.values()):
+        raise AssertionError(f"K4 disagrees with its plain version by stage: {errors}")
+    if step[CG_STEP_FROZEN_ROW] or step[CG_STEP_BREAKDOWN_ROW] or not any(step):
+        raise AssertionError(f"the frozen and breakdown rows stepped, or none did: {step}")
+    if not (noop_bits and repeat_bits):
+        raise AssertionError(f"K4 with live false kept its inputs {noop_bits}; "
+                             f"two launches bit-equal {repeat_bits}")
+    if not np.array_equal(runs["cg_step"][0], runs["torch"][0]):
+        raise AssertionError("the kernel and torch routes validate at other iterations")
+    for route, leg in legs.items():
+        if not (leg["converged"] and leg["iterations"] == ADAPTIVE_ITERATIONS[200]):
+            raise AssertionError(f"{route} route: {leg['iterations']} iterations (converged "
+                                 f"{leg['converged']}), expected {ADAPTIVE_ITERATIONS[200]}")
+    if not (kkt_rel <= SLICE_KKT_RTOL and cost_ok):
+        raise AssertionError(f"kernel against torch route: KKT {kkt_rel}, cost {cost_k} "
+                             f"against {cost_t}")
+    max_abs = max(float((traced["kernel"][key] - traced["plain"][key]).abs().max())
+                  for key in ("x", "r", "p", "z", "rr", "rz"))
+    return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": bound["ms"], "bound_by": bound["by"], "library_ms": None}
+
+
 def main(argv=None):
     alone = {"time_sharded_slice": phase_time_sharded_slice, "wide_slice": phase_wide_slice,
              "spectral_records": phase_spectral_records, "graphs": phase_graphs,
-             "adaptive": phase_adaptive}
+             "adaptive": phase_adaptive, "cg_step": phase_cg_step}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=sorted(alone),
                     help="run the device and build phases and then this phase alone")
@@ -1096,6 +1298,7 @@ def main(argv=None):
     phase_spectral_records(card)
     b1_paths["graphs"] = phase_graphs(card)
     b1_paths["adaptive"] = phase_adaptive(card)
+    fused = phase_cg_step(card)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_128["max_abs_err"])
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
@@ -1115,6 +1318,15 @@ def main(argv=None):
         "launches": sharded_launches + b2_time,
         "launches_by_path": {"sharded_slice": sharded_launches, "time_sharded_slice": b2_time},
         **sharded,
+    }, {
+        "name": "cg_step",
+        "route": "cuda",
+        "source": "dots_socp_torch/ops/csrc/cg_step.cu",
+        "replaces": "dots_socp_tpu/ops/laplacian.py:928-955",
+        "replaces_kind": "XLA fusion of the inner CG while_loop body, not a Pallas call",
+        "launches": sum(K4_PATHS.values()),
+        "launches_by_path": dict(K4_PATHS),
+        **fused,
     }]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

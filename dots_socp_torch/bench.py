@@ -18,7 +18,10 @@ the iALM loop, set-up excluded, closed by the final KKT table's read on the
 host (a device synchronisation). A 2-iteration solve of each cell first
 absorbs the kernel build, the CUDA context and the factor caches. The cells
 run in turns (flagship, large_mesh, flagship, ...), --repeats times each;
-the line carries every repeat and the median.
+the line carries every repeat and the median, and per repeat the solve's
+graph work besides its replays (`graph_stats`: CUDA graph captures, their
+host seconds, graph-cache misses; `ops.graphs.STATS`), which names a repeat
+that a capture or a re-capture landed in.
 
 B1: the device time of one launch over 50+ calls on the large cell's own
 window operator (torch.profiler, `kernel_timing.device_ms`), beside its
@@ -28,7 +31,7 @@ the window width. Not measured on the CPU.
 
 --converge: both cells to tol=1e-4, and their iteration counts,
 validations (KKT tables recorded, the final one after the loop included)
-and loop seconds, with
+and loop seconds (and graph work), with
 DOTS_SOCP_CACHE_DIR at a fresh temporary directory for the whole run: the
 host eigh and Ritz factors are computed in the run (a factor from another
 LAPACK build moves float32 counts), and on the card the kernel library is
@@ -84,14 +87,18 @@ def fresh_cache_dir():
 
 
 def solve(cell, nit, tol, device):
-    """The public solve of `cell`; (run history, CG counts of the run)."""
+    """The public solve of `cell`; (run history, CG counts of the run, its
+    graph work: CUDA graph captures, their host seconds and graph-cache
+    misses, `ops.graphs.STATS`)."""
+    from dots_socp_torch.ops import graphs
     from dots_socp_torch.ops.laplacian import CG_COUNTERS
     from dots_socp_torch.solver import solver
 
-    before = dict(vars(CG_COUNTERS))
+    before, stats = dict(vars(CG_COUNTERS)), graphs.STATS.snapshot()
     _, history = solver(cell["ntime"], cell["geometry"], nit=nit, tol=tol, time_limit=3000,
                         precision="float32", device=device, **cell["solver_kw"])
-    return history, {k: n - before[k] for k, n in vars(CG_COUNTERS).items()}
+    return (history, {k: n - before[k] for k, n in vars(CG_COUNTERS).items()},
+            graphs.STATS.since(stats))
 
 
 def _phi_solve(cg):
@@ -177,11 +184,11 @@ def run(args):
     runs = {name: [] for name in cells}
     for _ in range(args.repeats):
         for name, cell in cells.items():
-            history, cg = solve(cell, cell["iters"], 1e-12, device)
+            history, cg, graph_stats = solve(cell, cell["iters"], 1e-12, device)
             iterations = int(history.kkt_iteration[-1]) + 1
             runs[name].append({"it_per_s": iterations / history.running_time,
                                "solve_sec": history.running_time, "iterations": iterations,
-                               "cg": cg})
+                               "cg": cg, "graphs": graph_stats})
     result = {}
     for name, cell in cells.items():
         rates = [r["it_per_s"] for r in runs[name]]
@@ -195,6 +202,8 @@ def run(args):
             "iters_per_sec": statistics.median(rates),
             "repeats": rates,
             "solve_sec": [r["solve_sec"] for r in runs[name]],
+            # per repeat: CUDA graph captures, their host seconds, cache misses
+            "graph_stats": [r["graphs"] for r in runs[name]],
             "inner_cg_per_outer": cg["iterations"] / cg["solves"] if cg["solves"] else None,
             "window_matvecs": sum(r["cg"]["window_matvecs"] for r in runs[name]),
         }
@@ -204,13 +213,13 @@ def run(args):
         converge = {"tol": CONVERGE_TOL, "cache_dir": "fresh temporary directory",
                     "kernel_build_sec": kernel_build_sec}
         for name, cell in cells.items():
-            history, _ = solve(cell, CONVERGE_NIT, CONVERGE_TOL, device)
+            history, _, graph_stats = solve(cell, CONVERGE_NIT, CONVERGE_TOL, device)
             kkt = np.asarray(history.get_current_kkt_errors(), dtype=float)
             recorded = np.asarray(history.kkt_iteration)
             converge[name] = {"iterations": int(recorded[np.isfinite(recorded)][-1]),
                               "validations": len(history.kkt_iteration),
                               "converged": bool(np.all(kkt < CONVERGE_TOL)),
-                              "solve_sec": history.running_time}
+                              "solve_sec": history.running_time, "graph_stats": graph_stats}
         result["converge"] = converge
 
     reference = json.loads(REFERENCE_FILE.read_text()) if REFERENCE_FILE.exists() else None

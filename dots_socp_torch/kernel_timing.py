@@ -3,7 +3,9 @@ what `chip_smoke.py` and `bench_kernels.py` share.
 
   device_ms       -- device time per call, from torch.profiler's kernel durations
   median_call_ms  -- latency of one call, host launch overhead included
+  launch_times_us -- device time of each launch of a kernel within one call
   window_bound    -- the least time the card could take for one window matvec
+  cg_step_bound   -- the same for one fused CG iteration (K4, B1's matvec aside or in)
   library_ms      -- device time of torch.sparse.mm on the same operator and x
   operator_csr, ell_laplacian, shard_inputs -- the inputs of those
 """
@@ -78,7 +80,7 @@ def device_ms(fn, reps=REPS, tries=3):
             if e.device_type == DeviceType.CUDA:
                 total_us[e.name] = total_us.get(e.name, 0.0) + e.time_range.elapsed_us()
                 seen[e.name] = seen.get(e.name, 0) + 1
-        events = {"calls": calls, "sessions": session, "seen": {k[:60]: n for k, n in seen.items()},
+        events = {"calls": calls, "sessions": session, "seen": {k[:80]: n for k, n in seen.items()},
                   "timed_by": "torch.profiler"}
         per_call = {name: max(round(n / calls), 1) for name, n in seen.items()}
         if seen and all(k * reps <= seen[name] <= k * calls + 2 for name, k in per_call.items()):
@@ -97,6 +99,32 @@ def device_ms(fn, reps=REPS, tries=3):
     recorded = sum(total_us.values())
     events["timed_by"] = "cuda events"
     return ms, {name: ms * t / recorded for name, t in total_us.items()}, events
+
+
+def launch_times_us(fn, kernel_name, launches, reps=REPS, tries=3):
+    """Device µs of each of the `launches` launches of `kernel_name` that
+    one call of `fn` makes, in launch order (e.g. a kernel's stages), the
+    mean over `reps` profiled calls; None (not measured) when none of
+    `tries` profiler sessions recorded every launch (the profiler loses
+    events now and then late in a long process, and a lost one would
+    shift every later launch to another stage)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA and kernel_name in e.name),
+                        key=lambda e: e.time_range.start)
+        if len(events) == reps * launches:
+            return [sum(e.time_range.elapsed_us() for e in events[i::launches]) / reps
+                    for i in range(launches)]
+    return None
 
 
 def operator_csr(op, n_rows, n_cols):
@@ -125,6 +153,26 @@ def window_bound(op, n_rows, lanes, in_floats, once_bytes=0):
     n_tiles = -(-n_rows // op.tile_rows)
     n_bytes = (in_floats + n_rows) * lanes * 4 + nnz * 8 + n_tiles * 4 + once_bytes
     flops = 2 * nnz * lanes
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bytes": int(n_bytes), "flops": int(flops), "ms": max(t_bytes, t_flops) * 1e3,
+            "by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def cg_step_bound(rows, n, k, window=None):
+    """The least time the card could take for one `ops.cg_step` call, each
+    input and output moved once: it reads lap, x, r, p and the Jacobi rows
+    (rows x n floats each), the Ritz vectors once (n x k; `defl_qt` is a
+    copy) and three vertex vectors, and writes x, r and p; against the two
+    deflation products' 4 rows n k flops and ~20 per state element. With
+    `window` (B1's operator), the whole inner iteration: B1's bytes and
+    flops are added, and lap (which B1 writes and K4 reads) and K4's second
+    read of p drop out. Returns {"bytes", "flops", "ms", "by"}."""
+    n_bytes = (8 * rows * n + n * k + 3 * n + 8 * rows) * 4
+    flops = 4 * rows * n * k + 20 * rows * n
+    if window is not None:
+        b1 = window_bound(window, n, rows, n)
+        n_bytes += b1["bytes"] - 3 * rows * n * 4
+        flops += b1["flops"]
     t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return {"bytes": int(n_bytes), "flops": int(flops), "ms": max(t_bytes, t_flops) * 1e3,
             "by": "bytes" if t_bytes >= t_flops else "operations"}

@@ -1,12 +1,15 @@
-"""Build and load the port's CUDA kernels, B1 and B2 (nvcc into a plain-C
-shared library, bound with ctypes).
+"""Build and load the port's CUDA kernels, B1 and B2 (`csrc/window_spmv.cu`)
+and K4 (`csrc/cg_step.cu`): nvcc into one plain-C shared library, bound
+with ctypes.
 
-At first use, the sources under `csrc/` compile with
+At first use, every source under `csrc/` compiles at the same time, one
+nvcc each, with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c
 
-into `libdots_torch_kernels_<sha of sources and flags>.so` under
+and the objects link (`nvcc -shared`) into
+`libdots_torch_kernels_<sha of sources and flags>.so` under
 `$DOTS_SOCP_CACHE_DIR/kernels/` when that variable is set (the root the
 factor caches use, `ops/laplacian.py::_ritz_cache_dir`), else under
 `build/kernels/` at the repository root (`.gitignore` lists `build/`); the
@@ -28,10 +31,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("window_spmv.cu",)
+SOURCES = ("window_spmv.cu", "cg_step.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills, kept in the log
 )
 
@@ -72,26 +75,35 @@ def build() -> tuple[Path, float]:
     """Compile the kernels unless a library of the same sources exists.
 
     Returns (library path, seconds spent compiling; 0.0 when reused). The
-    compiler's output (with -Xptxas -v) goes to the same path + ".log".
+    compilers' output (with -Xptxas -v) goes to the same path + ".log".
     """
     out = library_path()
     if out.exists():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(CSRC / name) for name in SOURCES]
+    nvcc = nvcc_path()
+    objects = [tmp.with_name(f"{tmp.name}.{Path(name).stem}.o") for name in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+                for name, obj in zip(SOURCES, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    steps = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(compiles, procs)]
+    if all(rc == 0 for _, _, rc in steps):
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        steps.append((link, proc.stdout, proc.returncode))
     seconds = time.perf_counter() - t0
+    for obj in objects:
+        obj.unlink(missing_ok=True)
     out.with_name(out.name + ".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+        "".join(" ".join(cmd) + "\n" + text for cmd, text, _ in steps))
+    failed = [(cmd, text, rc) for cmd, text, rc in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+        cmd, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{text[-4000:]}")
     os.replace(tmp, out)
     return out, seconds
 
@@ -114,6 +126,9 @@ def load() -> ctypes.CDLL:
         fn.restype = i
         fn = lib.dots_sharded_window_spmv_f32  # B2: 7 arrays, 9 sizes, the stream
         fn.argtypes = [p] * 7 + [i] * 9 + [p]
+        fn.restype = i
+        fn = lib.dots_cg_step_f32  # K4: the stage, 22 arrays, the geometry, 3 sizes, the stream
+        fn.argtypes = [i] + [p] * 22 + [ctypes.POINTER(i)] + [i] * 3 + [p]
         fn.restype = i
         _lib = lib
     return _lib

@@ -17,7 +17,9 @@ values into the buffers in place:
   kernel's shared-memory grant) and drops that result, captures the
   segment into a CUDA graph in the workspace's private memory pool, and
   replays it; later runs replay. A capture that fails raises, and the
-  buffers are left as they were: nothing falls back to eager.
+  buffers are left as they were: nothing falls back to eager. A segment
+  that updates buffers in place (named in `Workspace(..., in_place=...)`:
+  kernel K4's CG blocks) warms up on copies of the buffers.
 * On the CPU it runs the segment eagerly and copies into the same
   buffers, so the CPU tests go through the same plumbing, aliasing
   included.
@@ -32,6 +34,10 @@ The host counters that a segment ticks where it launches a kernel
 once while it is captured, where nothing is launched; the capture's ticks
 are taken back and added again at every replay, so each counts the
 launches that ran.
+
+`STATS` counts, in this process, the captures and the host seconds they
+took (warm-up, capture and instantiation) and the misses of `cached`:
+what a solve spends on its graphs besides replaying them.
 
 Between replays the host reads what it must decide on with `read`: a copy
 into pinned host memory and one event synchronisation, counted in
@@ -51,6 +57,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import time
 
 import torch
 
@@ -66,6 +74,25 @@ _STAGING: dict = {}  # (device, shape, dtype) -> (pinned host tensor, event) of 
 
 #: Host reads of device values through `read` in this process.
 HOST_READS = 0
+
+
+@dataclasses.dataclass
+class GraphStats:
+    """Graph work in this process besides the replays."""
+
+    captures: int = 0  # segments captured (`Workspace._capture`)
+    capture_seconds: float = 0.0  # host seconds in those captures
+    cache_misses: int = 0  # objects `cached` had to make
+
+    def snapshot(self) -> dict:
+        return dict(vars(self))
+
+    def since(self, before: dict) -> dict:
+        """What was counted after `before` (a `snapshot`)."""
+        return {k: v - before[k] for k, v in vars(self).items()}
+
+
+STATS = GraphStats()
 
 
 def register_counter(read, write):
@@ -163,6 +190,7 @@ def cached(key, make, keep=()):
     if hit is not None:
         _CACHE.move_to_end(full)
         return hit[0]
+    STATS.cache_misses += 1
     obj = make()
     _CACHE[full] = (obj, keep)
     while len(_CACHE) > MAX_CACHED:
@@ -178,8 +206,9 @@ def release():
 class Workspace:
     """Static buffers on one device and the segments captured over them."""
 
-    def __init__(self, device):
+    def __init__(self, device, in_place=()):
         self.device = torch.device(device)
+        self.in_place = frozenset(in_place)  # segments that also update buffers in place
         self.bufs: dict = {}
         self._graphs: dict = {}
         self._pool = None
@@ -197,7 +226,8 @@ class Workspace:
             buf.copy_(value)
 
     def run(self, name, fn):
-        """Write `fn(self.bufs)`'s values into the buffers."""
+        """Write `fn(self.bufs)`'s values into the buffers (a segment of
+        `in_place` may also update them in place and return them)."""
         if not _ENABLED:
             self.bufs.update(fn(self.bufs))
             return
@@ -232,11 +262,15 @@ class Workspace:
                 buf.copy_(value)
 
     def _capture(self, name, fn):
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            shapes = {k: (v.shape, v.dtype) for k, v in fn(self.bufs).items()}
+            warm = ({k: v.clone() for k, v in self.bufs.items()} if name in self.in_place
+                    else self.bufs)
+            shapes = {k: (v.shape, v.dtype) for k, v in fn(warm).items()}
+            del warm
         current.wait_stream(side)
         for key, (shape, dtype) in shapes.items():
             if key not in self.bufs:
@@ -252,6 +286,8 @@ class Workspace:
         finally:
             _set_counters(before)  # the capture launched nothing
         self._graphs[name] = (graph, ticks)
+        STATS.captures += 1
+        STATS.capture_seconds += time.perf_counter() - t0
         return graph, ticks
 
 

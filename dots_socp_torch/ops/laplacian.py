@@ -15,7 +15,8 @@ into T+1 shifted spatial solves, done one of two ways:
   space-sharded problem it is the per-shard window SpMV of
   `ops.sharded_window` (kernel B2), or the halo incidence form; every dot
   product and deflation product then sums over the shards
-  (`ops.collectives`).
+  (`ops.collectives`). On one card in float32 with the window SpMV, the
+  rest of each inner iteration is kernel K4 (`ops.cg_step`).
 
 The host-side builders are numpy/scipy copies of the reference's.
 """
@@ -30,6 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from dots_socp_torch.ops import cg_step as fused
 from dots_socp_torch.ops import graphs
 from dots_socp_torch.ops.collectives import object_from_rank0, space_any, space_sum
 from dots_socp_torch.ops.mesh_ops import SurfaceOps, laplacian_apply
@@ -289,14 +291,17 @@ class CGCounters:
     refined_solves: int = 0  # solves that ran f64 iterative refinement
     iterations: int = 0  # inner CG iterations, every pass included
     window_matvecs: int = 0  # matvecs through the window SpMV (B1 or B2)
+    fused_steps: int = 0  # inner iterations through `ops.cg_step` (no-ops included)
 
     def reset(self):
-        self.solves = self.refined_solves = self.iterations = self.window_matvecs = 0
+        self.solves = self.refined_solves = self.iterations = 0
+        self.window_matvecs = self.fused_steps = 0
 
 
 CG_COUNTERS = CGCounters()
-graphs.register_counter(lambda: CG_COUNTERS.window_matvecs,
-                        lambda n: setattr(CG_COUNTERS, "window_matvecs", n))
+for _name in ("window_matvecs", "fused_steps"):
+    graphs.register_counter(lambda name=_name: getattr(CG_COUNTERS, name),
+                            lambda n, name=_name: setattr(CG_COUNTERS, name, n))
 
 
 def _ritz_cache_dir() -> str:
@@ -582,7 +587,8 @@ def ell_matvec(op: CGOperator, x, weights=None):
 #: Inner CG iterations per block on one device. The host reads the latched
 #: flag once per block; on the card a block is one CUDA graph replay. A
 #: block that outruns the convergence runs up to CG_BLOCK - 1 iterations as
-#: exact no-ops (their matvecs and updates still run, masked). 8 is the
+#: exact no-ops: their matvecs and deflation GEMMs still run, and their
+#: updates too on the torch route, masked (K4's launches return at once). 8 is the
 #: smallest block that keeps plane n200's host reads per iteration under a
 #: quarter of a per-iteration flag's on an H100 (`profile_slice
 #: --cg_blocks`: 4, 8, 12, 16 gave 11.0, 7.7, 6.6, 5.9 reads against 34.2;
@@ -627,6 +633,11 @@ def cg_solve(
     the f64 check after it (1-2 passes after a warm start); the first
     pass's check rides with its first block's flags (`_BlockedCG`).
 
+    On one card, with the window SpMV in float32, each inner iteration after
+    its matvec is kernel K4 (`ops.cg_step`, six launches and the two
+    deflation GEMMs) in both loops, graphed and eager; elsewhere, and inside
+    `cg_step.torch_route()`, it is `_CGSystem.gated_step`'s torch ops.
+
     On a mesh (`mesh` given; on one shard of a space-sharded problem with
     `halo`, the arrays the shard's), and inside `graphs.eager()`: the
     loops read one flag on the host per iteration, on a mesh the same on
@@ -651,7 +662,7 @@ def cg_solve(
         block = CG_BLOCK
         keep = graphs.leaves(ops, op._replace(rtol=None))
         key = ("cg", rhs.shape, rhs.dtype, rhs.device,
-               None if x0 is None else x0.dtype, int(max_iters), block)
+               None if x0 is None else x0.dtype, int(max_iters), block, fused.enabled())
         solver = graphs.cached(
             key, lambda: _BlockedCG(ops, op, rhs, x0 is not None, int(max_iters), block), keep)
         x, iters = solver.solve(rhs, x0, rtol)
@@ -712,6 +723,13 @@ class _CGSystem:
         else:
             self.real_w = self.real.to(work)
         self.n_real_w = self.n_real.to(work)
+        self.leaves = fused.CGStepLeaves(
+            shifts=self.shifts_w, av=self.av_vec, jacobi=self.jacobi, s=self.s_vec,
+            real=self.real_w, null=self.null_w, n_real=self.n_real_w, defl_q=self.defl_q,
+            defl_qt=self.defl_qt, defl_winv=self.defl_winv_w)
+        self.fused = _fused_route(self, op.s.device)
+        if self.fused:
+            fused.prepare(op.s.device)
 
     def row_sums(self, v):
         """(T+1, V) -> (T+1, 1) sums over every vertex of every shard."""
@@ -726,18 +744,20 @@ class _CGSystem:
         v = v - nr * mean
         return torch.where(nr > 0, v * rm[None, :], v)
 
-    def matvec(self, x):
+    def lap(self, x):
+        """L_space @ x in the work dtype and the CG's vertex order."""
         if self.use_window:
-            lap = window_matvec(self.wop, x)
             CG_COUNTERS.window_matvecs += 1
-        elif self.use_swindow:
-            lap = sharded_window_matvec(self.swop, self.mesh, x)
+            return window_matvec(self.wop, x)
+        if self.use_swindow:
             CG_COUNTERS.window_matvecs += 1
-        elif self.sharded:
-            lap = laplacian_apply(self.ops, x, self.halo, self.mesh)
-        else:
-            lap = ell_matvec(self.op, x, weights=self.ell_w_work)
-        return -(lap + self.shifts_w[:, None] * self.av_vec[None, :] * x)
+            return sharded_window_matvec(self.swop, self.mesh, x)
+        if self.sharded:
+            return laplacian_apply(self.ops, x, self.halo, self.mesh)
+        return ell_matvec(self.op, x, weights=self.ell_w_work)
+
+    def matvec(self, x):
+        return -(self.lap(x) + self.shifts_w[:, None] * self.av_vec[None, :] * x)
 
     def matvec_hi(self, x):
         op = self.op
@@ -815,6 +835,33 @@ class _CGSystem:
         rz = torch.where(step, rz_new, rz)
         return x, r, p, rz, rr
 
+    def gated_step(self, x, r, p, rz, rr, it, live, thresh, max_iters):
+        """One latched iteration on the torch route: `pcg_step` on the
+        active rows while `live` holds, an exact no-op after; then
+        it += live and live &= (it < max_iters) & any(rr > thresh). Returns
+        the new (x, r, p, rz, rr, it, live)."""
+        xn, rn, p, rz, rrn = self.pcg_step(x, r, p, rz, rr, (rr > thresh) & live)
+        x = torch.where(live, xn, x)
+        r = torch.where(live, rn, r)
+        rr = torch.where(live, rrn, rr)
+        it = it + live
+        live = live & (it < max_iters) & (rr > thresh).any()
+        return x, r, p, rz, rr, it, live
+
+    def fused_step(self, x, r, p, rz, rr, it, live, thresh, max_iters):
+        """`gated_step` through kernel K4, in place: B1, then `ops.cg_step`
+        (on CPU tensors its plain version). Returns the same tensors."""
+        CG_COUNTERS.fused_steps += 1
+        return fused.cg_step(self.lap(p), x, r, p, rz, rr, it, live, thresh, max_iters,
+                             self.leaves)
+
+
+def _fused_route(cg, device) -> bool:
+    """Whether `cg`'s inner iterations go through kernel K4: on one card,
+    no mesh, in float32 with the window SpMV, outside `torch_route()`."""
+    return (device.type == "cuda" and cg.mesh is None and not cg.sharded and cg.use_window
+            and cg.work == torch.float32 and fused.enabled())
+
 
 def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
     """`cg_solve` with its loops on the host: one flag read per inner
@@ -824,12 +871,18 @@ def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
 
     def pcg_core(b, x, thresh):
         x, r, p, rz, rr = cg.pcg_start(b, x)
+        if cg.fused:  # the kernel's latch: live whenever the host steps
+            it_d = torch.zeros((), dtype=torch.int64, device=b.device)
+            live = torch.ones((), dtype=torch.bool, device=b.device)
         it = 0
         while it < max_iters:
             active = rr > thresh
             if not space_any(active, mesh):
                 break
-            x, r, p, rz, rr = cg.pcg_step(x, r, p, rz, rr, active)
+            if cg.fused:
+                cg.fused_step(x, r, p, rz, rr, it_d, live, thresh, max_iters)
+            else:
+                x, r, p, rz, rr = cg.pcg_step(x, r, p, rz, rr, active)
             it += 1
         CG_COUNTERS.iterations += it
         return cg.unpermute(x), it
@@ -893,7 +946,8 @@ class _BlockedCG:
         self.cg = _CGSystem(ops, op, rhs.dtype)
         self.op, self.has_x0 = op, has_x0
         self.max_iters, self.block = max_iters, block
-        self.ws = graphs.Workspace(rhs.device)
+        # K4 updates the state's buffers in place (the capture's warm-up runs on copies).
+        self.ws = graphs.Workspace(rhs.device, in_place={"block"} if self.cg.fused else ())
 
     def solve(self, rhs, x0, rtol):
         """(x, inner iterations); x is the workspace's `out` buffer."""
@@ -981,18 +1035,14 @@ class _BlockedCG:
         return self._pcg_state(r_w, torch.zeros_like(r_w), thresh, gate)
 
     def _block(self, bufs):
+        names = ("x", "r", "p", "rz", "rr", "it", "live")
         cg = self.cg
-        x, r, p, rz, rr = (bufs[k] for k in ("x", "r", "p", "rz", "rr"))
-        it, live, thresh = bufs["it"], bufs["live"], bufs["thresh"]
+        state, step = tuple(bufs[k] for k in names), cg.fused_step if cg.fused else cg.gated_step
         for _ in range(self.block):
-            xn, rn, p, rz, rrn = cg.pcg_step(x, r, p, rz, rr, (rr > thresh) & live)
-            x = torch.where(live, xn, x)
-            r = torch.where(live, rn, r)
-            rr = torch.where(live, rrn, rr)
-            it = it + live
-            live = live & (it < self.max_iters) & (rr > thresh).any()
-        return dict(x=x, r=r, p=p, rz=rz, rr=rr, it=it, live=live,
-                    flags=torch.stack([live.long(), it, bufs["gate"].long()]))
+            state = step(*state, bufs["thresh"], self.max_iters)
+        out = dict(zip(names, state))  # K4's are the buffers themselves
+        out["flags"] = torch.stack([out["live"].long(), out["it"], bufs["gate"].long()])
+        return out
 
     def _finish(self, bufs):
         cg = self.cg

@@ -54,6 +54,43 @@ def plane_problem(n_space, n_time, dtype, device, mesh=None, **build_kw):
     return config, data, state
 
 
+def settled_cg_state(n_space, n_time, device, settle=20, inner=10, rtol=1e-12, **build_kw):
+    """(cg, state): plane `n_space`'s single-device CG system (float32,
+    `ops.laplacian._CGSystem`) and an inner PCG state as a settled phi
+    solve has it: `settle` iALM iterations, then the phi solve's first
+    inner system (the refinement's first correction, when the problem
+    refines; else the solve itself, warm-started at phi) and `inner`
+    iterations of it on the torch route. `state` holds x, r, p, rz, rr,
+    it, live (the latch) and thresh, in the CG's vertex order; `rtol` sets
+    thresh (the default leaves every row active); `build_kw` go to
+    `build_problem` (e.g. pad_multiple)."""
+    from dots_socp_torch.ops.laplacian import _CGSystem
+    from dots_socp_torch.solver.step import laplacian_rhs, run_chunk
+
+    config, data, state = plane_problem(n_space, n_time, "float32", device, laplacian_mode="cg",
+                                        **build_kw)
+    state = run_chunk(config, data, state, settle)
+    rhs = laplacian_rhs(config, data, state)
+    op = data.cg_op
+    cg = _CGSystem(data.ops, op, rhs.dtype)
+    if cg.use_refine:
+        ut, f64 = op.u_time_hi, torch.float64
+        b64 = cg.deflate(-(ut.T @ rhs.to(f64)))
+        b = cg.deflate(b64 - cg.matvec_hi(cg.deflate(ut.T @ state.phi.to(f64)))).to(cg.work)
+        x = torch.zeros_like(b)
+    else:
+        b = cg.deflate(-(op.u_time.T @ rhs))
+        x = op.u_time.T @ state.phi.to(b.dtype)
+    thresh = cg.row_thresh(b, torch.tensor(rtol, dtype=b.dtype, device=b.device))
+    x, r, p, rz, rr = cg.pcg_start(b, x)
+    it = torch.zeros((), dtype=torch.int64, device=b.device)
+    live = torch.ones((), dtype=torch.bool, device=b.device)
+    out = (x, r, p, rz, rr, it, live)
+    for _ in range(inner):
+        out = cg.gated_step(*out, thresh, 2**31 - 1)
+    return cg, dict(zip(("x", "r", "p", "rz", "rr", "it", "live"), out), thresh=thresh)
+
+
 def on_card(device) -> bool:
     return resolve_device(device).type == "cuda"
 

@@ -9,6 +9,8 @@ only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -582,3 +584,206 @@ def test_validate_segment_launches_the_same_kernels_as_its_replay():
     assert eager_names and replay_names == eager_names
     assert replay_flags == eager_flags
     graphs.release()
+
+
+# ---- kernel K4: the fused inner CG iteration (ops/cg_step.py) ---------------
+
+CG_STEP_NAMES = ("x", "r", "p", "rz", "rr", "it", "live")
+
+
+def _cg_step_system(n, deflation_k, T=7):
+    """Plane n's refined window CG system on the card (deflation rank
+    `deflation_k`, 0 for none) and an inner PCG state from a seeded
+    right-hand side, 3 torch-route iterations in, with row 1 frozen (its
+    threshold above its residual) and row 2 at p = 0 (den = 0); the null
+    row is the last."""
+    vertices, triangles, av, lap = _plane(n)
+    ops = t_mesh.build_surface_ops(vertices, triangles, dtype=torch.float64, device="cuda")
+    op = tl.build_cg_operator(T, 1.0 / T, av, lap, dtype=torch.float64, deflation_k=deflation_k,
+                              refine=True, coords=vertices, device="cuda")
+    cg = tl._CGSystem(ops, op, torch.float64)
+    assert cg.fused and cg.use_window and (cg.leaves.defl_q.shape[1] > 0) == (deflation_k > 0)
+    rhs = torch.from_numpy(np.random.default_rng(n).standard_normal((T + 1, av.shape[0])))
+    b = cg.deflate(rhs.cuda().to(torch.float32))
+    x, r, z, rz, rr = cg.pcg_start(b, torch.zeros_like(b))
+    thresh = cg.row_thresh(b, torch.tensor(1e-12, device="cuda"))
+    state = (x, r, z, rz, rr, torch.zeros((), dtype=torch.int64, device="cuda"),
+             torch.ones((), dtype=torch.bool, device="cuda"))
+    for _ in range(3):
+        state = cg.gated_step(*state, thresh, 600)
+    state = dict(zip(CG_STEP_NAMES, (t.clone() for t in state)))
+    thresh = thresh.clone()
+    thresh[1] = 2 * state["rr"][1]
+    state["p"][2] = 0.0
+    return cg, state, thresh
+
+
+@pytest.mark.parametrize("n", [7, 24])
+@pytest.mark.parametrize("deflation_k", [16, 0], ids=["deflated", "jacobi_only"])
+def test_cg_step_kernel_matches_plain(n, deflation_k):
+    """K4 against its plain version on the same inputs: every output within
+    1e-5 max|.| (float32 row sums in another order), the step mask, it and
+    live equal; the frozen and den = 0 rows hold still; STAGES counted
+    launches per call; with live false every output keeps its bits; two
+    launches on the same inputs are bit-equal."""
+    _need_cuda()
+    from dots_socp_torch.ops import cg_step as k4
+
+    cg, st, thresh = _cg_step_system(n, deflation_k)
+    lap = tw.window_matvec(cg.wop, st["p"])
+
+    def run(fn, **kw):
+        ins = tuple(st[k].clone() for k in CG_STEP_NAMES)
+        fn(lap, *ins, thresh, 600, cg.leaves, **kw)
+        return ins
+
+    before = k4.KERNEL_LAUNCHES
+    trace_k, trace_p = {}, {}
+    out_k = run(k4.cg_step, trace=trace_k)
+    out_p = run(k4.cg_step_plain, trace=trace_p)
+    torch.cuda.synchronize()
+    assert k4.KERNEL_LAUNCHES == before + k4.STAGES
+    for name, a, b in zip(CG_STEP_NAMES, out_k, out_p):
+        if a.is_floating_point():
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+        else:
+            assert torch.equal(a, b), name
+    assert torch.equal(trace_k["step"], trace_p["step"])
+    assert trace_k["step"].flatten().tolist()[1:3] == [False, False]
+    for row in (1, 2):
+        assert torch.equal(out_k[0][row], st["x"][row]) and torch.equal(out_k[2][row], st["p"][row])
+    assert all(torch.equal(a, b) for a, b in zip(out_k, run(k4.cg_step)))
+    idle = tuple(st[k].clone() for k in CG_STEP_NAMES)
+    idle[6].fill_(False)
+    kept = [t.clone() for t in idle]
+    k4.cg_step(lap, *idle, thresh, 600, cg.leaves)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(idle, kept))
+
+
+def test_cg_step_kernel_rejects_what_it_cannot_read():
+    """Float64, a non-contiguous state and a state on another device raise
+    before any launch."""
+    _need_cuda()
+    from dots_socp_torch.ops import cg_step as k4
+
+    cg, st, thresh = _cg_step_system(7, 16)
+    ins = tuple(st[k] for k in CG_STEP_NAMES)
+    lap = tw.window_matvec(cg.wop, st["p"])
+    before = k4.KERNEL_LAUNCHES
+    with pytest.raises(TypeError):
+        k4.cg_step(lap.double(), *ins, thresh, 600, cg.leaves)
+    with pytest.raises(ValueError):
+        k4.cg_step(lap, ins[0].t().contiguous().t(), *ins[1:], thresh, 600, cg.leaves)
+    with pytest.raises(ValueError):
+        k4.cg_step(lap, *ins[:5], ins[5].cpu(), ins[6], thresh, 600, cg.leaves)
+    assert k4.KERNEL_LAUNCHES == before
+
+
+def test_graphed_cg_with_k4_counts_each_replay():
+    """cg_solve on K4's route with its segments captured: x and the inner
+    count equal the eager host loop's (K4 too) bit for bit and the op-by-op
+    blocks' (`graphs.uncaptured()`); K4's launches counted through the
+    replays equal the op-by-op blocks' and STAGES per fused inner
+    iteration; inside `cg_step.torch_route()` nothing launches K4 and x
+    agrees to the solve's tolerance."""
+    _need_cuda()
+    from dots_socp_torch.ops import cg_step as k4
+    from dots_socp_torch.ops import graphs
+
+    vertices, triangles, av, lap = _plane(24)
+    T = 7
+    ops = t_mesh.build_surface_ops(vertices, triangles, dtype=torch.float64, device="cuda")
+    op = tl.build_cg_operator(T, 1.0 / T, av, lap, dtype=torch.float64, deflation_k=16,
+                              refine=True, coords=vertices, device="cuda")
+    rhs = np.random.default_rng(9).standard_normal((T + 1, av.shape[0]))
+    rhs = torch.from_numpy(rhs - rhs.mean()).cuda()
+    kw = dict(max_iters=600, rtol=1e-8, return_iters=True)
+
+    def counted(fn):
+        launches, steps = k4.KERNEL_LAUNCHES, tl.CG_COUNTERS.fused_steps
+        x, iters = fn()
+        torch.cuda.synchronize()
+        return x, iters, k4.KERNEL_LAUNCHES - launches, tl.CG_COUNTERS.fused_steps - steps
+
+    with graphs.eager():
+        x_e, it_e, launches_e, steps_e = counted(lambda: tl.cg_solve(ops, op, rhs, **kw))
+    with graphs.uncaptured():
+        x_u, it_u, launches_u, steps_u = counted(lambda: tl.cg_solve(ops, op, rhs, **kw))
+    tl.cg_solve(ops, op, rhs, **kw)  # warm-up and capture
+    x_g, it_g, launches_g, steps_g = counted(lambda: tl.cg_solve(ops, op, rhs, **kw))
+    with k4.torch_route():
+        x_t, it_t, launches_t, _ = counted(lambda: tl.cg_solve(ops, op, rhs, **kw))
+    assert it_g == it_u == it_e > 0 and it_t > 0
+    assert torch.equal(x_g, x_e) and torch.equal(x_u, x_e)
+    assert float((x_t - x_e).abs().max()) <= 1e-6 * float(x_e.abs().max())
+    assert launches_g == launches_u == k4.STAGES * steps_g and steps_g == steps_u
+    assert launches_e == k4.STAGES * steps_e == k4.STAGES * it_e and launches_t == 0
+    graphs.release()
+
+
+def test_graphed_n200_solve_with_k4_equals_eager():
+    """Plane n200 (float32, ntime 31, the CG path with refinement), 30
+    iterations with CUDA graphs and inside `graphs.eager()`, K4 in both:
+    phi bit for bit, K4 launched in both."""
+    _need_cuda()
+    from dots_socp_torch.cli import load_geometry
+    from dots_socp_torch.ops import cg_step as k4
+    from dots_socp_torch.ops import graphs
+    from dots_socp_torch.solver import solver_socp
+
+    geometry = load_geometry("plane", 200)
+    phis, launches = [], []
+    for ctx in (graphs.eager, contextlib.nullcontext):
+        before = k4.KERNEL_LAUNCHES
+        with ctx():
+            solution, _ = solver_socp(31, geometry, nit=30, tol=1e-12, precision="float32",
+                                      device="cuda", time_limit=600)
+        torch.cuda.synchronize()
+        launches.append(k4.KERNEL_LAUNCHES - before)
+        phis.append(solution["phi"])
+    np.testing.assert_array_equal(phis[0], phis[1])
+    assert min(launches) > 0
+
+
+@pytest.mark.parametrize("rows, n", [(32, 46_431), (128, 46_431), (32, 194_814), (8, 700),
+                                     (8, 64)])
+def test_cg_step_row_sums_are_pytorchs(rows, n):
+    """K4 sums each row as PyTorch's reduce kernel does (its geometry, its
+    order): on random states of these shapes (one block per row, rows split
+    over 17 blocks, a warp per row, no 4-wide loads) den, rr, rz and the
+    null row's mean equal torch's `.sum(dim=1)` of the same products bit
+    for bit, and so do x, r, p."""
+    _need_cuda()
+    from dots_socp_torch.ops import cg_step as k4
+
+    gen = torch.Generator(device="cuda").manual_seed(rows + n)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    k = 16
+    q = rand(n, k)
+    real = torch.ones(n, device="cuda")
+    real[-3:] = 0.0
+    null = torch.zeros(rows, device="cuda")
+    null[-1] = 1.0
+    leaves = k4.CGStepLeaves(
+        shifts=-rand(rows).abs(), av=rand(n).abs() + 0.1, jacobi=rand(rows, n).abs(),
+        s=rand(n).abs() + 0.1, real=real, null=null, n_real=real.sum(), defl_q=q,
+        defl_qt=q.t().contiguous(), defl_winv=rand(rows, k))
+    state = (rand(rows, n), rand(rows, n), rand(rows, n), rand(rows, 1).abs(),
+             rand(rows, 1).abs() + 1.0, torch.zeros((), dtype=torch.int64, device="cuda"),
+             torch.ones((), dtype=torch.bool, device="cuda"))
+    thresh = torch.full((rows, 1), 1e-3, device="cuda")
+    lap = rand(rows, n)
+    trace_k, trace_p = {}, {}
+    out_k = tuple(t.clone() for t in state)
+    out_p = tuple(t.clone() for t in state)
+    k4.cg_step(lap, *out_k, thresh, 600, leaves, trace=trace_k)
+    k4.cg_step_plain(lap, *out_p, thresh, 600, leaves, trace=trace_p)
+    torch.cuda.synchronize()
+    for key in ("den", "rr", "rz", "alpha", "beta", "x", "r", "z"):
+        assert torch.equal(trace_k[key], trace_p[key]), key
+    assert torch.equal(trace_k["mean"][-1], trace_p["mean"][-1])
+    assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
