@@ -185,9 +185,14 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                same inputs bit-equal. Times per call (device, profiler): K4
                with the GEMMs between its launches, its plain version, the
                whole inner iteration (B1 + K4) live and as a no-op, and on
-               the torch route, beside the byte bound (`cg_step_bound`).
-               Then n200 to tol 1e-4 (fresh factors, as phase 18) on K4's
-               route and inside `cg_step.torch_route()`: both
+               the torch route, beside the byte bound (`cg_step_bound`);
+               K4's five launches one by one beside each one's bound, and
+               the walks' split plan (`cg_step.split_plan`). At
+               CG_STEP_SHAPES (128 modes, n290, n410) on seeded random
+               states (`scripts.k4_sweep`): the plan, every stage bit-equal
+               to the plain version, µs by stage. Then n200 to tol 1e-4
+               (fresh factors, as phase 18) on K4's route and inside
+               `cg_step.torch_route()`: both
                ADAPTIVE_ITERATIONS[200] iterations at the same validation
                points, final KKT within SLICE_KKT_RTOL, the transport cost
                within the records' rule (`scripts.records.COST_RTOL`,
@@ -253,6 +258,7 @@ from dots_socp_torch.scripts import (
     bench_large,
     common,
     bench_matvec,
+    k4_sweep,
     profile_large,
     records,
     refine_cost_bench,
@@ -318,6 +324,10 @@ ADAPTIVE_LAUNCH_CALLS = 3
 # frozen (its threshold above its residual) and one with p = 0 (den = 0, the
 # breakdown guard); the null row (shift 0) is the last, as built.
 CG_STEP_FROZEN_ROW, CG_STEP_BREAKDOWN_ROW = 5, 9
+# K4 on seeded random states at the main path's other shapes (phase 19):
+# plane n200 at 128 modes, n290 and n410 at 32.
+CG_STEP_SHAPES = ((128, 46_431), (32, 97_485), (32, 194_814))
+CG_STEP_SHAPE_REPS = 20
 # Kernel K4's launches on each path that drives the single-device CG, each
 # counted from 0 (`count_k4`).
 K4_PATHS = {}
@@ -1194,6 +1204,19 @@ def phase_cg_step(card):
     by_stage = launch_times_us(
         lambda: cg_step.cg_step(lap, *on_stages, thresh, max_iters, cg.leaves),
         "cg_step_", cg_step.STAGES)
+    by_stage = None if by_stage is None else dict(zip(cg_step.STAGE_NAMES, by_stage))
+    # The other shapes, on seeded random states: the plan the kernel takes,
+    # bit-equality to the plain version stage by stage, µs by stage.
+    shapes = {}
+    for shape in CG_STEP_SHAPES:
+        t_shape = time.perf_counter()
+        timed = k4_sweep.time_plan(k4_sweep.random_cg_state(*shape, "cuda"),
+                                   reps=CG_STEP_SHAPE_REPS, call=False)
+        shapes["x".join(map(str, shape))] = {
+            "plan": k4_sweep.default_plan(*shape), **timed,
+            "bound_us": cg_step_bound(*shape, k4_sweep.DEFLATION_K)["ms"] * 1e3,
+            "stage_bound_us": k4_sweep.stage_bounds_us(*shape),
+            "seconds": time.perf_counter() - t_shape}
     ms_torch, by_torch, _ = device_ms(lambda: cg.gated_step(*on_torch, thresh, max_iters), REPS)
     bound = cg_step_bound(rows, n, k)
     it_bound = cg_step_bound(rows, n, k, cg.wop)
@@ -1223,8 +1246,9 @@ def phase_cg_step(card):
     cost_ok = abs(cost_k - cost_t) <= records.COST_RTOL * abs(cost_t) + records.COST_ATOL
     phi_bits = bool(np.array_equal(runs["cg_step"][2], runs["torch"][2]))
     emit("cg_step", shape=[rows, n], deflation_rank=k, null_rows=null_rows.tolist(),
-         step=step, stage_rel_err=errors, stage_bit_equal=bit_equal, noop_bit_equal=noop_bits,
-         rerun_bit_equal=repeat_bits,
+         plan=k4_sweep.default_plan(rows, n), stage_bound_us=k4_sweep.stage_bounds_us(rows, n),
+         other_shapes=shapes, step=step, stage_rel_err=errors, stage_bit_equal=bit_equal,
+         noop_bit_equal=noop_bits, rerun_bit_equal=repeat_bits,
          device_us={"cg_step": ms_k * 1e3, "plain": ms_p * 1e3,
                     "by_kernel": {name[:80]: t * 1e3 for name, t in by_kernel.items()},
                     "k4_by_stage": by_stage,
@@ -1239,6 +1263,9 @@ def phase_cg_step(card):
          phase_seconds=time.perf_counter() - t0, card=card)
     if not all(e <= KERNEL_TOL for e in errors.values()):
         raise AssertionError(f"K4 disagrees with its plain version by stage: {errors}")
+    if not all(entry["bit_equal"] for entry in shapes.values()):
+        raise AssertionError("K4 is not bit-equal to its plain version at "
+                             f"{[key for key, entry in shapes.items() if not entry['bit_equal']]}")
     if step[CG_STEP_FROZEN_ROW] or step[CG_STEP_BREAKDOWN_ROW] or not any(step):
         raise AssertionError(f"the frozen and breakdown rows stepped, or none did: {step}")
     if not (noop_bits and repeat_bits):

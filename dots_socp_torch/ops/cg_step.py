@@ -5,9 +5,10 @@ The JAX package's inner CG iteration is the body of a `lax.while_loop`
 and row reductions around the Pallas SpMV. The port's torch route of the
 same iteration, `ops/laplacian.py::_CGSystem.gated_step`, launches some
 forty-five kernels; `cg_step` takes the whole iteration after the SpMV as
-six launches of two CUDA kernel bodies (`csrc/cg_step.cu`, which explains
+five launches of three CUDA kernel bodies (`csrc/cg_step.cu`, which explains
 its design) and the two deflation GEMMs between them. Its row sums are
-PyTorch's, in PyTorch's order, so it gives the torch route's bits.
+PyTorch's, in PyTorch's order, so it gives the torch route's bits; the
+walks that sum them are spread over the card by `split_plan`.
 
 `cg_step(lap, x, r, p, rz, rr, it, live, thresh, max_iters, leaves)` updates
 the CG state in place, given lap = L p (kernel B1) and the operator's
@@ -17,7 +18,8 @@ output keeps its bits. On a CPU tensor `cg_step` runs the plain version; on
 a CUDA tensor it launches the kernel, which takes contiguous float32 only,
 or raises. `KERNEL_LAUNCHES` counts the kernel's launches (STAGES per
 call); inside `torch_route()` the solver takes the torch route on the card
-too (for comparisons).
+too (for comparisons); inside `walk_plan(lanes, depth, cluster)` the walks
+take that split (for sweeps).
 """
 
 from __future__ import annotations
@@ -44,14 +46,27 @@ def _set_launches(n):
 # A launch recorded in a CUDA graph counts at every replay (`ops.graphs`).
 graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches)
 
-#: Launches of the kernel per call, one per stage (`csrc/cg_step.cu`).
-STAGES = 6
+#: The kernel's stages in launch order (`csrc/cg_step.cu`; stage 3 is the
+#: null rows' mean and deflation, stage 4 before), and their launches per call.
+STAGE_IDS = (1, 2, 3, 5, 6)
+STAGE_NAMES = ("den", "update", "null_rows", "precond", "direction")
+STAGES = len(STAGE_IDS)
 #: Row scalars the kernel keeps between launches: den, alpha, step, mean, beta.
 SCALARS = ("den", "alpha", "step", "mean", "beta")
 #: Threads of one block of PyTorch's reduce kernel for float, at most.
 REDUCE_THREADS = 512
+#: Threads of a walk block at most, by the depth of its loads (vectors of
+#: each input in flight per thread): the register file at 8 deep.
+WALK_THREADS = {4: 512, 8: 256}
+#: Blocks of a thread block cluster at most (above 8 non-portable: Hopper's 16).
+CLUSTER_BLOCKS = 16
+#: Lane rows of a null row's virtual blocks (ctas x bh) stage 3 can hold.
+NULL_ITEMS = 2048
+#: Counters `prepare` makes; a plan that needs more grows them outside a capture.
+COUNTERS = 1 + 2 * 65536
 
 _FUSED = True
+_PLAN: dict = {}  # the walks' split inside `walk_plan`
 _COUNTER: dict = {}  # device -> the kernel's handshake counters (uint32, 0 between launches)
 
 
@@ -96,15 +111,33 @@ def torch_route():
         _FUSED = before
 
 
-def prepare(device):
-    """Make the kernel's counters on `device` (outside any graph capture):
-    one for the last block of a launch and one per row of a row sum split
-    over blocks, 0 between launches."""
+@contextlib.contextmanager
+def walk_plan(lanes=None, depth=None, cluster=None):
+    """For its extent, split the walks with `lanes` lane rows per block,
+    load `depth` vectors deep and hand the lane rows over in a cluster or
+    not (`split_plan`'s overrides; None keeps its choice): the split sweep
+    (`scripts/k4_sweep.py`) and the card tests."""
+    before = dict(_PLAN)
+    _PLAN.update(lanes=lanes, depth=depth, cluster=cluster)
+    try:
+        yield
+    finally:
+        _PLAN.clear()
+        _PLAN.update(before)
+
+
+def prepare(device, counters=COUNTERS):
+    """Make the kernel's handshake counters on `device` (outside any graph
+    capture), at least `counters` of them, 0 between launches (see
+    `split_plan`)."""
     device = torch.device(device)
-    if device.type == "cuda" and device not in _COUNTER:
+    if device.type != "cuda":
+        return
+    have = _COUNTER.get(device)
+    if have is None or have.numel() < counters:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("cg_step: prepare the counters before a graph capture")
-        _COUNTER[device] = torch.zeros(1 + 65535, dtype=torch.int32, device=device)
+        _COUNTER[device] = torch.zeros(max(counters, COUNTERS), dtype=torch.int32, device=device)
 
 
 def _last_pow2(n):
@@ -146,6 +179,98 @@ def row_sum_config(rows, n, sms=132, threads_per_sm=2048):
         if ctas > 1:
             im[2], step_in = step_in, step_in * ctas
     return (bw, bh, int(vec), im[0], im[1], im[2], om1, step_in, step_out, ctas)
+
+
+class SplitPlan(NamedTuple):
+    """How the walks (stages 1 and 5) lay PyTorch's reduce geometry on the
+    card: each of `blocks` blocks of `threads` threads holds `lanes` lane
+    rows (of bw threads: a warp row when bw = 32) of one virtual block
+    (output group, cta), `parts` = bh / lanes blocks per virtual block,
+    adjacent (one thread block cluster when `cluster`); each thread loads
+    `depth` vectors of every input before it adds any. `virtual` = groups
+    x ctas virtual blocks; the kernel needs `counters` handshake counters
+    and `staging` floats of scratch."""
+
+    lanes: int
+    parts: int
+    depth: int
+    cluster: bool
+    groups: int
+    ctas: int
+    virtual: int
+    blocks: int
+    threads: int
+    counters: int
+    staging: int
+
+
+#: The default split, by whether the virtual blocks alone number at least
+#: half the SMs: (blocks per virtual block, load depth, cluster hand-over).
+#: Measured on an H100 (`scripts/k4_sweep.py`, PERF.md): where they do not
+#: (32 rows at plane n200 and n290: 32 virtual blocks) a cluster of 8
+#: blocks, 8 deep; where they do (128 rows; n410's rows split in 17: 544), 4
+#: blocks through device memory, 4 deep.
+SPLIT_SPREAD = (8, 8, True)
+SPLIT_FILLED = (4, 4, False)
+
+
+def split_plan(red, rows, sms=132, lanes=None, depth=None, cluster=None):
+    """The physical grid of the walks for `row_sum_config`'s geometry `red`
+    of a (rows, n) state on a card of `sms` SMs (see `SplitPlan`). The
+    lanes of a virtual block split into blocks of whole lane rows, so each
+    lane row's thread sums and block_x_reduce run as in PyTorch's block;
+    the virtual block's block 0 (with `cluster`, through distributed shared
+    memory; else the last block to arrive, through `staging`) sums the bh
+    lane rows' values in block_y_reduce's order
+    (`csrc/cg_step.cu::row_sums`), so the split changes no bit. By default
+    SPLIT_SPREAD or SPLIT_FILLED (4 deep where a lane row is too wide for
+    more). Layout, as the kernel computes it (`plan_layout`): virtual block
+    v = group * ctas + cta, its block `part` is v * parts + part and holds
+    lane rows part * lanes ...; lane row y's value of sum j goes to
+    staging[2 V + (j V + v) bh + y], virtual block v's value to
+    staging[j V + v]; counter 0 is stage 6's, 1 + group a split row's
+    global pass, 1 + groups + v virtual block v's lane rows."""
+    bw, bh, _, _, im1, *_, step_out, ctas = red
+    if im1 and ctas * bh > NULL_ITEMS:
+        raise ValueError(f"cg_step: rows of {ctas} x {bh} lane rows; stage 3 holds {NULL_ITEMS}")
+    groups = -(-rows // step_out)
+    virtual = groups * ctas
+    whole_warps = max(1, min(bh, 32 // bw))  # a block holds whole warps
+    parts, default_depth, default_cluster = SPLIT_FILLED if 2 * virtual >= sms else SPLIT_SPREAD
+    if depth is None:
+        depth = default_depth if bw * whole_warps <= WALK_THREADS[default_depth] else 4
+    if depth not in WALK_THREADS:
+        raise ValueError(f"split_plan: depth {depth}, not one of {sorted(WALK_THREADS)}")
+    if lanes is None:
+        lanes = _last_pow2(min(max(whole_warps, bh // parts), max(WALK_THREADS[depth] // bw, 1)))
+    if (lanes < whole_warps or lanes > bh or bh % lanes or lanes & (lanes - 1)
+            or lanes * bw > WALK_THREADS[depth]):
+        raise ValueError(f"split_plan: {lanes} lane rows of {bw} lanes per block do not split "
+                         f"{bh} lane rows into whole warps of at most {WALK_THREADS[depth]} "
+                         f"threads")
+    parts = bh // lanes
+    if cluster is None:
+        cluster = default_cluster
+    cluster = bool(cluster and im1 and parts > 1)  # lane rows to combine across blocks
+    if cluster and parts > CLUSTER_BLOCKS:
+        raise ValueError(f"split_plan: a cluster holds {CLUSTER_BLOCKS} blocks, not {parts}")
+    return SplitPlan(lanes=lanes, parts=parts, depth=depth, cluster=cluster, groups=groups,
+                     ctas=ctas, virtual=virtual, blocks=virtual * parts, threads=lanes * bw,
+                     counters=1 + groups + virtual, staging=2 * virtual * (1 + bh))
+
+
+def plan_layout(red, plan):
+    """{(group, cta, lane row): (block, staging slot of sum 0, counter)} as
+    the kernel lays them out (`split_plan`)."""
+    bh, ctas = red[1], red[9]
+    out = {}
+    for group in range(plan.groups):
+        for cta in range(ctas):
+            v = group * ctas + cta
+            for y in range(bh):
+                out[group, cta, y] = (v * plan.parts + y // plan.lanes,
+                                      2 * plan.virtual + v * bh + y, 1 + plan.groups + v)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -250,17 +375,31 @@ def _cg_step_cuda(lap, x, r, p, rz, rr, it, live, thresh, max_iters, leaves, tra
 
     if not torch.cuda.is_available():
         raise RuntimeError("cg_step: CUDA is not available")
-    rows, n, k = _check(lap, x, r, p, rz, rr, it, live, thresh, leaves)
+    rows, n, _ = _check(lap, x, r, p, rz, rr, it, live, thresh, leaves)
     device = x.device
-    prepare(device)
-    red = row_sum_config(rows, n, *_card(device))
-    red_c = (ctypes.c_int * len(red))(*red)
-    staging = torch.empty(2 * -(-rows // red[8]) * red[9], dtype=torch.float32, device=device)
-    scal = torch.empty(len(SCALARS) * rows, dtype=torch.float32, device=device)
+    sms, threads_per_sm = _card(device)
+    red = row_sum_config(rows, n, sms, threads_per_sm)
+    plan = split_plan(red, rows, sms, **_PLAN)
+    prepare(device, plan.counters)
+    with torch.cuda.device(device):  # the C side launches on the current device
+        return run_stages(_build.load(), torch.cuda.current_stream(device).cuda_stream,
+                          _COUNTER[device], red, plan, lap, x, r, p, rz, rr, it, live, thresh,
+                          max_iters, leaves, trace)
+
+
+def run_stages(lib, stream, counter, red, plan, lap, x, r, p, rz, rr, it, live, thresh,
+               max_iters, leaves, trace=None):
+    """One call's STAGES launches through `lib.dots_cg_step_f32` on
+    `stream`, with the two deflation GEMMs between stages 3 and 5: geometry
+    `red`, split `plan`, handshake `counter`s (0 between launches); scratch
+    from the state's allocator. A launch that returns an error raises."""
+    rows, n = x.shape
+    k = leaves.defl_q.shape[-1]
+    red_c = (ctypes.c_int * (len(red) + 3))(*red, plan.lanes, plan.depth, int(plan.cluster))
+    staging = torch.empty(plan.staging, dtype=torch.float32, device=x.device)
+    scal = torch.empty(len(SCALARS) * rows, dtype=torch.float32, device=x.device)
     sr, z = torch.empty_like(x), torch.empty_like(x)
     lv = leaves
-    lib = _build.load()
-    stream = torch.cuda.current_stream(device).cuda_stream
     max_iters = min(int(max_iters), 2**31 - 1)
 
     def launch(stage, g=None):
@@ -271,7 +410,7 @@ def _cg_step_cuda(lap, x, r, p, rz, rr, it, live, thresh, max_iters, leaves, tra
             lv.shifts.data_ptr(), lv.av.data_ptr(), lv.jacobi.data_ptr(), lv.s.data_ptr(),
             lv.real.data_ptr(), lv.null.data_ptr(), lv.n_real.data_ptr(),
             None if g is None else g.data_ptr(), sr.data_ptr(), z.data_ptr(),
-            staging.data_ptr(), scal.data_ptr(), _COUNTER[device].data_ptr(), red_c, rows, n,
+            staging.data_ptr(), scal.data_ptr(), counter.data_ptr(), red_c, rows, n,
             max_iters, stream)
         if err != 0:
             raise RuntimeError(f"cg_step kernel launch (stage {stage}) failed: CUDA error {err}")
@@ -280,16 +419,15 @@ def _cg_step_cuda(lap, x, r, p, rz, rr, it, live, thresh, max_iters, leaves, tra
             _trace(stage, trace, x, r, p, rz, rr, it, live, sr, z, scal, rows)
 
     g = None
-    with torch.cuda.device(device):  # the C side launches on the current device
-        for stage in (1, 2, 3, 4):
-            launch(stage)
-        if k > 0:
-            coef = sr @ lv.defl_q
-            g = (coef * lv.defl_winv) @ lv.defl_qt
-            if trace is not None:
-                trace.update(coef=coef.clone(), g=g.clone())
-        launch(5, g)
-        launch(6)
+    for stage in STAGE_IDS[:3]:
+        launch(stage)
+    if k > 0:
+        coef = sr @ lv.defl_q
+        g = (coef * lv.defl_winv) @ lv.defl_qt
+        if trace is not None:
+            trace.update(coef=coef.clone(), g=g.clone())
+    for stage in STAGE_IDS[3:]:
+        launch(stage, g)
     return x, r, p, rz, rr, it, live
 
 
@@ -301,9 +439,7 @@ def _trace(stage, trace, x, r, p, rz, rr, it, live, sr, z, scal, rows):
     elif stage == 2:
         trace.update(x=x.clone(), r1=r.clone())
     elif stage == 3:
-        trace.update(mean=s["mean"])
-    elif stage == 4:
-        trace.update(r=r.clone(), sr=sr.clone())
+        trace.update(mean=s["mean"], r=r.clone(), sr=sr.clone())
     elif stage == 5:
         trace.update(z=z.clone(), rr=rr.clone(), rz=rz.clone(), beta=s["beta"])
     else:

@@ -1,5 +1,6 @@
 // One inner iteration of the single-device CG phi-solve for Hopper (sm_90a):
-// kernel family K4, cg_step_walk_kernel and cg_step_wide_kernel.
+// kernel family K4, cg_step_walk_kernel, cg_step_wide_kernel and
+// cg_step_null_kernel.
 //
 // It replaces what XLA fuses around the Pallas SpMV in the JAX package's
 // inner CG loop: `body` of the lax.while_loop in
@@ -31,47 +32,74 @@
 // iteration must read lap, x, r, p and jacobi and write x, r and p once:
 // 8 (rows, n) float32 arrays, 47.5 MB at plane n200 (32 x 46,431), 14 us at
 // 3.35 TB/s, plus the Ritz vectors Q for the GEMMs. The torch route makes
-// ~30 array passes in ~45 kernels.
+// ~30 array passes in ~45 kernels. At n200 each launch is short (4-20 us),
+// so the chain of dependent memory round trips inside a launch (the latch,
+// the loads, a handshake, the row scalars) weighs as much as the bytes.
 //
 // Design:
 // * The chain waits on four row reductions (den, the null row's mean,
-//   rr / rz, and the latch's any()), so it runs as six launches of two
-//   bodies, `stage` picking the step. cg_step_walk_kernel sums rows:
-//   (1) den from p and lap; (3) the null row's mean; (5) z, rr and rz.
-//   cg_step_wide_kernel takes 1,024 elements of a row per block: (2) x and
-//   r - alpha ap, s * r for the GEMM, on the null row the mean's terms
-//   (r * real, kept where s * r goes); (4) the null row deflated and its
-//   s * r; -- the GEMMs --; (6) p, it, live. ap is recomputed in (2) from
-//   lap and p (the same arithmetic, the same bits) rather than written and
-//   read back.
+//   rr / rz, and the latch's any()), so it runs as five launches of three
+//   bodies. cg_step_walk_kernel sums rows: (1) den from p and lap; (5) z, rr
+//   and rz. cg_step_wide_kernel takes 1,024 elements of a row per block: (2)
+//   x and r - alpha ap, s * r for the GEMM, on the null row the mean's terms
+//   (r * real, kept in z until stage 5 writes it); (6) p, it, live. ap is recomputed in
+//   (2) from lap and p (the same arithmetic, the same bits) rather than
+//   written and read back. cg_step_null_kernel, one cluster: (3) the null
+//   rows' means and their deflation; -- the GEMMs --.
 // * The row sums are PyTorch's, bit for bit. A float32 CG is chaotic in
 //   its rounding: summed in any other order, n200's solve to tol 1e-4 took
 //   1129 outer iterations at other validation points against the torch
-//   route's 1131 (H100, this kernel's first version). So the walk kernel
-//   visits each row as PyTorch's reduce_kernel visits a contiguous row sum
-//   (ATen/native/cuda/Reduce.cuh, the same in torch 2.11 and 2.13: vectors
-//   of 4 after an unaligned head, 4 accumulators per thread, a shuffle tree
-//   per warp, a shared-memory tree across warps, and, on long rows, several
-//   blocks per row summed by the last to finish): the launch geometry is
-//   the one `setReduceConfig` picks (computed by the wrapper,
-//   ops/cg_step.py::row_sum_config), and every element the walk visits is
-//   also updated there. Every product and sum is rounded as PyTorch rounds
-//   it (__fmul_rn / __fadd_rn, no contraction into FMAs). So the kernel
-//   route gives the torch route's bits, and two runs give the same bits:
-//   no float atomics, only integer ones for the last-block handshakes.
-// * That geometry puts one block on a row at n200 (32 blocks of 512
-//   threads), too few to stream at the card's full rate. So each thread of
-//   a walk loads its (rows, n) inputs 16 bytes at a time (PyTorch's vectors
-//   are aligned there; the wrapper checks that every such array is) and
-//   loads D = 4 vectors of each before it adds any; and the walk of stage 3
-//   reads one array of one row. The wide body has the registers of plain
-//   elementwise work, so its blocks fill the SMs.
+//   route's 1131 (H100, this kernel's first version). PyTorch's reduce_kernel
+//   (ATen/native/cuda/Reduce.cuh, the same in torch 2.11 and 2.13) sums a
+//   contiguous row in a fixed tree on the launch geometry `setReduceConfig`
+//   picks (computed by the wrapper, ops/cg_step.py::row_sum_config): a
+//   virtual block of bw x bh threads; each thread adds its strided vectors
+//   of 4 (after an unaligned head) into 4 accumulators and then adds those;
+//   block_x_reduce takes a tree over the bw lanes of each lane row (a warp
+//   row when bw = 32), block_y_reduce a tree over the bh lane rows; on long
+//   rows `ctas` such blocks split a row and the last to finish sums their
+//   values in a third tree (global_reduce). Every product and sum is
+//   rounded as PyTorch rounds it (__fmul_rn / __fadd_rn, no contraction into
+//   FMAs), and every element a walk visits is also updated there. So the
+//   kernel route gives the torch route's bits, and two runs give the same
+//   bits: no float atomics, only integer ones for the last-block
+//   handshakes, and every handshake counter is back at 0 after each launch
+//   (CUDA graphs replay the launches).
+// * The split walk. A lane row's value after block_x_reduce depends on its
+//   own elements only, so the bh lane rows of one virtual block need not
+//   share an SM. The wrapper's plan (ops/cg_step.py::split_plan) gives each
+//   physical block `lanes` lane rows of one virtual block, bh / lanes
+//   blocks per virtual block. A block runs thread_sums and block_x_reduce
+//   for its lane rows exactly as PyTorch's block does (the same indices,
+//   stride, head and tail) and hands one value per lane row and sum to the
+//   virtual block's block 0, which runs block_y_reduce's tree over the bh
+//   values in its order; the global pass follows as PyTorch's. The same
+//   additions in the same order, so the same bits; but at n200, where the
+//   geometry is one 512-thread virtual block per row (32 blocks on 132
+//   SMs), the rows' walks spread over up to 16x as many SMs. The hand-over
+//   goes one of two ways (the plan's `cluster`): through distributed shared
+//   memory, the virtual block's blocks launched as one thread block
+//   cluster; or through a staging slot in device memory, the last block to
+//   arrive (integer atomicAdd between fences) doing block 0's part.
+// * Bytes in flight. With a few small blocks per SM each thread must keep
+//   many loads in flight: it loads `depth` (4 or 8) vectors of every (rows,
+//   n) input, 16 bytes each, before it adds any (PyTorch's vectors are
+//   16-byte aligned there; the wrapper checks that every such array is).
+//   The row scalars the last step needs are loaded before the walk.
+// * The null rows in one launch (stages 3 and 4 before): a cluster of 16
+//   256-thread blocks finds them, shares out the lane rows of a null row's
+//   virtual blocks, meets in block 0 through distributed shared memory for
+//   block_y_reduce's tree (and the global pass), and deflates the row
+//   across its blocks with the mean block 0 publishes; each thread loads
+//   its first elements of r, real and s before the walk.
 // * The latch: every block of every launch reads `live` first and returns
 //   at once when it is false, so an iteration after convergence launches
 //   and does nothing (B1 and the GEMMs between the launches still run).
 //   With live false every output keeps its bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace {
@@ -80,19 +108,25 @@ constexpr int kThreads = 256;  // the wide body
 constexpr int kPerThread = 4;
 constexpr int kChunk = kThreads * kPerThread;
 constexpr int kMaxReduceThreads = 512;
+constexpr int kMaxCluster = 16;  // blocks of a cluster (above 8: non-portable, as Hopper allows)
+constexpr int kNullBlocks = 16;  // the cluster of stage 3
+constexpr int kMaxNullItems = 2048;  // lane rows of a null row's virtual blocks, ctas x bh
 
 // Row scalars in `scal`, each an array of `rows` floats.
 enum Scalar { kDenS = 0, kAlpha = 1, kStep = 2, kMeanS = 3, kBeta = 4 };
-enum Stage { kDen = 1, kUpdate = 2, kMean = 3, kDeflate = 4, kPrecond = 5, kDirection = 6 };
+enum Stage { kDen = 1, kUpdate = 2, kNull = 3, kPrecond = 5, kDirection = 6 };
 
 // PyTorch's ReduceConfig for a float32 sum over the last axis of a
-// contiguous (rows, n) tensor (ops/cg_step.py::row_sum_config).
+// contiguous (rows, n) tensor (ops/cg_step.py::row_sum_config), and the
+// split plan of the walks (ops/cg_step.py::split_plan).
 struct Red {
   int bw, bh;       // block (x, y)
   int vec;          // vectorized input (4 floats per load)
   int im0, im1, im2;  // input_mult: lanes, warps, blocks
   int om1;          // output_mult of the warps (0: the warps share a row)
   int step_in, step_out, ctas;
+  int lanes;        // lane rows of a virtual block per physical block
+  int depth;        // vectors of each input loaded before any is added
 };
 
 struct Args {
@@ -113,14 +147,22 @@ struct Args {
   const float* null_w;
   const float* n_real;
   const float* g;  // G, the deflation product, or nullptr (no deflation)
-  float* sr;  // s * r, and the null rows' mean terms between stages 2 and 4
-  float* z;
-  float* staging;  // (2, gridDim.x * ctas) per-block sums of a row split over blocks
+  float* sr;  // s * r
+  float* z;   // z, and the null rows' mean terms from stage 2 to stage 3
+  float* staging;  // 2 x V virtual blocks' sums, then 2 x V x bh lane rows' sums
   float* scal;     // (5, rows) row scalars
   unsigned int* counter;  // the last-block handshakes, 0 between launches
   int rows, n, max_iters;
   Red red;
 };
+
+// The counters: [0] stage 6's last block; [1, 1 + G) the global pass of
+// each output group; [1 + G, 1 + G + V) the lane rows of each virtual block
+// (G output groups of `ctas` virtual blocks, V = G ctas).
+// ops/cg_step.py::split_plan counts them.
+__host__ __device__ __forceinline__ int groups_of(const Red& c, int rows) {
+  return (rows + c.step_out - 1) / c.step_out;
+}
 
 template <int N>
 struct Vals {
@@ -151,16 +193,13 @@ __device__ __forceinline__ float at4(const float4& q, int i) {
 
 // ---- PyTorch's row-sum order (Reduce.cuh: ReduceOp::run) ------------------
 
-// Where a thread sits in PyTorch's reduce geometry: lane x and warp row y
-// of its block (threadIdx.x = x + y * bw, as a (bw, bh) block numbers its
-// threads), the block's output group and its block within a split row.
+// Where a thread sits in PyTorch's reduce geometry: lane x and lane row y
+// of its virtual block (threadIdx.x = x + y * bw, as a (bw, bh) block
+// numbers its threads), the block's output group and its block within a
+// split row.
 struct Pos {
   int x, y, group, cta;
 };
-
-__device__ __forceinline__ Pos pos_of(const Red& c, int group, int cta) {
-  return {static_cast<int>(threadIdx.x) % c.bw, static_cast<int>(threadIdx.x) / c.bw, group, cta};
-}
 
 // One thread's partial sums of its row in the order of
 // input_vectorized_thread_reduce_impl (n >= 128) or thread_reduce_impl.
@@ -235,15 +274,32 @@ __device__ Vals<N> thread_sums(const Red& c, const Pos& t, const Op& op, size_t 
   return acc[0];
 }
 
-// block_x_reduce: a shared-memory tree down to a warp, then a shuffle tree.
-__device__ float block_x_sum(float value, float* sh, const Red& c, const Pos& t) {
-  int dim_x = c.bw;
+// The partial sums of virtual thread `t` of row `row` (0 where the thread
+// starts past the row's end, as ReduceOp::run leaves them).
+template <int N, int D, class Op>
+__device__ Vals<N> virtual_thread_sums(const Args& a, const Pos& t, const Op& op, int row) {
+  const Red& c = a.red;
+  const bool block_y = c.im1 != 0, global = c.im2 != 0;
+  const bool tail_ok = (!block_y || t.y == 0) && (!global || t.cta == 0);
+  const int idx = t.x * c.im0 + t.y * c.im1 + t.cta * c.im2;
+  Vals<N> value;
+#pragma unroll
+  for (int j = 0; j < N; ++j) value.v[j] = 0.0f;
+  if (row < a.rows && idx < a.n)
+    value = thread_sums<N, D>(c, t, op, static_cast<size_t>(row) * a.n, a.n, tail_ok);
+  return value;
+}
+
+// block_x_reduce on this block's lane rows: a shared-memory tree down to a
+// warp, then a shuffle tree. `x` is the lane, `a` the thread's own slot.
+__device__ float block_x_sum(float value, float* sh, int bw, int x) {
+  int dim_x = bw;
   if (dim_x > 32) {
-    const int a = t.x + t.y * c.bw;
+    const int a = threadIdx.x;
     sh[a] = value;
     for (int off = dim_x / 2; off >= 32; off >>= 1) {
       __syncthreads();
-      if (t.x < off && t.x + off < c.bw) {
+      if (x < off && x + off < bw) {
         value = __fadd_rn(value, sh[a + off]);
         sh[a] = value;
       }
@@ -256,77 +312,158 @@ __device__ float block_x_sum(float value, float* sh, const Red& c, const Pos& t)
   return value;
 }
 
-// block_y_reduce: a shared-memory tree over the warp rows of a block.
-__device__ float block_y_sum(float value, float* sh, const Red& c, const Pos& t) {
-  const int a = t.x + t.y * c.bw;
-  sh[a] = value;
-  for (int off = c.bh / 2; off > 0; off >>= 1) {
+// block_y_reduce's tree, on values laid out as its threads' (sh[x + y bw]):
+// sh[x + y bw] += sh[x + (y + off) bw] for y < off, off = bh / 2, ..., 1.
+// Every thread of the block calls it; sh is complete on return.
+__device__ void tree_y(float* sh, int bw, int bh) {
+  for (int off = bh / 2; off > 0; off >>= 1) {
     __syncthreads();
-    if (t.y < off && t.y + off < c.bh) {
-      value = __fadd_rn(value, sh[t.x + (t.y + off) * c.bw]);
-      sh[a] = value;
-    }
+    for (int k = threadIdx.x; k < off * bw; k += blockDim.x)
+      sh[k] = __fadd_rn(sh[k], sh[k + off * bw]);
   }
-  return value;
+  __syncthreads();
 }
 
-// The N sums of `op` over row `row` of this thread, in PyTorch's order
-// (ReduceOp::run, and global_reduce over the c.ctas blocks of a split row).
-// Every thread of the block calls it. Returns true in the one thread that
-// holds the row's final sums (x = 0 of the row's warps, in the last block
-// of a split row to finish). `summed` false: the walk's updates only
-// (`walk` false: none, the op has no updates).
-template <int N, int D, class Op>
-__device__ bool row_sums(const Args& a, const Pos& t, const Op& op, int row, bool summed,
-                         Vals<N>& out, bool walk = true) {
+// block_x_reduce's tree on `lane_rows` lane rows of sh (the same additions
+// as its shared-memory steps and its shuffles): sh[x + y bw] += sh[x + off
+// + y bw] for x < off, off = bw / 2, ..., 1.
+__device__ void tree_x(float* sh, int bw, int lane_rows) {
+  for (int off = bw / 2; off > 0; off >>= 1) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < off * lane_rows; k += blockDim.x) {
+      const int y = k / off, a = k - y * off + y * bw;
+      sh[a] = __fadd_rn(sh[a], sh[a + off]);
+    }
+  }
+  __syncthreads();
+}
+
+// global_reduce: the last block of a split row sums the ctas blocks' values
+// get(k): virtual thread k of a bw x bh block adds k, k + bw bh, ... from
+// 0, then block_y_reduce, then block_x_reduce. The sum is sh[0].
+template <class Get>
+__device__ float global_pass(const Red& c, float* sh, const Get& get) {
+  const int threads = c.bw * c.bh;
+  __syncthreads();
+  for (int k = threadIdx.x; k < threads; k += blockDim.x) {
+    float v = 0.0f;
+    for (int kk = k; kk < c.ctas; kk += threads) v = __fadd_rn(v, get(kk));
+    sh[k] = v;
+  }
+  tree_y(sh, c.bw, c.bh);
+  tree_x(sh, c.bw, 1);
+  return sh[0];
+}
+
+// Arrive on / wait at the cluster's barrier: split, so that what lies
+// between overlaps the other blocks' arrival (every thread of every block
+// of the cluster arrives once and waits once per phase).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The N sums of `op` over row `row` of this thread, in PyTorch's order, in
+// a walk block of the split plan: this block holds lane rows t.y - (t.y %
+// lanes) ... of virtual block (t.group, t.cta). Every thread of the block
+// calls it. Returns true in the one thread that holds the row's final sums
+// (lane 0 of its lane row when the lane rows own rows; else thread 0 of
+// block 0 of the virtual block, or of the last block to finish). The lane
+// rows' values meet in the virtual block's block 0, which sums them: with
+// kCluster the virtual block is a thread block cluster and they go there
+// through distributed shared memory (the caller arrived on the cluster's
+// barrier when it started); else through `staging`, the last block to
+// arrive (an integer atomicAdd between fences) taking block 0's place.
+template <int N, int D, bool kCluster, class Op>
+__device__ bool row_sums(const Args& a, const Pos& t, const Op& op, int row, Vals<N>& out) {
   __shared__ float sh[kMaxReduceThreads];
+  __shared__ float slots[2 * kMaxReduceThreads];
   __shared__ bool last;
   const Red& c = a.red;
-  const bool block_y = c.im1 != 0, global = c.im2 != 0;
-  const bool tail_ok = (!block_y || t.y == 0) && (!global || t.cta == 0);
-  const int idx = t.x * c.im0 + t.y * c.im1 + t.cta * c.im2;
-  Vals<N> value;
-#pragma unroll
-  for (int j = 0; j < N; ++j) value.v[j] = 0.0f;
-  if (walk && row < a.rows && idx < a.n) {
-    const Vals<N> s = thread_sums<N, D>(c, t, op, static_cast<size_t>(row) * a.n, a.n, tail_ok);
-    if (summed) value = s;
-  }
+  Vals<N> value = virtual_thread_sums<N, D>(a, t, op, row);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     __syncthreads();
-    value.v[j] = block_x_sum(value.v[j], sh, c, t);
-    if (block_y) value.v[j] = block_y_sum(value.v[j], sh, c, t);
+    value.v[j] = block_x_sum(value.v[j], sh, c.bw, t.x);
   }
-  const bool store = row < a.rows && t.x == 0 && (!block_y || t.y == 0);
-  if (!global) {
+  if (c.im1 == 0) {  // the lane rows own rows: no block_y_reduce
     out = value;
-    return store;
+    return row < a.rows && t.x == 0;
   }
-  const int groups = (a.rows + c.step_out - 1) / c.step_out;
-  const int slots = groups * c.ctas;
-  if (store) {
+  const int groups = groups_of(c, a.rows), V = groups * c.ctas;
+  const int v = t.group * c.ctas + t.cta, parts = c.bh / c.lanes;
+  if (parts == 1) {  // the whole virtual block: its tree in shared memory
 #pragma unroll
-    for (int j = 0; j < N; ++j) a.staging[j * slots + t.cta + t.group * c.ctas] = value.v[j];
+    for (int j = 0; j < N; ++j) {
+      __syncthreads();
+      if (t.x == 0) sh[t.y] = value.v[j];
+      tree_y(sh, 1, c.bh);
+      value.v[j] = sh[0];
+    }
+  } else if (kCluster) {
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    float* slots0 = cluster.map_shared_rank(slots, 0);
+    cluster_wait();  // block 0 has started
+    if (t.x == 0) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) slots0[j * c.bh + t.y] = value.v[j];
+    }
+    cluster.sync();
+    if (cluster.block_rank() != 0) return false;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      for (int k = threadIdx.x; k < c.bh; k += blockDim.x) sh[k] = slots[j * c.bh + k];
+      tree_y(sh, 1, c.bh);
+      value.v[j] = sh[0];
+      __syncthreads();
+    }
+  } else {
+    float* lane_st = a.staging + 2 * V;
+    if (t.x == 0) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) lane_st[(j * V + v) * c.bh + t.y] = value.v[j];
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      last = atomicAdd(a.counter + 1 + groups + v, 1u) == static_cast<unsigned int>(parts - 1);
+    __syncthreads();
+    if (!last) return false;
+    __threadfence();
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      __syncthreads();
+      for (int k = threadIdx.x; k < c.bh; k += blockDim.x)
+        sh[k] = __ldcg(lane_st + (j * V + v) * c.bh + k);
+      tree_y(sh, 1, c.bh);
+      value.v[j] = sh[0];
+    }
+    if (threadIdx.x == 0) a.counter[1 + groups + v] = 0;
+  }
+  if (c.im2 == 0) {
+    out = value;
+    return row < a.rows && threadIdx.x == 0;
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) a.staging[j * V + v] = value.v[j];
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(a.counter + 1 + t.group, 1u) == c.ctas - 1;
+  if (threadIdx.x == 0)
+    last = atomicAdd(a.counter + 1 + t.group, 1u) == static_cast<unsigned int>(c.ctas - 1);
   __syncthreads();
   if (!last) return false;
   __threadfence();
+  const float* cta_st = a.staging + t.group * c.ctas;
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float v = 0.0f;
-    for (int k = t.x + t.y * c.bw; k < c.ctas; k += c.bw * c.bh)
-      v = __fadd_rn(v, __ldcg(a.staging + j * slots + k + t.group * c.ctas));
-    __syncthreads();
-    v = block_y_sum(v, sh, c, t);
-    value.v[j] = block_x_sum(v, sh, c, t);
-  }
+  for (int j = 0; j < N; ++j)
+    value.v[j] = global_pass(c, sh, [&](int k) { return __ldcg(cta_st + j * V + k); });
   if (threadIdx.x == 0) a.counter[1 + t.group] = 0;
   out = value;
-  return store;
+  return row < a.rows && threadIdx.x == 0;
 }
 
 // ---- the stages' elementwise work -----------------------------------------
@@ -349,15 +486,15 @@ struct DenOp {  // stage 1: the terms p * ap of den
   }
 };
 
-struct MeanOp {  // stage 3: the null row's mean terms r * real, as stage 2 left them
+struct MeanOp {  // stage 3: the null row's mean terms r * real, left in z by stage 2
   const Args& a;
   size_t row;
   struct In {
     float t;
   };
-  __device__ In load(int e) const { return {a.sr[row + e]}; }
+  __device__ In load(int e) const { return {a.z[row + e]}; }
   __device__ void load4(int e, In* in) const {
-    const float4 t = ld4(a.sr + row + e);
+    const float4 t = ld4(a.z + row + e);
 #pragma unroll
     for (int i = 0; i < 4; ++i) in[i] = {at4(t, i)};
   }
@@ -399,35 +536,43 @@ __device__ bool last_to_arrive(unsigned int* counter) {
   return last;
 }
 
-// Stages 1, 3 and 5: grid (output groups, blocks per row), PyTorch's
-// reduce geometry (`Red`).
-__global__ void __launch_bounds__(kMaxReduceThreads) cg_step_walk_kernel(Args a, int stage) {
+// At most 128 registers a thread at 512 threads: 8 vectors deep takes
+// blocks of at most 256.
+template <int D>
+constexpr int walk_threads() {
+  return D <= 4 ? kMaxReduceThreads : kMaxReduceThreads / 2;
+}
+
+// Stages 1 and 5: one block per `lanes` lane rows of a virtual block of
+// PyTorch's reduce geometry (`Red`), the blocks of a virtual block adjacent
+// (with kCluster, a cluster). The row scalars the last step reads are
+// loaded before the walk.
+template <int D, bool kCluster>
+__global__ void __launch_bounds__(walk_threads<D>()) cg_step_walk_kernel(Args a, int stage) {
   if (!*a.live) return;
   const Red& c = a.red;
-  const int rows = a.rows;
-  const Pos t = pos_of(c, blockIdx.x, blockIdx.y);
+  const int rows = a.rows, parts = c.bh / c.lanes;
+  if (kCluster && c.im1 != 0 && parts > 1) cluster_arrive();
+  const int v = blockIdx.x / parts, part = blockIdx.x - v * parts;
+  const Pos t{static_cast<int>(threadIdx.x) % c.bw,
+              part * c.lanes + static_cast<int>(threadIdx.x) / c.bw, v / c.ctas, v % c.ctas};
   const int row = t.y * c.om1 + t.group * c.step_out, rm = row < rows ? row : 0;
   const size_t off = static_cast<size_t>(rm) * a.n;
   float* step_s = a.scal + kStep * rows;
+  const float rz_old = a.rz[rm];
   if (stage == kDen) {
+    const bool active = a.rr[rm] > a.thresh[rm];  // live holds here
     Vals<1> den;
-    if (row_sums<1, 4>(a, t, DenOp{a, off, a.shifts[rm]}, row, true, den)) {
-      const bool step = a.rr[row] > a.thresh[row] && den.v[0] > 0.0f;  // live holds here
+    if (row_sums<1, D, kCluster>(a, t, DenOp{a, off, a.shifts[rm]}, row, den)) {
+      const bool step = active && den.v[0] > 0.0f;
       a.scal[kDenS * rows + row] = den.v[0];
-      a.scal[kAlpha * rows + row] = step ? __fdiv_rn(a.rz[row], clamp_tiny(den.v[0])) : 0.0f;
+      a.scal[kAlpha * rows + row] = step ? __fdiv_rn(rz_old, clamp_tiny(den.v[0])) : 0.0f;
       step_s[row] = step ? 1.0f : 0.0f;
     }
-  } else if (stage == kMean) {
-    const bool null_row = a.null_w[rm] > 0.0f;
-    Vals<1> sum;
-    if (row_sums<1, 4>(a, t, MeanOp{a, off}, row, null_row, sum, null_row) && null_row) {
-      a.scal[kMeanS * rows + row] = __fdiv_rn(sum.v[0], *a.n_real);
-    }
   } else if (stage == kPrecond) {
+    const bool step = step_s[rm] > 0.5f;
     Vals<2> sums;
-    if (row_sums<2, 4>(a, t, PrecondOp{a, off}, row, true, sums)) {
-      const bool step = step_s[row] > 0.5f;
-      const float rz_old = a.rz[row];
+    if (row_sums<2, D, kCluster>(a, t, PrecondOp{a, off}, row, sums)) {
       a.scal[kBeta * rows + row] = step ? __fdiv_rn(sums.v[1], clamp_tiny(rz_old)) : 0.0f;
       a.rz[row] = step ? sums.v[1] : rz_old;
       a.rr[row] = sums.v[0];
@@ -435,8 +580,132 @@ __global__ void __launch_bounds__(kMaxReduceThreads) cg_step_walk_kernel(Args a,
   }
 }
 
-// Stages 2, 4 and 6: 256 threads, 4 elements each, on 1,024 elements of
-// the row blockIdx.y (of every null row in stage 4).
+// Stage 3, the null rows: one cluster of kNullBlocks blocks of T threads
+// finds them (`null` > 0, in row order) and, for each, sums its mean terms
+// r * real (left in z by stage 2) in PyTorch's order and deflates it. Its
+// blocks share out the lane rows of the row's virtual blocks (each lane
+// row's thread sums and block_x_reduce as in PyTorch's block, D vectors
+// deep); the values meet in block 0's shared memory through distributed
+// shared memory, block 0 runs block_y_reduce's tree for each virtual block
+// (and the global pass over a split row's) and publishes the mean; then
+// every block deflates its share of the row: r - null * mean, padding
+// slots zeroed, and s * r. The latch, the first rows' flags and n_real are
+// read together, a thread's first E elements of the share before the walk.
+template <int T>
+struct NullShape {
+  static constexpr int D = T <= 256 ? 16 : 8;  // vectors of the walk in flight
+  static constexpr int E = T <= 256 ? 12 : 6;  // elements of the deflation held
+};
+
+template <int T>
+__device__ void null_row(const Args& a, float* vals, float* sh, float* mean_sh, float n_real,
+                         int m) {
+  constexpr int kD = NullShape<T>::D, kE = NullShape<T>::E;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const Red& c = a.red;
+  const int rank = static_cast<int>(cluster.block_rank()), blocks = kNullBlocks;
+  const int step = blocks * T;
+  const int first = rank * T + static_cast<int>(threadIdx.x);
+  const size_t base = static_cast<size_t>(m) * a.n;
+  cluster_arrive();  // this block has started (wait: before writing into block 0)
+  float rv[kE], realv[kE], sv[kE];
+#pragma unroll
+  for (int k = 0; k < kE; ++k) {
+    const int e = first + k * step;
+    rv[k] = e < a.n ? a.r[base + e] : 0.0f;
+    realv[k] = e < a.n ? a.real[e] : 0.0f;
+    sv[k] = e < a.n ? a.s[e] : 0.0f;
+  }
+  const float nl = a.null_w[m];
+  // The lane rows: item i = (cta, lane row) of the row's virtual blocks
+  // (the row's own lane row alone where the lane rows own rows), item i in
+  // lane-row slot i mod (blocks x slots) of the cluster.
+  const bool block_y = c.im1 != 0;
+  const int group = m / c.step_out, items = block_y ? c.ctas * c.bh : 1;
+  const int x = static_cast<int>(threadIdx.x) % c.bw, ly = static_cast<int>(threadIdx.x) / c.bw;
+  const int slots = blocks * (T / c.bw);
+  const MeanOp op{a, base};
+  float* vals0 = cluster.map_shared_rank(vals, 0);
+  for (int i0 = 0; i0 < items; i0 += slots) {
+    const int i = i0 + ly * blocks + rank;
+    const Pos t = block_y ? Pos{x, i % c.bh, group, i / c.bh}
+                          : Pos{x, m - group * c.step_out, group, 0};
+    const float value = i < items ? virtual_thread_sums<1, kD>(a, t, op, m).v[0] : 0.0f;
+    __syncthreads();
+    const float lane_sum = block_x_sum(value, sh, c.bw, x);
+    if (i0 == 0) cluster_wait();
+    if (i < items && x == 0) vals0[block_y ? t.y * c.ctas + t.cta : 0] = lane_sum;
+  }
+  cluster.sync();  // every lane row's value is in block 0
+  if (rank == 0) {
+    float sum = vals[0];
+    if (block_y) {
+      tree_y(vals, c.ctas, c.bh);  // block_y_reduce of each virtual block, side by side
+      sum = c.ctas == 1 ? vals[0] : global_pass(c, sh, [&](int k) { return vals[k]; });
+    }
+    if (threadIdx.x == 0) {
+      *mean_sh = __fdiv_rn(sum, n_real);
+      a.scal[kMeanS * a.rows + m] = *mean_sh;
+    }
+  }
+  cluster.sync();
+  const float shift_mean = __fmul_rn(nl, *cluster.map_shared_rank(mean_sh, 0));
+  cluster_arrive();  // done with block 0's shared memory
+  for (int e0 = first; e0 < a.n; e0 += kE * step) {
+    if (e0 != first) {
+#pragma unroll
+      for (int k = 0; k < kE; ++k) {
+        const int e = e0 + k * step;
+        rv[k] = e < a.n ? a.r[base + e] : 0.0f;
+        realv[k] = e < a.n ? a.real[e] : 0.0f;
+        sv[k] = e < a.n ? a.s[e] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kE; ++k) {
+      const int e = e0 + k * step;
+      if (e >= a.n) break;
+      const float r2 = __fmul_rn(__fsub_rn(rv[k], shift_mean), realv[k]);
+      a.r[base + e] = r2;
+      a.sr[base + e] = __fmul_rn(sv[k], r2);
+    }
+  }
+  cluster_wait();
+}
+
+// T threads a block: 256, or 512 where a lane row is that wide (one row).
+template <int T>
+__global__ void __launch_bounds__(T) cg_step_null_kernel(Args a) {
+  __shared__ float vals[kMaxNullItems];
+  __shared__ float sh[kMaxReduceThreads];
+  __shared__ int flags[T];
+  __shared__ float mean_sh;
+  const bool live = *a.live;
+  const int rows = a.rows, lane = static_cast<int>(threadIdx.x) & 31;
+  bool null_flag = static_cast<int>(threadIdx.x) < rows && a.null_w[threadIdx.x] > 0.0f;
+  const float n_real = *a.n_real;
+  if (!live) return;
+  for (int first = 0; first < rows; first += T) {
+    __syncthreads();
+    if (first > 0) {
+      const int mm = first + static_cast<int>(threadIdx.x);
+      null_flag = mm < rows && a.null_w[mm] > 0.0f;
+    }
+    flags[threadIdx.x] = null_flag;
+    __syncthreads();
+    for (int w = 0; w < T && first + w < rows; w += 32) {
+      unsigned int mask = __ballot_sync(0xffffffffu, flags[w + lane] != 0);
+      while (mask) {  // the same rows in the same order in every block
+        const int m = first + w + __ffs(mask) - 1;
+        mask &= mask - 1;
+        null_row<T>(a, vals, sh, &mean_sh, n_real, m);
+      }
+    }
+  }
+}
+
+// Stages 2 and 6: 256 threads, 4 elements each, on 1,024 elements of the
+// row blockIdx.y.
 __global__ void __launch_bounds__(kThreads) cg_step_wide_kernel(Args a, int stage) {
   if (!*a.live) return;
   const int rows = a.rows;
@@ -448,6 +717,7 @@ __global__ void __launch_bounds__(kThreads) cg_step_wide_kernel(Args a, int stag
     const float shift = a.shifts[m], alpha = a.scal[kAlpha * rows + m];
     const bool null_row = a.null_w[m] > 0.0f;
     const float* w = null_row ? a.real : a.s;
+    float* out = null_row ? a.z : a.sr;
     float pv[kPerThread], lv[kPerThread], avv[kPerThread], xv[kPerThread], rv[kPerThread],
         wv[kPerThread];
 #pragma unroll
@@ -470,25 +740,9 @@ __global__ void __launch_bounds__(kThreads) cg_step_wide_kernel(Args a, int stag
       const float r1 = __fsub_rn(rv[i], __fmul_rn(alpha, ap));
       a.r[base + v] = r1;
       // s * r (dfl is the identity off the null row); on the null row the
-      // terms r * real of its mean, which stage 3 sums.
-      a.sr[base + v] = __fmul_rn(wv[i], r1);
-    }
-    return;
-  }
-  if (stage == kDeflate) {  // the null rows: r - null * mean, padding slots zeroed
-    for (int mm = 0; mm < rows; ++mm) {
-      const float nl = a.null_w[mm];
-      if (!(nl > 0.0f)) continue;
-      const size_t base = static_cast<size_t>(mm) * a.n;
-      const float shift_mean = __fmul_rn(nl, a.scal[kMeanS * rows + mm]);
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const int v = v0 + i * kThreads;
-        if (v >= a.n) break;
-        const float r2 = __fmul_rn(__fsub_rn(a.r[base + v], shift_mean), a.real[v]);
-        a.r[base + v] = r2;
-        a.sr[base + v] = __fmul_rn(a.s[v], r2);
-      }
+      // terms r * real of its mean, which stage 3 sums, in z (free until
+      // stage 5): stage 3 writes the row's s * r while its blocks read them.
+      out[base + v] = __fmul_rn(wv[i], r1);
     }
     return;
   }
@@ -522,15 +776,56 @@ __global__ void __launch_bounds__(kThreads) cg_step_wide_kernel(Args a, int stag
   }
 }
 
+// A launch of `kernel` on `st` in clusters of `cluster` blocks.
+template <class... Params>
+cudaError_t launch_clusters(void (*kernel)(Params...), int blocks, int threads, int cluster,
+                            cudaStream_t st, Params... params) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cluster > 8) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaLaunchKernelEx(&cfg, kernel, params...);
+}
+
+template <int D>
+cudaError_t launch_walk(const Args& a, int stage, bool cluster, cudaStream_t st) {
+  const Red& c = a.red;
+  const int threads = c.lanes * c.bw, parts = c.bh / c.lanes;
+  cluster = cluster && c.im1 != 0 && parts > 1;  // lane rows to combine across blocks
+  if (threads > walk_threads<D>() || (cluster && parts > kMaxCluster))
+    return cudaErrorInvalidValue;
+  const int blocks = groups_of(c, a.rows) * c.ctas * parts;
+  if (cluster)
+    return launch_clusters(cg_step_walk_kernel<D, true>, blocks, threads, parts, st, a, stage);
+  cg_step_walk_kernel<D, false><<<blocks, threads, 0, st>>>(a, stage);
+  return cudaSuccess;
+}
+
+bool is_pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
 }  // namespace
 
 // C entry point, bound with ctypes (ops/_build.py, ops/cg_step.py). All
 // arrays are contiguous float32 except it (one int64), live (one byte) and
-// counter (uint32: 1 + the reduce grid's blocks along x, 0 between
-// launches); g is nullptr without deflation; red holds the row-sum geometry
-// (bw, bh, vec, im0, im1, im2, om1, step_in, step_out, ctas). One launch of
-// stage 1-6 on `stream` of the current device; returns cudaGetLastError()
-// (0 on success); does not synchronise.
+// counter (uint32, 0 between launches, at least
+// ops/cg_step.py::split_plan's `counters`); g is nullptr without deflation;
+// staging holds at least 2 V (1 + bh) floats; red holds the row-sum
+// geometry and the split plan (bw, bh, vec, im0, im1, im2, om1, step_in,
+// step_out, ctas, lanes, depth, cluster). One launch of stage 1, 2, 3, 5 or 6 on
+// `stream` of the current device; returns cudaGetLastError() (0 on
+// success); does not synchronise.
 extern "C" int dots_cg_step_f32(int stage, const float* lap, float* x, float* r, float* p,
                                 float* rz, float* rr, long long* it, unsigned char* live,
                                 const float* thresh, const float* shifts, const float* av,
@@ -539,20 +834,32 @@ extern "C" int dots_cg_step_f32(int stage, const float* lap, float* x, float* r,
                                 float* sr, float* z, float* staging, float* scal,
                                 unsigned int* counter, const int* red, int rows, int n,
                                 int max_iters, void* stream) {
-  const Red c{red[0], red[1], red[2], red[3], red[4], red[5], red[6], red[7], red[8], red[9]};
-  if (stage < kDen || stage > kDirection || rows < 1 || rows > 65535 || n < 1 || c.bw < 1 ||
-      c.bh < 1 || c.bw * c.bh > kMaxReduceThreads || c.step_out < 1 || c.ctas < 1) {
+  const Red c{red[0], red[1], red[2], red[3],  red[4], red[5],
+              red[6], red[7], red[8], red[9], red[10], red[11]};
+  const bool cluster = red[12] != 0;
+  const bool stage_ok = stage == kDen || stage == kUpdate || stage == kNull ||
+                        stage == kPrecond || stage == kDirection;
+  if (!stage_ok || rows < 1 || rows > 65535 || n < 1 || !is_pow2(c.bw) || !is_pow2(c.bh) ||
+      c.bw * c.bh > kMaxReduceThreads || c.step_out < 1 || c.ctas < 1 || !is_pow2(c.lanes) ||
+      c.lanes > c.bh || (c.depth != 4 && c.depth != 8) ||
+      (c.im1 != 0 && c.ctas * c.bh > kMaxNullItems)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{lap, x, r, p, rz, rr, it, live, thresh, shifts, av, jacobi, s, real, null_w, n_real,
          g, sr, z, staging, scal, counter, rows, n, max_iters, c};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stage == kDen || stage == kMean || stage == kPrecond) {
-    const dim3 grid((rows + c.step_out - 1) / c.step_out, c.ctas);
-    cg_step_walk_kernel<<<grid, c.bw * c.bh, 0, st>>>(a, stage);
+  cudaError_t err = cudaSuccess;
+  if (stage == kDen || stage == kPrecond) {
+    err = c.depth == 4 ? launch_walk<4>(a, stage, cluster, st)
+                       : launch_walk<8>(a, stage, cluster, st);
+  } else if (stage == kNull) {
+    err = c.bw <= 256
+              ? launch_clusters(cg_step_null_kernel<256>, kNullBlocks, 256, kNullBlocks, st, a)
+              : launch_clusters(cg_step_null_kernel<512>, kNullBlocks, 512, kNullBlocks, st, a);
   } else {
-    const dim3 grid((n + kChunk - 1) / kChunk, stage == kDeflate ? 1 : rows);
-    cg_step_wide_kernel<<<grid, kThreads, 0, st>>>(a, stage);
+    const dim3 wide((n + kChunk - 1) / kChunk, rows);
+    cg_step_wide_kernel<<<wide, kThreads, 0, st>>>(a, stage);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

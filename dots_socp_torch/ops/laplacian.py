@@ -634,7 +634,7 @@ def cg_solve(
     pass's check rides with its first block's flags (`_BlockedCG`).
 
     On one card, with the window SpMV in float32, each inner iteration after
-    its matvec is kernel K4 (`ops.cg_step`, six launches and the two
+    its matvec is kernel K4 (`ops.cg_step`, five launches and the two
     deflation GEMMs) in both loops, graphed and eager; elsewhere, and inside
     `cg_step.torch_route()`, it is `_CGSystem.gated_step`'s torch ops.
 

@@ -10,11 +10,13 @@ makes (`ops.graphs.STATS`) and `profile_slice`'s launch-site table. The
 kernel itself runs on the card (tests/test_torch_cuda.py, chip_smoke.py
 phase 19)."""
 
+from collections import Counter
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies
 from test_torch_graphs import PATH_IDS, PATHS, X_TOL, _jax_solve, problems  # noqa: F401
 from torch.autograd import DeviceType
 
@@ -328,3 +330,210 @@ def test_launch_times_retry_a_session_that_lost_events(monkeypatch, lost_session
 
     assert kernel_timing.launch_times_us(fn, "cg_step_", 3, reps=4) == expect
     assert len(sessions) == min(lost_sessions + 1, 3)
+
+
+# ---- the walks' split plan (`cg_step.split_plan`) ----------------------------
+
+PLAN_SHAPES = [(32, 46_431), (128, 46_431), (32, 194_814), (8, 700), (8, 64), (32, 97_485),
+               (33, 46_431), (128, 194_814)]
+
+
+def _assert_plan_covers(rows, n, **kw):
+    """Every (group, cta, lane row) of the geometry has one block and one
+    staging slot, each block holds `lanes` lane rows of one virtual block,
+    the slots and the virtual blocks' counters are distinct and lie clear of
+    the other counters and of the virtual blocks' own slots."""
+    red = k4.row_sum_config(rows, n, 132, 2048)
+    bw, bh, ctas = red[0], red[1], red[9]
+    plan = k4.split_plan(red, rows, 132, **kw)
+    layout = k4.plan_layout(red, plan)
+    assert len(layout) == plan.groups * ctas * bh and plan.virtual == plan.groups * ctas
+    assert plan.blocks == plan.virtual * plan.parts and plan.parts * plan.lanes == bh
+    assert plan.threads == plan.lanes * bw <= k4.WALK_THREADS[plan.depth]
+    assert plan.threads >= min(32, bw * bh)  # whole warps
+    held, count = {}, Counter(block for block, _, _ in layout.values())
+    for (group, cta, y), (block, _, _) in layout.items():
+        held.setdefault(block, set()).add((group, cta, y // plan.lanes))
+    assert sorted(held) == list(range(plan.blocks))
+    assert all(len(v) == 1 for v in held.values())
+    assert set(count.values()) == {plan.lanes}
+    slots = [slot for _, slot, _ in layout.values()]
+    assert len(set(slots)) == len(slots)
+    assert min(slots) >= 2 * plan.virtual and max(slots) < 2 * plan.virtual + plan.virtual * bh
+    assert 2 * plan.virtual * (1 + bh) == plan.staging  # both sums, both levels
+    counters = {}
+    for (group, cta, _), (_, _, counter) in layout.items():
+        counters.setdefault((group, cta), set()).add(counter)
+    assert all(len(v) == 1 for v in counters.values())
+    flat = sorted(c for v in counters.values() for c in v)
+    assert flat == list(range(1 + plan.groups, 1 + plan.groups + plan.virtual))
+    assert plan.counters == 1 + plan.groups + plan.virtual
+    return plan
+
+
+@pytest.mark.parametrize("rows, n", PLAN_SHAPES, ids=[f"{r}x{n}" for r, n in PLAN_SHAPES])
+def test_split_plan_gives_each_lane_row_one_block_and_slot(rows, n):
+    """`split_plan` on PyTorch's geometry at the main path's shapes (n200 at
+    32, 33 and 128 modes, n290, n410 at 32 and 128) and the short ones: one
+    block and one staging slot per (group, cta, lane row), one counter per
+    virtual block; the default plan and every split it accepts."""
+    plan = _assert_plan_covers(rows, n)
+    red = k4.row_sum_config(rows, n, 132, 2048)
+    splits = 0
+    for depth in sorted(k4.WALK_THREADS):
+        for lanes in (1, 2, 4, 8, 16, 32):
+            try:
+                _assert_plan_covers(rows, n, lanes=lanes, depth=depth)
+                splits += 1
+            except ValueError:
+                assert (lanes > red[1] or lanes * red[0] > k4.WALK_THREADS[depth]
+                        or lanes * red[0] < min(32, red[0] * red[1]))
+    assert splits >= 1
+
+
+@pytest.fixture(scope="module")
+def hypothesis_home(tmp_path_factory):
+    """Hypothesis keeps its files in a temporary directory, not the checkout."""
+    from hypothesis import configuration
+
+    configuration.set_hypothesis_home_dir(tmp_path_factory.mktemp("hypothesis"))
+    yield
+    configuration.set_hypothesis_home_dir(None)
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(rows=strategies.integers(1, 256), n=strategies.integers(1, 300_000))
+def test_split_plan_covers_every_geometry(hypothesis_home, rows, n):
+    """The same for every (rows, n) with rows 1-256 and n up to 300,000."""
+    _assert_plan_covers(rows, n)
+
+
+def test_split_plan_rejects_splits_the_kernel_cannot_run():
+    """A split that is not a power of two of whole warps within bh, or too
+    wide for its depth, raises; so does a depth the kernel has no body for.
+    A cluster hand-over is taken only where a row's lane rows span blocks."""
+    red = k4.row_sum_config(32, 46_431, 132, 2048)
+    for kw in (dict(lanes=3), dict(lanes=32), dict(lanes=16, depth=8), dict(depth=12)):
+        with pytest.raises(ValueError):
+            k4.split_plan(red, 32, 132, **kw)
+    assert k4.split_plan(red, 32, 132, lanes=1, cluster=True).cluster
+    assert not k4.split_plan(red, 32, 132, lanes=16, depth=4, cluster=True).cluster  # one block
+    short = k4.row_sum_config(8, 700, 132, 2048)  # the lane rows own rows: nothing to combine
+    assert not k4.split_plan(short, 8, 132, lanes=1, cluster=True).cluster
+    with k4.walk_plan(lanes=4, depth=4, cluster=True):
+        assert k4._PLAN == {"lanes": 4, "depth": 4, "cluster": True}
+    assert k4._PLAN == {}
+
+
+def _block_x(v, bw):
+    """block_x_reduce over the lanes of each lane row (the last axis), as
+    its lane 0 sees it: its shared-memory steps and its shuffles add lane x
+    + off into lane x for x < off, off = bw / 2, ..., 1."""
+    v = v.copy()
+    off = bw // 2
+    while off > 0:
+        v[..., :off] = (v[..., :off] + v[..., off:2 * off]).astype(np.float32)
+        off //= 2
+    return v
+
+
+def _block_y(v):
+    """block_y_reduce over the lane rows (first axis), in place as its
+    shared-memory tree: rows y < off add row y + off."""
+    v = v.copy()
+    off = v.shape[0] // 2
+    while off > 0:
+        v[:off] = (v[:off] + v[off:2 * off]).astype(np.float32)
+        off //= 2
+    return v
+
+
+@pytest.mark.parametrize("bw, bh, lanes", [(32, 16, 1), (32, 16, 2), (32, 16, 4), (32, 16, 8),
+                                           (64, 8, 1), (256, 2, 1), (32, 2, 1)])
+def test_split_combine_is_pytorchs_block_y_order(bw, bh, lanes):
+    """A float32 model of the two combine orders on random thread sums:
+    PyTorch's block (block_x_reduce, then block_y_reduce over the whole
+    (bh, bw) block) against the split (each block of `lanes` lane rows runs
+    block_x_reduce alone and writes its lane rows' lane-0 values to their
+    slots; the last block runs block_y_reduce's tree over the bh slots):
+    bit-equal; a left-to-right sum of the same slots is not, on some draw."""
+    rng = np.random.default_rng(bw * bh + lanes)
+    differs = False
+    for _ in range(50):
+        sums = (rng.standard_normal((bh, bw)) * 10.0 ** rng.integers(-3, 4, (bh, bw)))
+        sums = sums.astype(np.float32)
+        whole = _block_y(_block_x(sums, bw))[0, 0]
+        slots = np.empty(bh, dtype=np.float32)
+        for part in range(bh // lanes):
+            rows = slice(part * lanes, (part + 1) * lanes)
+            slots[rows] = _block_x(sums[rows], bw)[:, 0]
+        split = _block_y(slots[:, None])[0, 0]
+        assert whole.tobytes() == split.tobytes()
+        flat = np.float32(0.0)
+        for value in slots:
+            flat = np.float32(flat + value)
+        differs = differs or flat.tobytes() != whole.tobytes()
+    assert differs or bh <= 2
+
+
+def test_wrapper_makes_stages_launches_in_order():
+    """`run_stages`, the wrapper's launch sequence, on a stand-in library:
+    STAGES launches, stages 1, 2, 3 (the null rows' mean and deflation,
+    stages 3 and 4 before), the two GEMMs, then 5 and 6 with G; the
+    geometry and the plan's split passed in `red`; KERNEL_LAUNCHES counts
+    each; an error code raises."""
+    import ctypes
+
+    cg, st = _padded_state()
+    ins = tuple(st[k].clone() for k in NAMES)
+    lap = cg.lap(ins[2])
+    rows, n = ins[0].shape
+    red = k4.row_sum_config(rows, n)
+    plan = k4.split_plan(red, rows, lanes=1, depth=4)
+    calls = []
+
+    class Lib:
+        def dots_cg_step_f32(self, stage, *args):
+            red_c = args[22]
+            calls.append((stage, args[16] is not None, tuple(red_c[i] for i in range(13))))
+            return 0
+
+    before = k4.KERNEL_LAUNCHES
+    counter = torch.zeros(plan.counters, dtype=torch.int32)
+    k4.run_stages(Lib(), 0, counter, red, plan, lap, *ins, st["thresh"], 600, cg.leaves)
+    assert len(calls) == k4.STAGES == len(k4.STAGE_IDS) == len(k4.STAGE_NAMES)
+    assert [c[0] for c in calls] == list(k4.STAGE_IDS) == [1, 2, 3, 5, 6]
+    assert [c[1] for c in calls] == [False, False, False, True, True]
+    assert all(c[2] == (*red, 1, 4, 0) for c in calls)
+    assert k4.KERNEL_LAUNCHES == before + k4.STAGES
+
+    class Refused:
+        def dots_cg_step_f32(self, stage, *args):
+            return 1
+
+    with pytest.raises(RuntimeError, match="stage 1"):
+        k4.run_stages(Refused(), 0, counter, red, plan, lap, *ins, st["thresh"], 600, cg.leaves)
+    assert ctypes  # the geometry travels as a ctypes int array
+
+
+def test_k4_sweep_lists_every_split_and_needs_a_card():
+    """`scripts/k4_sweep.py`: its splits at n200 are the kernel's own
+    choice, then every split `split_plan` accepts, through a cluster and
+    through device memory; its stage bounds name STAGE_NAMES; without a
+    card it raises before timing anything."""
+    from dots_socp_torch.scripts import k4_sweep
+
+    splits = k4_sweep.plans(32, 46_431)
+    assert splits[0] == (None, None, None) and len(set(splits)) == len(splits)
+    red = k4.row_sum_config(32, 46_431)
+    for lanes, depth, cluster in splits[1:]:
+        assert k4.split_plan(red, 32, lanes=lanes, depth=depth, cluster=cluster).cluster == cluster
+    assert {c for *_, c in splits[1:]} == {False, True}
+    assert k4_sweep.plans(32, 46_431, default_only=True) == [(None, None, None)]
+    assert list(k4_sweep.stage_bounds_us(32, 46_431)) == list(k4.STAGE_NAMES)
+    lap, state, thresh, leaves = k4_sweep.random_cg_state(8, 700, "cpu", k=4)
+    assert lap.shape == state[0].shape == (8, 700) and float(leaves.null[-1]) == 1.0
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        k4_sweep.main([])

@@ -747,13 +747,14 @@ def test_graphed_n200_solve_with_k4_equals_eager():
 
 
 @pytest.mark.parametrize("rows, n", [(32, 46_431), (128, 46_431), (32, 194_814), (8, 700),
-                                     (8, 64)])
+                                     (8, 64), (32, 97_485), (33, 46_431)])
 def test_cg_step_row_sums_are_pytorchs(rows, n):
     """K4 sums each row as PyTorch's reduce kernel does (its geometry, its
     order): on random states of these shapes (one block per row, rows split
-    over 17 blocks, a warp per row, no 4-wide loads) den, rr, rz and the
-    null row's mean equal torch's `.sum(dim=1)` of the same products bit
-    for bit, and so do x, r, p."""
+    over 17 blocks, a warp per row, no 4-wide loads; n290; 33 rows, which
+    start at every offset mod 4) den, rr, rz and the null row's mean equal
+    torch's `.sum(dim=1)` of the same products bit for bit, and so do x,
+    r, p."""
     _need_cuda()
     from dots_socp_torch.ops import cg_step as k4
 
@@ -787,3 +788,40 @@ def test_cg_step_row_sums_are_pytorchs(rows, n):
         assert torch.equal(trace_k[key], trace_p[key]), key
     assert torch.equal(trace_k["mean"][-1], trace_p["mean"][-1])
     assert all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+
+
+@pytest.mark.parametrize("rows, n", [(32, 46_431), (33, 46_431), (32, 194_814)])
+def test_cg_step_every_split_is_bit_equal_and_leaves_counters_at_zero(rows, n):
+    """Every split `split_plan` accepts (lane rows per block, load depth,
+    hand-over through a cluster or device memory) at
+    n200 (32 and 33 rows) and n410 (rows split over 17 blocks): one call
+    launches STAGES kernels of K4 (profiler), every stage's outputs equal
+    the plain version's bit for bit, and every handshake counter is 0 after
+    the call."""
+    _need_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dots_socp_torch.ops import cg_step as k4
+    from dots_socp_torch.scripts import k4_sweep
+
+    lap, state, thresh, leaves = k4_sweep.random_cg_state(rows, n, "cuda", k=16)
+    trace_p = {}
+    k4.cg_step_plain(lap, *(t.clone() for t in state), thresh, 600, leaves, trace=trace_p)
+    splits = k4_sweep.plans(rows, n)
+    assert len(splits) >= 4
+    for lanes, depth, cluster in splits:
+        trace_k = {}
+        with k4.walk_plan(lanes, depth, cluster), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            k4.cg_step(lap, *(t.clone() for t in state), thresh, 600, leaves, trace=trace_k)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "cg_step_" in e.name]
+        split = (lanes, depth, cluster)
+        assert len(names) == k4.STAGES, (split, names)
+        assert int(k4._COUNTER[torch.device("cuda", torch.cuda.current_device())]
+                   .abs().sum()) == 0, split
+        for key in k4_sweep.TRACE_KEYS:
+            assert torch.equal(trace_k[key], trace_p[key]), (split, key)
+        assert torch.equal(trace_k["mean"][-1], trace_p["mean"][-1]), split
