@@ -198,6 +198,35 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                within the records' rule (`scripts.records.COST_RTOL`,
                `COST_ATOL`).
 
+20. mesh_loops -- the JAX package's device-resident loops on a mesh (the
+               CG's latched blocks, the iteration, table and adaptive
+               segments over each rank's graph workspace): on a 1x2 mesh of
+               spawned ranks every leg of MESH_LOOP_LEGS is solved through
+               the port's `solver` inside `graphs.eager()` (the host loops)
+               and then through the mesh loops. Over nccl (2 or more cards)
+               every segment must be a capture's replay (`captured`, and
+               the captures and their seconds per rank), over gloo (the one
+               card) none (`captured: false`, every segment op by op; the
+               phase within MESH_LOOPS_GLOO_SECONDS). Per rank and leg: phi
+               bit-equal to eager's (else within GRAPH_PHI_RTOL) and to rank
+               0's, the same iterations and validation points, B2's
+               launches (counted through the replays) equal to the window
+               matvecs on the n200 legs and none on n64's, no B1 or K4
+               launch; host reads and collectives per iteration and it/s
+               of both legs. Over nccl also, through one turn of
+               `scripts.bench_sharded_cg --loops` in each mode (n200, inner
+               rtol 5e-4, a 10- against a 50-iteration solve), host
+               synchronisations per iteration at most
+               MESH_SYNCS_MAX and launch calls at most MESH_LAUNCH_CALLS_MAX
+               through the mesh loops, beside eager's, and B2's device µs
+               per shard-call inside the solve. With four cards, the same
+               legs' checks on 2x2 at ntime 32.
+
+The sharded phases (7, 11, 12, 13) run through the same mesh loops, and
+phases 7, 11 and 12 report per rank the backend, the card count and
+whether the rank's segments were captured (over nccl they must be, over
+gloo they must not).
+
 Then the kernel summary line (a kernel's `launches` is the sum over the
 paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
 and the result line
@@ -205,14 +234,16 @@ and the result line
 Only the port (`dots_socp_torch`) is imported here. The port keeps its own
 copies of the host modules (geometry, data loading, interface), so neither
 `jax` nor the JAX package `dots_socp_tpu` is imported, here or in the ranks
-of phases 7, 11, 12 and 13, or by the drivers of phase 14: the script checks
+of phases 7, 11, 12, 13 and 20, or by the drivers of phase 14: the script checks
 `sys.modules` and fails otherwise.
 
     python3 chip_smoke.py --phase time_sharded_slice
 
-runs phases 1 and 2 and then the one phase named (12, 15, 16, 17, 18 or 19) with its checks,
-and prints no kernel or result line: phase 12 alone on a machine with four
-cards is the check of a `TxS` mesh over nccl.
+runs phases 1 and 2 and then the one phase named (12, 15, 16, 17, 18, 19 or 20; 7 and 11
+after phases 4 and 5, whose results they are held to) with its checks, and prints no
+kernel or result line: phase 12 alone on a machine with four cards is the check of a
+`TxS` mesh over nccl, phases 7, 11 and 20 alone on two or more the check of the
+captured mesh loops.
 """
 
 from __future__ import annotations
@@ -256,6 +287,7 @@ from dots_socp_torch.ops.laplacian import CG_COUNTERS, SpectralFactor, spectral_
 from dots_socp_torch.replication import log2table, main_versus_exact, sweep
 from dots_socp_torch.scripts import (
     bench_large,
+    bench_sharded_cg,
     common,
     bench_matvec,
     k4_sweep,
@@ -331,6 +363,21 @@ CG_STEP_SHAPE_REPS = 20
 # Kernel K4's launches on each path that drives the single-device CG, each
 # counted from 0 (`count_k4`).
 K4_PATHS = {}
+# Phase 20: the legs (name, plane n, ntime, iterations at most, tol) that every
+# rank of the 1x2 mesh solves inside `graphs.eager()` and then through the
+# mesh loops: over nccl (a card per rank) 100 iterations of n200, n200 to tol
+# 1e-4 and 200 of n64; over gloo (both ranks on the one card) the same paths
+# cut to stay within MESH_LOOPS_GLOO_SECONDS. With four cards also 2x2 at
+# ntime 32. Over nccl, n200's host synchronisations and launch calls per
+# iteration through the mesh loops, at most (eager: ~40 and thousands).
+MESH_LOOP_LEGS = {
+    "nccl": (("n200_100", 200, N_TIME, 100, 1e-4), ("n200_to_tol", 200, N_TIME, 4000, 1e-4),
+             ("n64_200", 64, N_TIME, 200, 1e-4)),
+    "gloo": (("n200_20", 200, N_TIME, 20, 1e-4), ("n64_100", 64, N_TIME, 100, 1e-4)),
+}
+MESH_LOOP_2X2 = ("n200_ntime32_100", 200, N_TIME_MESH, 100, 1e-4)
+MESH_LOOPS_GLOO_SECONDS = 90
+MESH_SYNCS_MAX, MESH_LAUNCH_CALLS_MAX = 8, 25
 SWEEP_TIME_LIMIT = 20  # seconds per run of the replication sweep
 PROFILE_MAX_BYTES = 200e6
 # Phase 14: (name, the driver's main, its arguments), in the order they run.
@@ -622,10 +669,12 @@ def _mesh_rank(rank, world, port, backend, n_space, nit, mesh_shape, n_time, res
         sharded_window.KERNEL_LAUNCHES = 0
         reset_counts()
         COUNTS.reset()
+        before = graphs.STATS.snapshot()
         solution, history, stats = run_cli(
             n_space, nit, ["--mesh_shape", mesh_shape, "--dist_backend", backend], n_time)
         results.put((rank, {
-            **stats, "launches": sharded_window.KERNEL_LAUNCHES,
+            **stats, **_capture_stats(graphs.STATS.since(before)),
+            "launches": sharded_window.KERNEL_LAUNCHES,
             "b1_launches": window_spmv.KERNEL_LAUNCHES, "k4_launches": cg_step.KERNEL_LAUNCHES,
             "cg": dict(vars(CG_COUNTERS)),
             "collectives": COUNTS.snapshot(),
@@ -638,21 +687,29 @@ def _mesh_rank(rank, world, port, backend, n_space, nit, mesh_shape, n_time, res
         raise
 
 
-def run_ranks(phase, n_space, nit, kkt_unsharded, mesh_shape=f"1x{SHARDS_SLICE}",
-              world=SHARDS_SLICE, n_time=N_TIME):
-    """The port's CLI on `world` spawned ranks with --mesh_shape `mesh_shape`;
-    (backend, per-rank outputs in rank order), each with its KKT history, its
-    stop-set errors, the largest relative difference of its final KKT table
-    from `kkt_unsharded` and of its phi from rank 0's (0.0: bit-equal). A
-    rank that fails, hangs or imports jax fails the phase, and no rank is
-    left running."""
-    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+def _capture_stats(stats):
+    """A rank's graph work in a phase (`graphs.STATS.since`): whether its
+    segments were captured (over nccl), its captures and their seconds, and
+    its segment runs made op by op (over gloo)."""
+    return {"captured": stats["captures"] > 0 and stats["uncaptured_runs"] == 0,
+            "captures": stats["captures"], "capture_seconds": stats["capture_seconds"],
+            "uncaptured_runs": stats["uncaptured_runs"]}
+
+
+def mesh_backend(world):
+    """nccl with a card per rank, else gloo (every rank on the one card)."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def spawn_ranks(phase, world, target, args):
+    """`target(rank, world, port, *args, results)` in `world` spawned
+    processes; their outputs in rank order. A rank that fails, hangs or
+    exits with an error fails the phase, and no rank is left running."""
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_mesh_rank,
-                         args=(r, world, port, backend, n_space, nit, mesh_shape, n_time, results))
+    procs = [ctx.Process(target=target, args=(r, world, port, *args, results))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -673,6 +730,21 @@ def run_ranks(phase, n_space, nit, kkt_unsharded, mesh_shape=f"1x{SHARDS_SLICE}"
                 p.join()
     if any(p.exitcode != 0 for p in procs):
         raise AssertionError(f"{phase} ranks exited {[p.exitcode for p in procs]}")
+    return [ranks[r] for r in range(world)]
+
+
+def run_ranks(phase, n_space, nit, kkt_unsharded, mesh_shape=f"1x{SHARDS_SLICE}",
+              world=SHARDS_SLICE, n_time=N_TIME):
+    """The port's CLI on `world` spawned ranks with --mesh_shape `mesh_shape`;
+    (backend, per-rank outputs in rank order), each with its KKT history, its
+    stop-set errors, the largest relative difference of its final KKT table
+    from `kkt_unsharded` and of its phi from rank 0's (0.0: bit-equal), and
+    whether its segments were captured. A rank that fails, hangs or imports
+    jax fails the phase, a rank over nccl that did not capture or over gloo
+    that did fails it too, and no rank is left running."""
+    backend = mesh_backend(world)
+    ranks = spawn_ranks(phase, world, _mesh_rank,
+                        (backend, n_space, nit, mesh_shape, n_time))
     outs = []
     phi0 = ranks[0]["phi"]
     for rank in range(world):
@@ -690,8 +762,18 @@ def run_ranks(phase, n_space, nit, kkt_unsharded, mesh_shape=f"1x{SHARDS_SLICE}"
             raise AssertionError(f"{phase} rank {rank} imported {out['forbidden_imports']}")
         if out["k4_launches"]:  # a mesh keeps the torch route
             raise AssertionError(f"{phase} rank {rank} launched K4 {out['k4_launches']} times")
+        check_captured(phase, rank, backend, out)
         outs.append(out)
     return backend, outs
+
+
+def check_captured(phase, rank, backend, stats):
+    """Over nccl every segment is a capture's replay; over gloo none is
+    captured, every segment runs op by op. Nothing falls back."""
+    if backend == "nccl" and not stats["captured"]:
+        raise AssertionError(f"{phase} rank {rank}: nccl mesh not captured: {stats}")
+    if backend == "gloo" and (stats["captures"] or not stats["uncaptured_runs"]):
+        raise AssertionError(f"{phase} rank {rank}: gloo mesh captured or ran no segment: {stats}")
 
 
 def _printable(outs):
@@ -773,12 +855,14 @@ def phase_dryrun(card):
     emit("dryrun", **out, card=card)
     if not all(r.get("b2_launches", 0) > 0 and r["b1_launches"] == 0 for r in out["ranks"]):
         raise AssertionError(f"the dry run's refined CG path did not launch B2 alone: {out}")
+    for rank, r in enumerate(out["ranks"]):  # gloo: every segment op by op
+        check_captured("dryrun", rank, r["backend"], {**r, "captured": r["captures"] > 0})
 
 
 def phase_sharded_spectral(card, kkt_single):
     backend, outs = run_ranks("sharded_spectral", 64, 200, kkt_single)
-    emit("sharded_spectral", backend=backend, ranks=SHARDS_SLICE, per_rank=_printable(outs),
-         card=card)
+    emit("sharded_spectral", backend=backend, ranks=SHARDS_SLICE, cards=torch.cuda.device_count(),
+         per_rank=_printable(outs), card=card)
     for rank, out in enumerate(outs):
         if out["cg"]["solves"] or out["launches"] or out["b1_launches"]:
             raise AssertionError(f"rank {rank}: the sharded n64 solve took the CG path: {out['cg']}")
@@ -1286,10 +1370,131 @@ def phase_cg_step(card):
             "bound_ms": bound["ms"], "bound_by": bound["by"], "library_ms": None}
 
 
+def _loops_rank(rank, world, port, backend, mesh_shape, legs, profile, results):
+    """One rank of phase 20 (a spawned process): the mesh brought up once,
+    then every leg solved through the port's `solver` inside `graphs.eager()`
+    and then through the mesh loops; per leg and mode its counts, its
+    validation points, its phi; with `profile`, n200's host calls per
+    iteration in both modes (`bench_sharded_cg.loop_turn`: a BASE- against
+    a (BASE + ITERS)-iteration solve, inner rtol 5e-4)."""
+    from dots_socp_torch.parallel import distributed as pd
+    from dots_socp_torch.solver import solver
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    try:
+        pd.initialize_distributed(backend)
+        mesh = pd.make_solver_mesh(mesh_shape, device="cuda")
+        out = {"legs": {}}
+        for name, n_space, n_time, nit, tol in legs:
+            geometry = cli.load_geometry("plane", n_space)
+            for mode in ("eager", "loops"):
+                sharded_window.KERNEL_LAUNCHES = 0
+                reset_counts()
+                COUNTS.reset()
+                before, reads = graphs.STATS.snapshot(), graphs.HOST_READS
+                with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                    solution, history = solver(n_time, geometry, nit=nit, tol=tol,
+                                               time_limit=3000, precision="float32", mesh=mesh)
+                torch.cuda.synchronize()
+                its = int(history.kkt_iteration[-1]) + 1
+                out["legs"].setdefault(name, {})[mode] = {
+                    "iterations": its, "validation_points": np.asarray(history.kkt_iteration),
+                    "converged": bool(np.all(history.get_current_kkt_errors() < tol)),
+                    "it_per_s": its / history.running_time, "solve_seconds": history.running_time,
+                    "b2_launches": sharded_window.KERNEL_LAUNCHES,
+                    "window_matvecs": CG_COUNTERS.window_matvecs,
+                    "b1_launches": window_spmv.KERNEL_LAUNCHES,
+                    "k4_launches": cg_step.KERNEL_LAUNCHES,
+                    "inner_cg_per_outer": CG_COUNTERS.iterations / max(CG_COUNTERS.solves, 1),
+                    "host_reads_per_iteration":
+                        (graphs.HOST_READS - reads + CG_COUNTERS.flag_reads) / its,
+                    "collectives_per_iteration": sum(COUNTS.calls.values()) / its,
+                    **_capture_stats(graphs.STATS.since(before)),
+                    "phi": solution["phi"],
+                }
+        if profile:
+            geometry = cli.load_geometry("plane", 200)
+            kw = dict(n_time=profile_slice.N_TIME, mesh=mesh, device="cuda")
+            out["per_iteration"] = {}
+            for mode in ("eager", "loops"):
+                with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                    out["per_iteration"][mode] = bench_sharded_cg.loop_turn(
+                        geometry, kw, profile_slice.BASE, profile_slice.BASE + profile_slice.ITERS,
+                        on_card=True)["per_iteration"]
+        out["forbidden_imports"] = forbidden_imports()
+        results.put((rank, out))
+    except BaseException as err:  # reported to the parent, which fails
+        results.put((rank, {"error": repr(err)}))
+        raise
+
+
+def phase_mesh_loops(card):
+    """Phase 20. Returns B2's launches in it."""
+    t0, b2 = time.perf_counter(), 0
+    backend = mesh_backend(SHARDS_SLICE)
+    meshes = [(f"1x{SHARDS_SLICE}", SHARDS_SLICE, MESH_LOOP_LEGS[backend], backend == "nccl")]
+    if torch.cuda.device_count() >= 4:
+        meshes.append(("2x2", 4, (MESH_LOOP_2X2,), False))
+    for shape, world, legs, profile in meshes:
+        outs = spawn_ranks("mesh_loops", world, _loops_rank,
+                           (mesh_backend(world), shape, legs, profile))
+        phi0 = {name: outs[0]["legs"][name]["loops"]["phi"] for name, *_ in legs}
+        for rank, out in enumerate(outs):
+            if out["forbidden_imports"]:
+                raise AssertionError(f"mesh_loops rank {rank} imported {out['forbidden_imports']}")
+            for name, n_space, *_ in legs:
+                leg = out["legs"][name]
+                eager, loops = leg["eager"], leg["loops"]
+                phi_e, phi_l = eager.pop("phi"), loops.pop("phi")
+                points = [run.pop("validation_points") for run in (eager, loops)]
+                leg.update(phi_bit_equal=bool(np.array_equal(phi_l, phi_e)),
+                           phi_rel=_rel_diff(phi_l, phi_e),
+                           same_validation_points=bool(np.array_equal(*points)),
+                           validations=len(points[1]),
+                           phi_bit_equal_rank0=bool(np.array_equal(phi_l, phi0[name])))
+                check_captured("mesh_loops", rank, mesh_backend(world), loops)
+                where = f"mesh_loops {shape} {name} rank {rank}"
+                if eager["captures"]:
+                    raise AssertionError(f"{where}: the eager leg captured {eager['captures']}")
+                if not (leg["phi_bit_equal"] or leg["phi_rel"] <= GRAPH_PHI_RTOL):
+                    raise AssertionError(f"{where}: phi is {leg['phi_rel']} off the eager one")
+                if not (leg["same_validation_points"]
+                        and loops["iterations"] == eager["iterations"]):
+                    raise AssertionError(f"{where}: {loops['iterations']} iterations against "
+                                         f"{eager['iterations']}, or other validation points")
+                if not leg["phi_bit_equal_rank0"]:
+                    raise AssertionError(f"{where}: phi differs from rank 0's")
+                for mode, run in (("eager", eager), ("loops", loops)):
+                    if not (run["b2_launches"] == run["window_matvecs"]
+                            and (run["b2_launches"] > 0) == (n_space == 200)
+                            and run["b1_launches"] == run["k4_launches"] == 0):
+                        raise AssertionError(f"{where} {mode}: B2 {run['b2_launches']} against "
+                                             f"{run['window_matvecs']} window matvecs, B1 "
+                                             f"{run['b1_launches']}, K4 {run['k4_launches']}")
+                    b2 += run["b2_launches"]
+            calls = out.get("per_iteration", {}).get("loops")
+            if calls and not (calls["host_syncs"] <= MESH_SYNCS_MAX
+                              and calls["host_launch_calls"] <= MESH_LAUNCH_CALLS_MAX):
+                raise AssertionError(f"mesh_loops {shape} rank {rank}: per n200 iteration {calls}")
+        emit("mesh_loops", mesh=shape, backend=mesh_backend(world), ranks=world,
+             cards=torch.cuda.device_count(), per_rank=outs, card=card)
+    seconds = time.perf_counter() - t0
+    emit("mesh_loops", backend=backend, phase_seconds=seconds, b2_launches=b2, card=card)
+    if backend == "gloo" and seconds > MESH_LOOPS_GLOO_SECONDS:
+        raise AssertionError(f"mesh_loops over gloo took {seconds} s, more than "
+                             f"{MESH_LOOPS_GLOO_SECONDS}")
+    return b2
+
+
 def main(argv=None):
     alone = {"time_sharded_slice": phase_time_sharded_slice, "wide_slice": phase_wide_slice,
              "spectral_records": phase_spectral_records, "graphs": phase_graphs,
-             "adaptive": phase_adaptive, "cg_step": phase_cg_step}
+             "adaptive": phase_adaptive, "cg_step": phase_cg_step,
+             "mesh_loops": phase_mesh_loops,
+             # The sharded phases 7 and 11 after the unsharded runs they are held to.
+             "sharded_slice": lambda card: phase_sharded_slice(card, phase_slice(card)[1]),
+             "sharded_spectral": lambda card: phase_sharded_spectral(card, phase_spectral(card))}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=sorted(alone),
                     help="run the device and build phases and then this phase alone")
@@ -1326,6 +1531,7 @@ def main(argv=None):
     b1_paths["graphs"] = phase_graphs(card)
     b1_paths["adaptive"] = phase_adaptive(card)
     fused = phase_cg_step(card)
+    b2_loops = phase_mesh_loops(card)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_128["max_abs_err"])
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
@@ -1342,8 +1548,9 @@ def main(argv=None):
         "route": "cuda",
         "source": "dots_socp_torch/ops/csrc/window_spmv.cu",
         "replaces": "dots_socp_tpu/ops/sharded_window.py:430",
-        "launches": sharded_launches + b2_time,
-        "launches_by_path": {"sharded_slice": sharded_launches, "time_sharded_slice": b2_time},
+        "launches": sharded_launches + b2_time + b2_loops,
+        "launches_by_path": {"sharded_slice": sharded_launches, "time_sharded_slice": b2_time,
+                             "mesh_loops": b2_loops},
         **sharded,
     }, {
         "name": "cg_step",

@@ -23,7 +23,16 @@ Public API, the same contract as the JAX package:
   solver(n_time, geometry, device="cuda", **kw) -> (SolutionDotData, RunningHistory)
 """
 
+import os as _os
+
 __version__ = "0.1.0"
+
+# torch.profiler (Kineto) by default tears CUPTI down after every session and
+# sets it up again at the next; a session then records no device event now
+# and then, several in a row (`scripts/profiler_loss.py`). The port keeps
+# CUPTI up between sessions, as PyTorch's profiler itself does beside CUDA
+# graphs on older CUDA; a value the caller set stays.
+_os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 _LAZY = {
     "solver": "dots_socp_torch.solver",

@@ -118,14 +118,20 @@ def _dryrun_on_mesh(mesh, time_axis, space_axis, device):
 
 
 def _dryrun_rank(time_axis, space_axis, device):
-    """One rank of the dry run (a spawned process, its process group up)."""
+    """One rank of the dry run (a spawned process, its process group up);
+    its numbers, with its graph work (`graphs.STATS`: over gloo no capture,
+    every segment op by op)."""
+    from dots_socp_torch.ops import graphs
     from dots_socp_torch.parallel.distributed import make_solver_mesh
 
     mesh = make_solver_mesh((time_axis, space_axis), device=device)
+    before = graphs.STATS.snapshot()
     out = _dryrun_on_mesh(mesh, time_axis, space_axis, device)
     if mesh.device.type == "cuda":
         torch.cuda.synchronize()
-    return out
+    stats = graphs.STATS.since(before)
+    return {**out, "backend": mesh.backend, "captures": stats["captures"],
+            "uncaptured_runs": stats["uncaptured_runs"]}
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda", timeout: float = RANK_TIMEOUT) -> dict:

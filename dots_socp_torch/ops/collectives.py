@@ -17,13 +17,22 @@ one process. The single-device path therefore makes no call at all, and a
 
 Every call is counted in `COUNTS` by axis and kind with the bytes of its
 result on this rank (`scripts.bench_sharded_cg` reads the counts; nothing
-in the solve does).
+in the solve does). A call inside a captured segment is counted once at
+the capture, where nothing runs; the count is replayed with the graph
+(`ops.graphs.register_counter`), so `COUNTS` holds the calls that ran.
+
+Every device collective can be captured into a CUDA graph over nccl: one
+call on preallocated tensors, no Python list of outputs, no host read.
+`space_any`, `rank0_decides` and `object_from_rank0` read the host; they
+run between segments only, and raise inside one (`ops.graphs.host_side`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from dots_socp_torch.ops import graphs
 
 
 class CollectiveCounts:
@@ -45,8 +54,13 @@ class CollectiveCounts:
     def snapshot(self) -> dict:
         return {"calls": dict(self.calls), "bytes": dict(self.bytes)}
 
+    def restore(self, snapshot: dict):
+        """Set the counts to a `snapshot`'s."""
+        self.calls, self.bytes = dict(snapshot["calls"]), dict(snapshot["bytes"])
+
 
 COUNTS = CollectiveCounts()
+graphs.register_counter(COUNTS.snapshot, COUNTS.restore)
 
 
 def _sharded(mesh) -> bool:
@@ -69,10 +83,15 @@ def _all_reduce(x, op, group, key):
 
 
 def _all_gather(x, n, group, dim, key):
+    """The `n` ranks' `x` concatenated along `dim`: one all-gather into one
+    buffer, the ranks' blocks stacked along its first axis, then moved to
+    `dim` (a copy unless `dim` is the first)."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
-    out = torch.cat(parts, dim=dim)
+    dim = dim % x.dim()
+    buf = torch.empty((n * x.shape[0],) + x.shape[1:], dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(buf, x, group=group)
+    out = buf.view((n,) + x.shape).movedim(0, dim)
+    out = out.reshape(x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:])
     COUNTS.add(key, out)
     return out
 
@@ -96,7 +115,9 @@ def space_any(mask, mesh) -> bool:
     """True when `mask` has a set entry on any shard. One MAX all-reduce of
     a one-element flag, then one host read: every rank reads the same value,
     so a host loop guarded by it runs the same number of times everywhere
-    (where the JAX package's `lax.while_loop` predicate is global)."""
+    (where the JAX package's `lax.while_loop` predicate is global). Between
+    segments only."""
+    graphs.host_side("space_any")
     if not _sharded(mesh):
         return bool(mask.any())
     return bool(space_max(mask.any().to(torch.float32).reshape(1), mesh).item() > 0)
@@ -153,7 +174,9 @@ def from_rank0(x, mesh):
 
 
 def rank0_decides(flag: bool, mesh) -> bool:
-    """World rank 0's host boolean on every rank (the wall-clock test)."""
+    """World rank 0's host boolean on every rank (the wall-clock test).
+    Between segments only."""
+    graphs.host_side("rank0_decides")
     if not _many(mesh):
         return bool(flag)
     t = torch.tensor([1.0 if flag else 0.0], device=mesh.device)
@@ -162,7 +185,9 @@ def rank0_decides(flag: bool, mesh) -> bool:
 
 def object_from_rank0(make, mesh):
     """`make()` run on world rank 0 only and its (picklable) result sent to
-    every rank; the other ranks wait. With no mesh, `make()` runs here."""
+    every rank; the other ranks wait. With no mesh, `make()` runs here.
+    Between segments only."""
+    graphs.host_side("object_from_rank0")
     if not _many(mesh):
         return make()
     box = [make() if mesh.world_rank == 0 else None]

@@ -1,4 +1,5 @@
-"""CUDA graphs for the single-device loops: capture once, replay.
+"""CUDA graphs for the solver's loops, on one device and on a mesh: capture
+once, replay.
 
 The JAX package runs its loops on the device: `run_chunk` is one jitted
 `lax.fori_loop` over the iterations (`dots_socp_tpu/solver/step.py:173-179`)
@@ -51,6 +52,21 @@ the graphed loops against it). `uncaptured()` keeps the buffers and the
 cache but runs every segment as on the CPU, op by op, on the card too: the
 same loops' launches made from the host, which the card tests count
 against the replays'.
+
+On a mesh (`Workspace(..., mesh=...)`, one per rank) a segment holds the
+mesh's collectives. Over nccl (one card per rank) they are captured with
+the rest: the warm-up runs them on every rank, the capture records them
+(`capture_error_mode="thread_local"`: ProcessGroupNCCL's watchdog thread
+queries CUDA events meanwhile), and every replay runs them. A capture is
+collective: every rank of the workspace's group (the CG's: its space
+group; the iteration's: the world) captures the same segments in the same
+order, and after each they agree on its outcome, so a capture that fails
+on one rank raises on every rank. gloo's collectives cannot be captured:
+a gloo mesh runs its workspace's segments op by op, as `uncaptured()`
+does, on the card and on the CPU alike (`STATS.uncaptured_runs` counts
+them). A host-side collective (`ops.collectives.space_any`,
+`rank0_decides`, `object_from_rank0`) reads the host, so it raises inside
+any segment (`host_side`).
 """
 
 from __future__ import annotations
@@ -58,9 +74,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import operator
 import time
 
 import torch
+import torch.distributed as dist
 
 #: Objects kept by `cached` (least recently used dropped first): a solve
 #: holds its iteration's and its CG's.
@@ -71,6 +89,7 @@ _CAPTURE = True
 _CACHE: collections.OrderedDict = collections.OrderedDict()
 _COUNTERS: list = []  # (read, write) of every registered host counter
 _STAGING: dict = {}  # (device, shape, dtype) -> (pinned host tensor, event) of `read`
+_SEGMENT = None  # the name of the segment being run, None between segments
 
 #: Host reads of device values through `read` in this process.
 HOST_READS = 0
@@ -83,6 +102,7 @@ class GraphStats:
     captures: int = 0  # segments captured (`Workspace._capture`)
     capture_seconds: float = 0.0  # host seconds in those captures
     cache_misses: int = 0  # objects `cached` had to make
+    uncaptured_runs: int = 0  # segment runs made op by op (the CPU, `uncaptured()`, gloo)
 
     def snapshot(self) -> dict:
         return dict(vars(self))
@@ -96,7 +116,8 @@ STATS = GraphStats()
 
 
 def register_counter(read, write):
-    """Count a host counter (`read()` -> int, `write(int)`) through replays."""
+    """Count a host counter through replays: `read()` returns its value, a
+    number or a dict of them (nested), and `write(value)` sets it."""
     _COUNTERS.append((read, write))
 
 
@@ -107,6 +128,53 @@ def _counter_values():
 def _set_counters(values):
     for (_, write), value in zip(_COUNTERS, values):
         write(value)
+
+
+def _combine(a, b, op):
+    """`op(a, b)` of two counter values, key by key in dicts (a key that one
+    side lacks counts 0 there)."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        a, b = a or {}, b or {}
+        return {k: _combine(a.get(k, 0), b.get(k, 0), op) for k in a.keys() | b.keys()}
+    return op(a, b)
+
+
+def host_side(what: str):
+    """Raise inside a segment: `what` reads a value on the host, which a
+    segment's capture cannot hold and its replays would not repeat."""
+    if _SEGMENT is not None:
+        raise RuntimeError(f"{what} reads the host: it cannot run inside segment {_SEGMENT!r}")
+
+
+@contextlib.contextmanager
+def _in_segment(name):
+    global _SEGMENT
+    before, _SEGMENT = _SEGMENT, name
+    try:
+        yield
+    finally:
+        _SEGMENT = before
+
+
+def _capturable(device, mesh) -> bool:
+    """Whether segments on `device` (this rank's of `mesh`) can be CUDA
+    graphs: on the card, with no mesh or over nccl."""
+    return torch.device(device).type == "cuda" and (mesh is None or mesh.capturable)
+
+
+def will_capture(device, mesh=None) -> bool:
+    """Whether a segment on `device` (this rank's of `mesh`) runs as a CUDA
+    graph replay here: `_capturable`, outside `eager()` and `uncaptured()`."""
+    return _ENABLED and _CAPTURE and _capturable(device, mesh)
+
+
+def mesh_key(mesh):
+    """What a cached object on `mesh` is keyed by besides its tensors: the
+    mesh's place and its process groups (None: one device)."""
+    if mesh is None:
+        return None
+    return (mesh.time, mesh.space, mesh.time_rank, mesh.rank,
+            *(id(g) for g in (mesh.group, mesh.time_group, mesh.world_group)))
 
 
 def enabled() -> bool:
@@ -204,11 +272,17 @@ def release():
 
 
 class Workspace:
-    """Static buffers on one device and the segments captured over them."""
+    """Static buffers on one device and the segments captured over them;
+    with `mesh`, this rank's of a mesh (captured over nccl, op by op over
+    gloo). `group`: the process group whose ranks run the same segments in
+    step (the collectives' widest group), which agree on every capture's
+    outcome; None: no other rank."""
 
-    def __init__(self, device, in_place=()):
+    def __init__(self, device, in_place=(), mesh=None, group=None):
         self.device = torch.device(device)
         self.in_place = frozenset(in_place)  # segments that also update buffers in place
+        self.mesh, self.group = mesh, group
+        self.captures = _capturable(self.device, mesh)
         self.bufs: dict = {}
         self._graphs: dict = {}
         self._pool = None
@@ -229,21 +303,25 @@ class Workspace:
         """Write `fn(self.bufs)`'s values into the buffers (a segment of
         `in_place` may also update them in place and return them)."""
         if not _ENABLED:
-            self.bufs.update(fn(self.bufs))
+            with _in_segment(name):
+                self.bufs.update(fn(self.bufs))
             return
         for key, t in self.bufs.items():
             if t.device != self.device:
                 raise ValueError(f"segment {name}: buffer {key} is on {t.device}, "
                                  f"the workspace on {self.device}")
-        if self.device.type != "cuda" or not _CAPTURE:
-            self._write(fn(self.bufs))
+        if not (self.captures and _CAPTURE):
+            STATS.uncaptured_runs += 1
+            with _in_segment(name):
+                self._write(fn(self.bufs))
             return
         captured = self._graphs.get(name)
         if captured is None:
-            captured = self._capture(name, fn)
+            with _in_segment(name):
+                captured = self._capture(name, fn)
         graph, ticks = captured
         graph.replay()
-        _set_counters([v + t for v, t in zip(_counter_values(), ticks)])
+        _set_counters([_combine(v, t, operator.add) for v, t in zip(_counter_values(), ticks)])
 
     def drop(self, segment, *buffers):
         """Forget the captured `segment` and the named buffers (made anew
@@ -279,16 +357,35 @@ class Workspace:
             self._pool = torch.cuda.graph_pool_handle()
         before = _counter_values()
         graph = torch.cuda.CUDAGraph()
+        # On a mesh, other threads (ProcessGroupNCCL's watchdog) query CUDA
+        # events during the capture: only this thread's calls may not.
+        mode = "global" if self.mesh is None else "thread_local"
+        failed = None
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=mode):
                 self._write(fn(self.bufs))
-            ticks = [a - b for a, b in zip(_counter_values(), before)]
+            ticks = [_combine(a, b, operator.sub) for a, b in zip(_counter_values(), before)]
+        except Exception as err:  # raised below, once every rank of a mesh knows
+            failed = err
         finally:
             _set_counters(before)  # the capture launched nothing
+        if self.group is not None:
+            self._agree(name, failed)
+        if failed is not None:
+            raise failed
         self._graphs[name] = (graph, ticks)
         STATS.captures += 1
         STATS.capture_seconds += time.perf_counter() - t0
         return graph, ticks
+
+    def _agree(self, name, failed):
+        """Every rank of `group` learns whether any rank's capture of `name`
+        failed (one MAX all-reduce outside the capture); a rank whose own
+        capture went through raises for the others."""
+        flag = torch.tensor([0.0 if failed is None else 1.0], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        if failed is None and flag.item() > 0:
+            raise RuntimeError(f"segment {name}: the capture failed on another rank of the mesh")
 
 
 def _check_fits(name, buf, value):

@@ -292,10 +292,11 @@ class CGCounters:
     iterations: int = 0  # inner CG iterations, every pass included
     window_matvecs: int = 0  # matvecs through the window SpMV (B1 or B2)
     fused_steps: int = 0  # inner iterations through `ops.cg_step` (no-ops included)
+    flag_reads: int = 0  # the loops' reads of a flag on the host (blocks, passes, iterations)
 
     def reset(self):
         self.solves = self.refined_solves = self.iterations = 0
-        self.window_matvecs = self.fused_steps = 0
+        self.window_matvecs = self.fused_steps = self.flag_reads = 0
 
 
 CG_COUNTERS = CGCounters()
@@ -620,33 +621,37 @@ def cg_solve(
     singular row every iteration, and the breakdown guard (den <= 0 freezes
     the row). `rtol=None` reads `op.rtol`.
 
-    On one device (`mesh` None) the inner loop carries the reference's
-    `lax.while_loop` predicate on the device as a latched flag,
-    live = any(rr > thresh) & (it < max_iters): every update of an
-    iteration is gated by it, so an iteration after convergence is an exact
-    no-op, and the iterations are counted on the device. The body runs in
-    blocks of `CG_BLOCK` iterations, and the host reads
-    the flag once per block; on the card each block, and the set-up and
-    finish around it, is a CUDA graph replay (`ops.graphs`). The same
-    inputs give the same x and count for every block length, and the same
-    as the host loop below. The refinement keeps one host read per pass,
-    the f64 check after it (1-2 passes after a warm start); the first
-    pass's check rides with its first block's flags (`_BlockedCG`).
+    The inner loop carries the reference's `lax.while_loop` predicate on
+    the device as a latched flag, live = any(rr > thresh) & (it <
+    max_iters): every update of an iteration is gated by it, so an
+    iteration after convergence is an exact no-op, and the iterations are
+    counted on the device. The body runs in blocks of `CG_BLOCK`
+    iterations, and the host reads the flag once per block; on the card
+    each block, and the set-up and finish around it, is a CUDA graph replay
+    (`ops.graphs`). The same inputs give the same x and count for every
+    block length, and the same as the host loop below. The refinement keeps
+    one host read per pass, the f64 check after it (1-2 passes after a warm
+    start); the first pass's check rides with its first block's flags
+    (`_BlockedCG`). On a mesh (`mesh` given; on one shard of a
+    space-sharded problem with `halo`, the arrays the shard's) the flags
+    come from all-reduced sums (rr, the thresholds' row sums, the f64
+    check's), so every rank reads the same flags without a collective of
+    their own and runs the same blocks; over nccl the segments, their
+    collectives inside, are CUDA graph replays, over gloo they run op by op.
 
     On one card, with the window SpMV in float32, each inner iteration after
     its matvec is kernel K4 (`ops.cg_step`, five launches and the two
     deflation GEMMs) in both loops, graphed and eager; elsewhere, and inside
     `cg_step.torch_route()`, it is `_CGSystem.gated_step`'s torch ops.
 
-    On a mesh (`mesh` given; on one shard of a space-sharded problem with
-    `halo`, the arrays the shard's), and inside `graphs.eager()`: the
-    loops read one flag on the host per iteration, on a mesh the same on
-    every rank (`space_any`), so all ranks run the same iterations and make
-    the same collective calls. The matvec is kernel B2 on the shard's window
-    (`op.swindow`) in the f32 work dtype, else the halo incidence form;
-    every row sum, dot product and deflation product is summed over the
-    shards. The refinement's f64 true residual then goes through
-    `laplacian_apply(ops_hi, ..., halo)`, in native FP64.
+    Inside `graphs.eager()` the loops read one flag on the host per
+    iteration (`_cg_solve_hosted`), on a mesh the same on every rank
+    (`space_any`): the reference the blocked loops are held to. On a shard
+    the matvec is kernel B2 on the shard's window (`op.swindow`) in the f32
+    work dtype, else the halo incidence form; every row sum, dot product
+    and deflation product is summed over the shards. The refinement's f64
+    true residual then goes through `laplacian_apply(ops_hi, ..., halo)`,
+    in native FP64.
 
     Mixed-precision refinement, when the operator carries float64 leaves:
     the true residual r = b - A x is evaluated in f64 with the f64 ELL matvec
@@ -658,13 +663,13 @@ def cg_solve(
     if rtol is None:
         rtol = op.rtol
     rtol = torch.as_tensor(rtol, dtype=rhs.dtype, device=rhs.device)
-    if mesh is None and halo is None and graphs.enabled():
+    if graphs.enabled():
         block = CG_BLOCK
-        keep = graphs.leaves(ops, op._replace(rtol=None))
-        key = ("cg", rhs.shape, rhs.dtype, rhs.device,
-               None if x0 is None else x0.dtype, int(max_iters), block, fused.enabled())
-        solver = graphs.cached(
-            key, lambda: _BlockedCG(ops, op, rhs, x0 is not None, int(max_iters), block), keep)
+        keep = graphs.leaves(ops, op._replace(rtol=None), halo, ops_hi)
+        key = ("cg", rhs.shape, rhs.dtype, rhs.device, None if x0 is None else x0.dtype,
+               int(max_iters), block, fused.enabled(), graphs.mesh_key(mesh))
+        solver = graphs.cached(key, lambda: _BlockedCG(
+            ops, op, rhs, x0 is not None, int(max_iters), block, halo, mesh, ops_hi), keep)
         x, iters = solver.solve(rhs, x0, rtol)
         x = x.clone()  # the workspace's buffer, which the next solve overwrites
     else:
@@ -865,8 +870,8 @@ def _fused_route(cg, device) -> bool:
 
 def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
     """`cg_solve` with its loops on the host: one flag read per inner
-    iteration and per refinement pass (on a mesh the same on every rank).
-    Returns (x, iters)."""
+    iteration and per refinement pass (on a mesh the same on every rank,
+    `space_any`). Returns (x, iters)."""
     cg = _CGSystem(ops, op, rhs.dtype, halo, mesh, ops_hi)
 
     def pcg_core(b, x, thresh):
@@ -877,6 +882,7 @@ def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
         it = 0
         while it < max_iters:
             active = rr > thresh
+            CG_COUNTERS.flag_reads += 1
             if not space_any(active, mesh):
                 break
             if cg.fused:
@@ -908,6 +914,7 @@ def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
     total = 0
     for _ in range(MAX_REFINE):
         r64 = cg.deflate(b64 - cg.matvec_hi(x64))
+        CG_COUNTERS.flag_reads += 1
         if not space_any(cg.row_sums(r64 * r64) > thresh64, mesh):
             break
         r_w = r64.to(cg.work)
@@ -919,9 +926,10 @@ def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
 
 
 class _BlockedCG:
-    """`cg_solve` on one device for one operator and shape: the latched
-    inner loop in blocks of `block` iterations, over the static buffers of a
-    `graphs.Workspace` (one CUDA graph per segment on the card).
+    """`cg_solve` for one operator, shape and layout (one device, or this
+    rank's shard of a mesh): the latched inner loop in blocks of `block`
+    iterations, over the static buffers of a `graphs.Workspace` (one CUDA
+    graph per segment on the card, over nccl on a mesh).
 
     Segments and the host's reads between them (refinement):
       start  -- the eigenbasis right-hand side, x64, the thresholds, the
@@ -942,12 +950,15 @@ class _BlockedCG:
     a host read per solve at the risk of one block of no-ops.
     """
 
-    def __init__(self, ops, op, rhs, has_x0, max_iters, block):
-        self.cg = _CGSystem(ops, op, rhs.dtype)
+    def __init__(self, ops, op, rhs, has_x0, max_iters, block, halo=None, mesh=None,
+                 ops_hi=None):
+        self.cg = _CGSystem(ops, op, rhs.dtype, halo, mesh, ops_hi)
         self.op, self.has_x0 = op, has_x0
         self.max_iters, self.block = max_iters, block
         # K4 updates the state's buffers in place (the capture's warm-up runs on copies).
-        self.ws = graphs.Workspace(rhs.device, in_place={"block"} if self.cg.fused else ())
+        # Its collectives cross the space group only: time-ranks solve apart.
+        self.ws = graphs.Workspace(rhs.device, in_place={"block"} if self.cg.fused else (),
+                                   mesh=mesh, group=None if mesh is None else mesh.group)
 
     def solve(self, rhs, x0, rtol):
         """(x, inner iterations); x is the workspace's `out` buffer."""
@@ -967,6 +978,7 @@ class _BlockedCG:
             if gate:  # the first pass was needed
                 ws.run("finish", self._finish)
                 for _ in range(MAX_REFINE - 1):
+                    CG_COUNTERS.flag_reads += 1
                     if not bool(ws.bufs["unmet"]):
                         break
                     ws.run("init", self._init)
@@ -981,6 +993,7 @@ class _BlockedCG:
         ws = self.ws
         while True:
             ws.run("block", self._block)
+            CG_COUNTERS.flag_reads += 1
             live, it, gate = ws.bufs["flags"].tolist()
             if not live:
                 break

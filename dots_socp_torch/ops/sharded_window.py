@@ -33,7 +33,10 @@ shard's rows.
 
 `shard_spmv` launches the kernel on CUDA tensors and runs the plain
 version (`sharded_window_matvec_plain`) on CPU tensors; nothing else picks
-between them. `KERNEL_LAUNCHES` counts the kernel's launches.
+between them. `KERNEL_LAUNCHES` counts the kernel's launches, those that
+CUDA graph replays make included (`ops.graphs.register_counter`): inside a
+captured segment the exports' all-gather and the kernel run at every
+replay, on the buffers the capture allocated.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dots_socp_torch.ops import graphs
 from dots_socp_torch.ops.collectives import space_all_gather
 from dots_socp_torch.ops.window_spmv import (
     MODE_GROUP,
@@ -57,6 +61,15 @@ from dots_socp_torch.ops.window_spmv import (
 #: Launches of kernel B2 in this process (the wrapper adds one per launch;
 #: the plain version does not count).
 KERNEL_LAUNCHES = 0
+
+
+def _set_launches(n):
+    global KERNEL_LAUNCHES
+    KERNEL_LAUNCHES = n
+
+
+# A launch recorded in a CUDA graph counts at every replay (`ops.graphs`).
+graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches)
 
 
 class ShardedWindow(NamedTuple):

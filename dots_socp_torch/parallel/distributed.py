@@ -78,6 +78,12 @@ class SolverMesh:
     def backend(self) -> str | None:
         return dist.get_backend(self.world_group) if self.world_group is not None else None
 
+    @property
+    def capturable(self) -> bool:
+        """Whether this mesh's collectives can be captured into CUDA graphs:
+        nccl's can, gloo's cannot (they run on the host)."""
+        return self.backend == "nccl" and self.device.type == "cuda"
+
     def time_block(self, n_time: int) -> slice:
         """This time-rank's block of `n_time` staggered slices."""
         check_time_axis(n_time, self.time)
@@ -297,16 +303,29 @@ def make_solver_mesh(mesh_shape, device="cuda") -> SolverMesh:
         raise ValueError("the nccl backend needs CUDA tensors: pass device='cuda'")
     rank = dist.get_rank()
     if time_axis == 1:
-        return SolverMesh(space=space_axis, rank=rank, device=dev, group=dist.group.WORLD,
+        mesh = SolverMesh(space=space_axis, rank=rank, device=dev, group=dist.group.WORLD,
                           world_group=dist.group.WORLD)
-    t, s = divmod(rank, space_axis)
-    space_group = time_group = None
-    for i in range(time_axis):
-        if space_axis > 1:
-            group = dist.new_group([i * space_axis + j for j in range(space_axis)])
-            space_group = group if i == t else space_group
-    for j in range(space_axis):
-        group = dist.new_group([i * space_axis + j for i in range(time_axis)])
-        time_group = group if j == s else time_group
-    return SolverMesh(space=space_axis, rank=s, device=dev, group=space_group, time=time_axis,
-                      time_rank=t, time_group=time_group, world_group=dist.group.WORLD)
+    else:
+        t, s = divmod(rank, space_axis)
+        space_group = time_group = None
+        for i in range(time_axis):
+            if space_axis > 1:
+                group = dist.new_group([i * space_axis + j for j in range(space_axis)])
+                space_group = group if i == t else space_group
+        for j in range(space_axis):
+            group = dist.new_group([i * space_axis + j for i in range(time_axis)])
+            time_group = group if j == s else time_group
+        mesh = SolverMesh(space=space_axis, rank=s, device=dev, group=space_group,
+                          time=time_axis, time_rank=t, time_group=time_group,
+                          world_group=dist.group.WORLD)
+    _open_groups(mesh)
+    return mesh
+
+
+def _open_groups(mesh: SolverMesh) -> None:
+    """One small all-reduce on each of the mesh's process groups (space,
+    time, world), on every rank: NCCL makes a group's communicator at its
+    first collective, which must not fall inside a CUDA graph capture."""
+    groups = {id(g): g for g in (mesh.group, mesh.time_group, mesh.world_group) if g is not None}
+    for group in groups.values():
+        dist.all_reduce(torch.zeros(1, device=mesh.device), group=group)

@@ -27,6 +27,9 @@ copies) and a solve's one-time costs (CUDA graph captures) cancel out:
   dtoh_copies   -- device-to-host copies
   host_reads    -- the adaptive segment's reads of the device (`graphs.read`:
                    one per validation, one of the records per segment)
+  flag_reads    -- the CG loops' reads of their flags (one per block of
+                   inner iterations and per refinement check; eager: one per
+                   inner iteration)
   peak_memory_mb -- torch.cuda.max_memory_allocated over the cell's solves
   groups        -- device ms and launches per kernel group (the window SpMV
                    kernel B1, the fused CG iteration K4, GEMM, reductions,
@@ -112,17 +115,17 @@ def group_of(name):
     return "other"
 
 
-def solve(geometry, nit, tol=1e-12, device="cuda"):
-    """The solve of one reading; its graph work (`graphs.STATS`) rides on
-    the history as `graph_stats`."""
+def solve(geometry, nit, tol=1e-12, device="cuda", n_time=N_TIME, mesh=None):
+    """The solve of one reading (on `mesh`, this rank's shard); its graph
+    work (`graphs.STATS`) rides on the history as `graph_stats`."""
     from dots_socp_torch.solver import solver
 
     before = graphs.STATS.snapshot()
     _, history = solver(
-        N_TIME, geometry, nit=nit, tol=tol, precision="float32",
-        cg_rtol=CG_RTOL, device=device,
+        n_time, geometry, nit=nit, tol=tol, precision="float32",
+        cg_rtol=CG_RTOL, device=device, mesh=mesh,
     )
-    if device == "cuda":
+    if torch.device(device if mesh is None else mesh.device).type == "cuda":
         torch.cuda.synchronize()
     history.graph_stats = graphs.STATS.since(before)
     return history
@@ -130,13 +133,16 @@ def solve(geometry, nit, tol=1e-12, device="cuda"):
 
 def profiled_counts(geometry, nit, tol=1e-12):
     """Device ms, launches, launch calls, syncs and copies of one solve, by
-    kernel group, and its validations (KKT tables recorded)."""
-    reads = graphs.HOST_READS
+    kernel group, its validations (KKT tables recorded) and its host reads:
+    the adaptive segment's (`host_reads`) and the CG loops' flags
+    (`flag_reads`)."""
+    reads, flags = graphs.HOST_READS, CG_COUNTERS.flag_reads
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         history = solve(geometry, nit, tol)
     counts, groups = tally(prof.events())
     counts["validations"] = len(history.kkt_iteration)
     counts["host_reads"] = graphs.HOST_READS - reads
+    counts["flag_reads"] = CG_COUNTERS.flag_reads - flags
     return counts, groups
 
 

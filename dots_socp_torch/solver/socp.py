@@ -324,6 +324,12 @@ def solver_socp(
         data = shard_problem(mesh, data)
         state = shard_state(mesh, state)
     device = data.ops.av.device
+    if mesh is not None and graphs.enabled():
+        how = ("captured as CUDA graphs, collectives inside" if graphs.will_capture(device, mesh)
+               else "uncaptured, op by op" + ("" if mesh.capturable else
+                                               f" ({mesh.backend} cannot be captured)"))
+        logging.log(LOG_LEVELS["info"],
+                    f"Mesh {mesh.time}x{mesh.space} over {mesh.backend}: segments run {how}")
 
     run_history = RunningHistory(
         max_record_numbers=nit + 2,

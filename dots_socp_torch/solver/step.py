@@ -9,13 +9,15 @@ One call to `iteration` is the whole per-iteration hot loop:
   step 3   duals <- multiplier ascent with step tau
 
 `run_chunk` is a Python loop over `iteration` where the reference has one
-jitted `lax.fori_loop` (`dots_socp_tpu/solver/step.py:173-179`). On one
-device it runs over static buffers (`ops.graphs`), so that on the card an
-iteration is one CUDA graph replay on the spectral path, and on the CG path
-a few: the parts before and after the phi solve, and the CG's own segments
-between them, whose host reads (one per block of inner iterations, one per
-refinement pass) are the iteration's only syncs. On a mesh, and inside
-`graphs.eager()`, every op is launched from the host.
+jitted `lax.fori_loop` (`dots_socp_tpu/solver/step.py:173-179`). It runs
+over static buffers (`ops.graphs`), so that on the card an iteration is one
+CUDA graph replay on the spectral path, and on the CG path a few: the parts
+before and after the phi solve, and the CG's own segments between them,
+whose host reads (one per block of inner iterations, one per refinement
+pass) are the iteration's only syncs. On a mesh each rank runs the same
+segments over its shard, the collectives inside them: CUDA graph replays
+over nccl, op by op over gloo (whose collectives cannot be captured).
+Inside `graphs.eager()` every op is launched from the host.
 `run_chunk_adaptive` is the reference's device-resident segment with its
 packed-record output, so the host loop in `socp.py` reads it unchanged: its
 validations and decisions run on the device over the same buffers (one
@@ -180,8 +182,9 @@ def iteration(config: ProblemConfig, data: ProblemData, state: SolverState):
 
 
 class _GraphedIteration:
-    """`iteration` on one device over the static buffers of a
-    `graphs.Workspace`, which hold the state between iterations: the
+    """`iteration` over the static buffers of a `graphs.Workspace` (one
+    device, or this rank's shard of a mesh), which hold the state between
+    iterations: the
     spectral path is one segment; the CG path is the segment before the
     phi solve (PALM's step 0 and the right-hand side), `cg_solve`'s own
     segments (into the buffer `phi_next`), and the segment after it. The
@@ -192,7 +195,9 @@ class _GraphedIteration:
 
     def __init__(self, config: ProblemConfig, data: ProblemData, state: SolverState):
         self.config, self.data = config, data
-        self.ws = graphs.Workspace(state.phi.device)
+        mesh = data.mesh
+        self.ws = graphs.Workspace(state.phi.device, mesh=mesh,
+                                   group=None if mesh is None else mesh.world_group)
         self.bufs = self.ws.bufs
 
     def load(self, state: SolverState):
@@ -233,8 +238,8 @@ class _GraphedIteration:
 
 class _HostIteration:
     """`_GraphedIteration`'s interface over a plain dict, every op launched
-    from the host: on a mesh (gloo cannot be captured) and inside
-    `graphs.eager()`."""
+    from the host: inside `graphs.eager()`, the loops as PyTorch runs them
+    without graphs (the reference the graphed loops are held to)."""
 
     def __init__(self, config: ProblemConfig):
         self.config = config
@@ -266,13 +271,15 @@ AFTER_ITERATION = None
 
 
 def _runner(config: ProblemConfig, data: ProblemData, state: SolverState):
-    """The cached `_GraphedIteration` of this problem on one device, else
-    (a mesh, `graphs.eager()`) a `_HostIteration`; `state` loaded."""
-    if data.mesh is not None or not graphs.enabled():
+    """The cached `_GraphedIteration` of this problem (on one device or this
+    rank's shard), else (inside `graphs.eager()`) a `_HostIteration`;
+    `state` loaded."""
+    if not graphs.enabled():
         runner = _HostIteration(config)
     else:
         cg_op = data.cg_op._replace(rtol=None) if data.cg_op is not None else None
-        key = ("iteration", config, tuple((t.shape, t.dtype, t.device) for t in state))
+        key = ("iteration", config, tuple((t.shape, t.dtype, t.device) for t in state),
+               graphs.mesh_key(data.mesh))
         runner = graphs.cached(key, lambda: _GraphedIteration(config, data, state),
                                graphs.leaves(data._replace(cg_op=cg_op)))
     runner.load(state)
@@ -287,9 +294,10 @@ def _iterate(runner, data: ProblemData, n):
 
 
 def run_chunk(config: ProblemConfig, data: ProblemData, state: SolverState, n):
-    """Run `n` iterations: on one device over the static buffers of a cached
-    `_GraphedIteration` (CUDA graphs on the card), the state copied in and
-    out; on a mesh or inside `graphs.eager()`, `iteration` by iteration."""
+    """Run `n` iterations over the static buffers of a cached
+    `_GraphedIteration` (CUDA graphs on the card, over nccl on a mesh), the
+    state copied in and out; inside `graphs.eager()`, `iteration` by
+    iteration from the host."""
     runner = _runner(config, data, state)
     _iterate(runner, data, n)
     return runner.state()
@@ -474,12 +482,14 @@ def run_chunk_adaptive(
     safeguards, the org/scaled column switch once the scaled errors are
     below 5 tol, the sticky sigma freeze, and the early exit at a tolerance
     checkpoint or convergence, all decided on the device in the config's
-    dtype (`_validate`). On one device the state stays in the
-    `_GraphedIteration`'s buffers for the whole segment (loaded once,
-    cloned out once); each validation is one `validate` replay, after
-    which the host reads `flags` (one small copy) to know how many
-    iteration replays come next; the records are read once at the end.
-    On a mesh and inside `graphs.eager()` the same code runs op by op.
+    dtype (`_validate`). The state stays in the `_GraphedIteration`'s
+    buffers for the whole segment (loaded once, cloned out once); each
+    validation is one `validate` replay, after which the host reads
+    `flags` (one small copy) to know how many iteration replays come next;
+    the records are read once at the end. On a mesh the flags are computed
+    from world rank 0's table (`kkt_table`'s broadcast, inside `validate`),
+    so every rank reads the same. Over gloo, and inside `graphs.eager()`,
+    the same code runs op by op.
 
     aux = [last_adjust_it, is_org_kkt (0/1), tol, next_checkpoint,
     sigma_freeze]. Returns (state, packed) with packed a numpy array

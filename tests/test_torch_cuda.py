@@ -280,6 +280,71 @@ def test_two_rank_gloo_cg_on_card(tmp_path):
     assert np.abs(x_u - x_s).max() <= 1e-5 * np.abs(x_u).max()
 
 
+def _mesh_loops_on_card(tmp_path, backend):
+    """20 iterations of plane n24 (ntime 6, float32, CG with f64 refinement
+    around the f32 inner CG, B2 in every inner matvec) on a 1x2 mesh over
+    `backend`, both ranks on the card(s): the worker's `loops` task, the
+    mesh loops then `graphs.eager()`. phi, mu, E and the run history are
+    bit-equal between the two on every rank, and the same on both ranks;
+    B2's launches (counted through replays) equal the window matvecs."""
+    from dots_socp_torch.cli import load_geometry
+    from torch_rank_worker import geometry_inputs, run_ranks
+
+    kw = dict(nit=20, tol=1e-12, time_limit=300, precision="float32", laplacian_mode="cg",
+              cg_rtol=1e-5)
+    inputs = dict(geometry_inputs(load_geometry("plane", 24)), n_time=6, kw_device="cuda",
+                  **{f"kw_{k}": v for k, v in kw.items()})
+    ranks = run_ranks(tmp_path, "loops", 2, inputs, device="cuda", backend=backend)
+    for out in ranks:
+        for key in ("phi", "mu", "E", "kkt_iteration", "kkt_errors", "inner"):
+            np.testing.assert_array_equal(out[f"loops_{key}"], out[f"eager_{key}"], err_msg=key)
+        for mode in ("loops", "eager"):
+            assert int(out[f"{mode}_b2_launches"]) == int(out[f"{mode}_window_matvecs"]) > 0
+        assert int(out["eager_captures"]) == 0
+        np.testing.assert_array_equal(out["loops_phi"], ranks[0]["loops_phi"])
+    return ranks
+
+
+def test_mesh_loops_over_gloo_on_one_card_equal_eager(tmp_path):
+    """Over gloo (both ranks on one card) nothing is captured: the mesh
+    loops run every segment op by op, and equal the host loops bit for
+    bit."""
+    _need_cuda()
+    for out in _mesh_loops_on_card(tmp_path, "gloo"):
+        assert not out["capturable"]
+        assert int(out["loops_captures"]) == 0 and int(out["loops_uncaptured_runs"]) > 0
+
+
+def test_mesh_loops_over_nccl_are_captured_and_equal_eager(tmp_path):
+    """Over nccl (a card per rank) every segment of the mesh loops is a CUDA
+    graph replay with its collectives inside, and the captured solve equals
+    the host loops bit for bit. Needs two cards."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    for out in _mesh_loops_on_card(tmp_path, "nccl"):
+        assert out["capturable"]
+        assert int(out["loops_captures"]) > 0 and int(out["loops_uncaptured_runs"]) == 0
+
+
+@pytest.mark.parametrize("name", ["space_any", "rank0_decides"])
+def test_capture_reaching_a_host_side_collective_raises(name):
+    """A segment that reaches a collective read on the host raises before
+    the capture holds it; the workspace keeps no graph and its buffers."""
+    _need_cuda()
+    from dots_socp_torch.ops import collectives, graphs
+
+    calls = {"space_any": lambda x: collectives.space_any(x > 0, None),
+             "rank0_decides": lambda x: collectives.rank0_decides(True, None)}
+    x = torch.arange(4.0, device="cuda")
+    ws = graphs.Workspace(x.device)
+    ws.load("x", x)
+    with pytest.raises(RuntimeError, match=f"{name} reads the host"):
+        ws.run("host_side", lambda b: {"x": b["x"] * float(calls[name](b["x"]))})
+    torch.cuda.synchronize()
+    assert torch.equal(ws.bufs["x"], x) and not ws._graphs
+
+
 def test_four_rank_gloo_time_sharded_iterations_on_card(tmp_path):
     """10 iterations on a 2x2 mesh (two time blocks x two space shards), all
     four gloo ranks on this card: f64 state, f64 refinement to 1e-12 around

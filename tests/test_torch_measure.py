@@ -9,6 +9,7 @@ import functools
 import importlib
 import io
 import json
+import os
 import re
 import shlex
 import subprocess
@@ -386,3 +387,30 @@ def test_protocol_commands_name_port_modules_whose_parsers_accept_them(monkeypat
         with pytest.raises(Parsed) as parsed:
             importlib.import_module(module).main(argv)
         assert vars(parsed.value.args[0])["device"] == "cpu", module
+
+
+def test_the_port_keeps_cupti_up_between_profiler_sessions():
+    """Importing the port sets Kineto's TEARDOWN_CUPTI to "0" where it was
+    unset, and keeps a value the caller set."""
+    import subprocess
+    import sys
+
+    code = "import os, dots_socp_torch; print(os.environ['TEARDOWN_CUPTI'])"
+    for given, expected in ((None, "0"), ("1", "1")):
+        env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+        if given is not None:
+            env["TEARDOWN_CUPTI"] = given
+        out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                             text=True, check=True, cwd=Path(__file__).resolve().parents[1])
+        assert out.stdout.strip() == expected
+
+
+def test_profiler_loss_needs_a_card(monkeypatch):
+    """`scripts/profiler_loss.py` refuses to run without a card."""
+    import torch
+
+    from dots_socp_torch.scripts import profiler_loss
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        profiler_loss.main(["--sessions", "1"])

@@ -94,3 +94,31 @@ def test_single_device_and_identity_paths_count_no_collective():
         assert c.rank0_decides(True, mesh) is True and c.space_any(x > 4, mesh) is True
         assert c.object_from_rank0(lambda: 7, mesh) == 7
     assert COUNTS.snapshot() == {"calls": {}, "bytes": {}}
+
+
+def test_loops_mode_reads_each_turn_per_rank_and_iteration():
+    """--loops on a 1x2 gloo CPU mesh (plane n24, spectral): one line per
+    rank, then one with every rank; each rank reads the turns eager,
+    graphed, graphed, eager, each per outer iteration (difference of a 1-
+    and a 2-iteration solve), none captured (gloo), the graphed turns'
+    segments run op by op and the eager turns' not at all."""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    with one_thread(), contextlib.redirect_stdout(printed):
+        out = bench_sharded_cg.main(["--loops", "--n_space", "24", "--ntime", "4", "--device",
+                                     "cpu", "--short", "1", "--long", "2"])
+    lines = printed.getvalue().strip().splitlines()
+    assert [json.loads(line) for line in lines[:-1]] == out["ranks"]
+    assert json.loads(lines[-1]) == out and out["card"] is None and "gloo" in out["metric"]
+    for rank, got in enumerate(out["ranks"]):
+        assert got["world_rank"] == rank and got["backend"] == "gloo"
+        assert [t["mode"] for t in got["turns"]] == list(bench_sharded_cg.LOOP_TURNS)
+        for turn in got["turns"]:
+            per_it = turn["per_iteration"]
+            assert not turn["captured"] and per_it["collective_calls"] > 0
+            assert per_it["b2_launches"] == per_it["window_matvecs"] == 0  # spectral
+            ran = [stats["uncaptured_runs"] for stats in turn["graph_stats"]]
+            assert all(stats["captures"] == 0 for stats in turn["graph_stats"])
+            assert (min(ran) > 0) == (turn["mode"] == "graphed") and max(ran) >= min(ran)

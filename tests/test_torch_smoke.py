@@ -36,8 +36,9 @@ def test_chip_smoke_imports_only_the_port():
 
 
 @pytest.mark.parametrize("argv", [[], ["--phase", "time_sharded_slice"], ["--phase", "wide_slice"],
-                                  ["--phase", "spectral_records"]],
-                         ids=["all", "time_sharded_slice", "wide_slice", "spectral_records"])
+                                  ["--phase", "spectral_records"], ["--phase", "mesh_loops"]],
+                         ids=["all", "time_sharded_slice", "wide_slice", "spectral_records",
+                              "mesh_loops"])
 def test_chip_smoke_without_a_card_fails_at_phase_one(argv, capsys):
     """The whole run and each phase that runs alone fail at the device phase
     when there is no card, and print no line."""

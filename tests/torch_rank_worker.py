@@ -1,10 +1,11 @@
 """One rank of a sharded run of the port, for the CPU tests.
 
     python tests/torch_rank_worker.py TASK IN_NPZ OUT_DIR RANK WORLD INIT_METHOD \
-        [DEVICE [MESH_SHAPE]]
+        [DEVICE [MESH_SHAPE [BACKEND]]]
 
-Brings up torch.distributed (gloo, `INIT_METHOD` such as file:///tmp/x),
-makes the MESH_SHAPE mesh (default 1xWORLD) on DEVICE (default cpu), runs
+Brings up torch.distributed (BACKEND, default gloo; `INIT_METHOD` such as
+file:///tmp/x), makes the MESH_SHAPE mesh (default 1xWORLD) on DEVICE
+(default cpu; nccl takes a card per rank), runs
 TASK on this rank's shard and writes OUT_DIR/rank{RANK}.npz. The inputs (a geometry and
 seeded arrays in blocked order) come from IN_NPZ, made by the test with
 numpy. This module imports no jax: the JAX side of each comparison runs in
@@ -24,6 +25,14 @@ Tasks:
             state, and the error of an n_time the time axis does not divide
   chunk  -- `iterations` calls of `step.iteration` from the solver's initial
             state on the mesh's shards; the gathered state and KKT table
+  mesh_cg -- `cg_solve` through the blocked loops at each of MESH_CG_BLOCKS
+            and through the host loop inside `graphs.eager()`, on the
+            window (B2) and halo layouts, refined and not: x, count, flag
+            reads, the flags after every block, the collectives counted,
+            and those of one latched inner iteration
+  loops  -- `solve` through the graphed loops (the workspace's segments)
+            and inside `graphs.eager()`: both solutions and run histories,
+            and the host reads, segment runs and collectives of each
 
 `run_ranks` starts the ranks for a test and collects their outputs.
 """
@@ -77,9 +86,10 @@ def geometry_inputs(geometry):
     return {f"geo_{k}": np.asarray(v) for k, v in geometry.items() if v is not None}
 
 
-def run_ranks(tmp_path, task, world, inputs, device="cpu", timeout=300, mesh_shape=None):
-    """Run `task` on `world` gloo ranks (a 1 x world mesh, or `mesh_shape`
-    "TxS" with T * S = world); each rank's outputs, in rank order.
+def run_ranks(tmp_path, task, world, inputs, device="cpu", timeout=300, mesh_shape=None,
+              backend="gloo"):
+    """Run `task` on `world` ranks over `backend` (a 1 x world mesh, or
+    `mesh_shape` "TxS" with T * S = world); each rank's outputs, in rank order.
     One thread per rank: several CPU ranks with PyTorch's default thread
     pools slow each other down by an order of magnitude."""
     np.savez(tmp_path / "in.npz", **inputs)
@@ -88,7 +98,7 @@ def run_ranks(tmp_path, task, world, inputs, device="cpu", timeout=300, mesh_sha
     procs = [
         subprocess.Popen(
             [sys.executable, str(Path(__file__)), task, str(tmp_path / "in.npz"), str(tmp_path),
-             str(r), str(world), init, device, mesh_shape or f"1x{world}"],
+             str(r), str(world), init, device, mesh_shape or f"1x{world}", backend],
             env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for r in range(world)
@@ -267,12 +277,137 @@ def task_chunk(inp, mesh):
     return out
 
 
+#: Block lengths of the latched CG that `mesh_cg` runs.
+MESH_CG_BLOCKS = (1, 3, 8)
+
+
+def _counted(prefix, counts):
+    """`ops.collectives.COUNTS.snapshot()` as flat output keys."""
+    return {f"{prefix}_{kind}_{key}": torch.tensor(n)
+            for kind, per_key in counts.items() for key, n in per_key.items()}
+
+
+@contextlib.contextmanager
+def _segment_spy(on_run):
+    """`on_run(workspace, name)` after every `graphs.Workspace.run`."""
+    from dots_socp_torch.ops import graphs
+
+    real_run = graphs.Workspace.run
+
+    def run(self, name, fn):
+        real_run(self, name, fn)
+        on_run(self, name)
+
+    graphs.Workspace.run = run
+    try:
+        yield
+    finally:
+        graphs.Workspace.run = real_run
+
+
+def task_mesh_cg(inp, mesh):
+    from dots_socp_torch.ops import graphs
+    from dots_socp_torch.ops.collectives import COUNTS
+
+    rhs, x0 = _block(inp["rhs"], mesh), _block(inp["x0"], mesh)
+    flags = []
+
+    def log_flags(ws, name):
+        if name == "block":
+            flags.append(ws.bufs["flags"].tolist())
+
+    out = {}
+    for refine in ("on", "off"):
+        _, data, _ = _problem(inp, mesh, dtype="float32", laplacian_mode="cg",
+                              cg_deflation_k=8, cg_rtol=1e-5, phi_refine=refine)
+        for layout in ("window", "halo"):
+            d = data
+            if layout == "halo":
+                d = data._replace(cg_op=data.cg_op._replace(swindow=None))
+            case = f"{layout}_{'refined' if refine == 'on' else 'plain'}"
+            cg = tl._CGSystem(d.ops, d.cg_op, rhs.dtype, d.halo, mesh, d.ops_hi)
+            x, r, p, rz, rr = cg.pcg_start(rhs, x0)
+            it = torch.zeros((), dtype=torch.int64)
+            live = torch.ones((), dtype=torch.bool)
+            thresh = cg.row_thresh(rhs, 1e-5)
+            COUNTS.reset()
+            cg.gated_step(x, r, p, rz, rr, it, live, thresh, 2000)
+            out.update(_counted(f"{case}_step", COUNTS.snapshot()))
+            for mode in ("eager",) + tuple(f"b{k}" for k in MESH_CG_BLOCKS):
+                COUNTS.reset()
+                tl.CG_COUNTERS.reset()
+                flags.clear()
+                graphs.release()
+                if mode != "eager":
+                    tl.CG_BLOCK = int(mode[1:])
+                with graphs.eager() if mode == "eager" else _segment_spy(log_flags):
+                    sol, iters = tl.cg_solve(d.ops, d.cg_op, rhs, x0=x0, max_iters=2000,
+                                             halo=d.halo, mesh=mesh, ops_hi=d.ops_hi,
+                                             return_iters=True)
+                out.update(_counted(f"{case}_{mode}", COUNTS.snapshot()))
+                out.update({
+                    f"{case}_{mode}_x": sol,
+                    f"{case}_{mode}_iters": torch.tensor(iters),
+                    f"{case}_{mode}_flag_reads": torch.tensor(tl.CG_COUNTERS.flag_reads),
+                    f"{case}_{mode}_window_matvecs": torch.tensor(tl.CG_COUNTERS.window_matvecs),
+                    f"{case}_{mode}_flags": torch.tensor(flags, dtype=torch.int64).reshape(-1, 3),
+                })
+    graphs.release()
+    return out
+
+
+def task_loops(inp, mesh):
+    import collections
+
+    from dots_socp_torch.ops import graphs
+    from dots_socp_torch.ops.collectives import COUNTS
+    from dots_socp_torch.solver import socp
+
+    runs = collections.Counter()
+    segment = socp.run_chunk_adaptive
+
+    def counted_segment(*args, **kwargs):
+        runs["segments"] += 1
+        return segment(*args, **kwargs)
+
+    out = {"capturable": torch.tensor(mesh.capturable)}
+    socp.run_chunk_adaptive = counted_segment
+    try:
+        for mode in ("loops", "eager"):
+            runs.clear()
+            COUNTS.reset()
+            tl.CG_COUNTERS.reset()
+            tsw.KERNEL_LAUNCHES = 0
+            reads, stats = graphs.HOST_READS, graphs.STATS.snapshot()
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                with _segment_spy(lambda ws, name: runs.update([name])):
+                    res = task_solve(inp, mesh)
+            stats = graphs.STATS.since(stats)
+            out.update({f"{mode}_{k}": v for k, v in res.items()})
+            out.update(_counted(mode, COUNTS.snapshot()))
+            out.update({f"{mode}_{k}": torch.tensor(v) for k, v in {
+                "host_reads": graphs.HOST_READS - reads,
+                "flag_reads": tl.CG_COUNTERS.flag_reads,
+                "inner": tl.CG_COUNTERS.iterations,
+                "solves": tl.CG_COUNTERS.solves,
+                "b2_launches": tsw.KERNEL_LAUNCHES,
+                "window_matvecs": tl.CG_COUNTERS.window_matvecs,
+                "captures": stats["captures"],
+                "uncaptured_runs": stats["uncaptured_runs"],
+                **{f"runs_{k}": runs[k] for k in ("segments", "block", "finish", "validate")},
+            }.items()})
+    finally:
+        socp.run_chunk_adaptive = segment
+    return out
+
+
 def main(argv):
     task, in_npz, out_dir, rank, world, init_method = argv[:6]
     device = argv[6] if len(argv) > 6 else "cpu"
     mesh_shape = argv[7] if len(argv) > 7 else f"1x{world}"
+    backend = argv[8] if len(argv) > 8 else "gloo"
     pd.initialize_distributed(
-        "gloo", init_method=init_method, num_processes=int(world), process_id=int(rank)
+        backend, init_method=init_method, num_processes=int(world), process_id=int(rank)
     )
     try:
         mesh = pd.make_solver_mesh(mesh_shape, device=device)
@@ -288,7 +423,8 @@ def main(argv):
 
 TASKS = {"halo": task_halo, "window": task_window, "solve": task_solve, "resume": task_resume,
          "refused": task_refused,
-         "timeaxis": task_timeaxis, "chunk": task_chunk}
+         "timeaxis": task_timeaxis, "chunk": task_chunk, "mesh_cg": task_mesh_cg,
+         "loops": task_loops}
 
 if __name__ == "__main__":
     main(sys.argv[1:])
