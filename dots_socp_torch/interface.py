@@ -84,11 +84,13 @@ def profiler_trace(profile_dir, iterations=PROFILE_ITERATIONS):
     """Trace what runs inside with torch.profiler (CPU activities and, with a
     card, CUDA ones) from entry until `iterations` solver iterations have
     run, and write a Chrome trace (chrome://tracing, Perfetto) to
-    `profile_dir`/solve_trace.json."""
+    `profile_dir`/solve_trace.json. The program's spans (`utils.trace`) are
+    ranges of the trace for the same extent: its phases over its kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from dots_socp_torch.solver import step
+    from dots_socp_torch.utils import trace
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -104,6 +106,7 @@ def profiler_trace(profile_dir, iterations=PROFILE_ITERATIONS):
             return
         left = None
         step.AFTER_ITERATION = None
+        trace.disable()
         prof.stop()
         prof.export_chrome_trace(str(out))
         logging.log(LOG_LEVELS["info"], f"Profiler trace: {out}")
@@ -115,6 +118,7 @@ def profiler_trace(profile_dir, iterations=PROFILE_ITERATIONS):
             finish()
 
     prof.start()
+    trace.enable(annotate=True)
     step.AFTER_ITERATION = after_iteration
     try:
         yield out

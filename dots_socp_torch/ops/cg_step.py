@@ -44,7 +44,7 @@ def _set_launches(n):
 
 
 # A launch recorded in a CUDA graph counts at every replay (`ops.graphs`).
-graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches)
+graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches, "cg_step.launches")
 
 #: The kernel's stages in launch order (`csrc/cg_step.cu`; stage 3 is the
 #: null rows' mean and deflation, stage 4 before), and their launches per call.

@@ -60,7 +60,7 @@ class CollectiveCounts:
 
 
 COUNTS = CollectiveCounts()
-graphs.register_counter(COUNTS.snapshot, COUNTS.restore)
+graphs.register_counter(COUNTS.snapshot, COUNTS.restore, "collectives")
 
 
 def _sharded(mesh) -> bool:

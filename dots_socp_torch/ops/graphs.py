@@ -37,8 +37,11 @@ are taken back and added again at every replay, so each counts the
 launches that ran.
 
 `STATS` counts, in this process, the captures and the host seconds they
-took (warm-up, capture and instantiation) and the misses of `cached`:
-what a solve spends on its graphs besides replaying them.
+took (warm-up, capture and instantiation: the `capture` span's reading) and
+the misses of `cached`: what a solve spends on its graphs besides replaying
+them. `counters()` gives every counter here by name, which `utils.trace`
+differences over each traced problem; while tracing is on, every segment
+run is a `run` span, and every replay carries its device seconds.
 
 Between replays the host reads what it must decide on with `read`: a copy
 into pinned host memory and one event synchronisation, counted in
@@ -75,10 +78,11 @@ import collections
 import contextlib
 import dataclasses
 import operator
-import time
 
 import torch
 import torch.distributed as dist
+
+from dots_socp_torch.utils import trace
 
 #: Objects kept by `cached` (least recently used dropped first): a solve
 #: holds its iteration's and its CG's.
@@ -87,7 +91,7 @@ MAX_CACHED = 4
 _ENABLED = True
 _CAPTURE = True
 _CACHE: collections.OrderedDict = collections.OrderedDict()
-_COUNTERS: list = []  # (read, write) of every registered host counter
+_COUNTERS: list = []  # (read, write, name) of every registered host counter
 _STAGING: dict = {}  # (device, shape, dtype) -> (pinned host tensor, event) of `read`
 _SEGMENT = None  # the name of the segment being run, None between segments
 
@@ -115,19 +119,39 @@ class GraphStats:
 STATS = GraphStats()
 
 
-def register_counter(read, write):
+def register_counter(read, write, name):
     """Count a host counter through replays: `read()` returns its value, a
-    number or a dict of them (nested), and `write(value)` sets it."""
-    _COUNTERS.append((read, write))
+    number or a dict of them (nested), and `write(value)` sets it; `name`
+    names it in `counters()`."""
+    _COUNTERS.append((read, write, name))
 
 
 def _counter_values():
-    return [read() for read, _ in _COUNTERS]
+    return [read() for read, _, _ in _COUNTERS]
 
 
 def _set_counters(values):
-    for (_, write), value in zip(_COUNTERS, values):
+    for (_, write, _), value in zip(_COUNTERS, values):
         write(value)
+
+
+def counters() -> dict:
+    """Every counter of this module in this process, flat by name:
+    `STATS`'s fields, the host reads and the registered counters (a dict's
+    keys joined to the name with dots)."""
+    out = {f"graphs.{k}": v for k, v in vars(STATS).items()}
+    out["graphs.host_reads"] = HOST_READS
+
+    def put(name, value):
+        if isinstance(value, dict):
+            for k, v in value.items():
+                put(f"{name}.{k}", v)
+        else:
+            out[name] = value
+
+    for read, _, name in _COUNTERS:
+        put(name, read())
+    return out
 
 
 def _combine(a, b, op):
@@ -213,18 +237,19 @@ def read(t: torch.Tensor) -> torch.Tensor:
     (the host waits for the work before the copy, no more)."""
     global HOST_READS
     HOST_READS += 1
-    if t.device.type != "cuda":
-        return t.detach().clone()
-    key = (t.device, t.shape, t.dtype)
-    staged = _STAGING.get(key)
-    if staged is None:
-        staged = _STAGING[key] = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True),
-                                  torch.cuda.Event())
-    host, event = staged
-    host.copy_(t, non_blocking=True)
-    event.record(torch.cuda.current_stream(t.device))
-    event.synchronize()
-    return host.clone()
+    with trace.span("read"):
+        if t.device.type != "cuda":
+            return t.detach().clone()
+        key = (t.device, t.shape, t.dtype)
+        staged = _STAGING.get(key)
+        if staged is None:
+            staged = _STAGING[key] = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True),
+                                      torch.cuda.Event())
+        host, event = staged
+        host.copy_(t, non_blocking=True)
+        event.record(torch.cuda.current_stream(t.device))
+        event.synchronize()
+        return host.clone()
 
 
 def leaves(*trees) -> tuple:
@@ -303,7 +328,7 @@ class Workspace:
         """Write `fn(self.bufs)`'s values into the buffers (a segment of
         `in_place` may also update them in place and return them)."""
         if not _ENABLED:
-            with _in_segment(name):
+            with trace.run(name, "eager"), _in_segment(name):
                 self.bufs.update(fn(self.bufs))
             return
         for key, t in self.bufs.items():
@@ -312,15 +337,16 @@ class Workspace:
                                  f"the workspace on {self.device}")
         if not (self.captures and _CAPTURE):
             STATS.uncaptured_runs += 1
-            with _in_segment(name):
+            with trace.run(name, "op_by_op"), _in_segment(name):
                 self._write(fn(self.bufs))
             return
         captured = self._graphs.get(name)
-        if captured is None:
-            with _in_segment(name):
-                captured = self._capture(name, fn)
-        graph, ticks = captured
-        graph.replay()
+        with trace.run(name, "replay" if captured else "capture"):
+            if captured is None:
+                with _in_segment(name):
+                    captured = self._capture(name, fn)
+            graph, ticks = captured
+            trace.replay(graph, self.device, _SEGMENT is None)
         _set_counters([_combine(v, t, operator.add) for v, t in zip(_counter_values(), ticks)])
 
     def drop(self, segment, *buffers):
@@ -340,7 +366,13 @@ class Workspace:
                 buf.copy_(value)
 
     def _capture(self, name, fn):
-        t0 = time.perf_counter()
+        with trace.timed("capture", segment=name) as timed:
+            captured = self._capture_graph(name, fn)
+        STATS.captures += 1
+        STATS.capture_seconds += timed.seconds
+        return captured
+
+    def _capture_graph(self, name, fn):
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
@@ -374,8 +406,6 @@ class Workspace:
         if failed is not None:
             raise failed
         self._graphs[name] = (graph, ticks)
-        STATS.captures += 1
-        STATS.capture_seconds += time.perf_counter() - t0
         return graph, ticks
 
     def _agree(self, name, failed):
@@ -392,3 +422,6 @@ def _check_fits(name, buf, value):
     if buf.shape != value.shape or buf.dtype != value.dtype:
         raise ValueError(f"buffer {name}: {tuple(value.shape)} {value.dtype} does not fit "
                          f"{tuple(buf.shape)} {buf.dtype}")
+
+
+trace.add_counters(counters)

@@ -48,6 +48,7 @@ from dots_socp_torch.ops.window_spmv import (
     window_matvec,
     window_operator,
 )
+from dots_socp_torch.utils import trace
 
 log = logging.getLogger(__name__)
 
@@ -233,12 +234,16 @@ def spectral_solve(factor: SpectralFactor, rhs, mesh=None):
     time transforms and scalings are local, the first GEMM gives this
     shard's partial eigen-coefficients (K: the shard's vertices), and one
     all-reduce of the (V, T+1) array sums them; the second GEMM (K: every
-    vertex) then gives this shard's block."""
-    y_t = (rhs.T @ factor.u_time) * factor.s[:, None]  # time transform
-    coef_t = space_sum(blocked_matmul(factor.q.T, y_t), mesh)
-    coef_t = coef_t * factor.invfac.T
-    z_t = blocked_matmul(factor.q, coef_t) * factor.s[:, None]
-    return factor.u_time @ z_t.T
+    vertex) then gives this shard's block.
+
+    Its span runs only where the Python runs: eagerly, and while the
+    iteration segment is captured; a replay is the `iteration` run's."""
+    with trace.span("spectral_solve"):
+        y_t = (rhs.T @ factor.u_time) * factor.s[:, None]  # time transform
+        coef_t = space_sum(blocked_matmul(factor.q.T, y_t), mesh)
+        coef_t = coef_t * factor.invfac.T
+        z_t = blocked_matmul(factor.q, coef_t) * factor.s[:, None]
+        return factor.u_time @ z_t.T
 
 
 class CGOperator(NamedTuple):
@@ -293,16 +298,22 @@ class CGCounters:
     window_matvecs: int = 0  # matvecs through the window SpMV (B1 or B2)
     fused_steps: int = 0  # inner iterations through `ops.cg_step` (no-ops included)
     flag_reads: int = 0  # the loops' reads of a flag on the host (blocks, passes, iterations)
+    passes: int = 0  # inner PCG passes started (each starts with one matvec)
 
     def reset(self):
         self.solves = self.refined_solves = self.iterations = 0
-        self.window_matvecs = self.fused_steps = self.flag_reads = 0
+        self.window_matvecs = self.fused_steps = self.flag_reads = self.passes = 0
 
 
 CG_COUNTERS = CGCounters()
-for _name in ("window_matvecs", "fused_steps"):
+#: Counted through replays (`graphs.counters()` exports them); the tracer
+#: takes the others itself.
+_REPLAYED = ("window_matvecs", "fused_steps")
+for _name in _REPLAYED:
     graphs.register_counter(lambda name=_name: getattr(CG_COUNTERS, name),
-                            lambda n, name=_name: setattr(CG_COUNTERS, name, n))
+                            lambda n, name=_name: setattr(CG_COUNTERS, name, n), f"cg.{_name}")
+trace.add_counters(lambda: {f"cg.{k}": v for k, v in vars(CG_COUNTERS).items()
+                            if k not in _REPLAYED})
 
 
 def _ritz_cache_dir() -> str:
@@ -663,17 +674,18 @@ def cg_solve(
     if rtol is None:
         rtol = op.rtol
     rtol = torch.as_tensor(rtol, dtype=rhs.dtype, device=rhs.device)
-    if graphs.enabled():
-        block = CG_BLOCK
-        keep = graphs.leaves(ops, op._replace(rtol=None), halo, ops_hi)
-        key = ("cg", rhs.shape, rhs.dtype, rhs.device, None if x0 is None else x0.dtype,
-               int(max_iters), block, fused.enabled(), graphs.mesh_key(mesh))
-        solver = graphs.cached(key, lambda: _BlockedCG(
-            ops, op, rhs, x0 is not None, int(max_iters), block, halo, mesh, ops_hi), keep)
-        x, iters = solver.solve(rhs, x0, rtol)
-        x = x.clone()  # the workspace's buffer, which the next solve overwrites
-    else:
-        x, iters = _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi)
+    with trace.span("cg_solve"):
+        if graphs.enabled():
+            block = CG_BLOCK
+            keep = graphs.leaves(ops, op._replace(rtol=None), halo, ops_hi)
+            key = ("cg", rhs.shape, rhs.dtype, rhs.device, None if x0 is None else x0.dtype,
+                   int(max_iters), block, fused.enabled(), graphs.mesh_key(mesh))
+            solver = graphs.cached(key, lambda: _BlockedCG(
+                ops, op, rhs, x0 is not None, int(max_iters), block, halo, mesh, ops_hi), keep)
+            x, iters = solver.solve(rhs, x0, rtol)
+            x = x.clone()  # the workspace's buffer, which the next solve overwrites
+        else:
+            x, iters = _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi)
     return (x, iters) if return_iters else x
 
 
@@ -875,21 +887,25 @@ def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
     cg = _CGSystem(ops, op, rhs.dtype, halo, mesh, ops_hi)
 
     def pcg_core(b, x, thresh):
-        x, r, p, rz, rr = cg.pcg_start(b, x)
-        if cg.fused:  # the kernel's latch: live whenever the host steps
-            it_d = torch.zeros((), dtype=torch.int64, device=b.device)
-            live = torch.ones((), dtype=torch.bool, device=b.device)
-        it = 0
-        while it < max_iters:
-            active = rr > thresh
-            CG_COUNTERS.flag_reads += 1
-            if not space_any(active, mesh):
-                break
-            if cg.fused:
-                cg.fused_step(x, r, p, rz, rr, it_d, live, thresh, max_iters)
-            else:
-                x, r, p, rz, rr = cg.pcg_step(x, r, p, rz, rr, active)
-            it += 1
+        CG_COUNTERS.passes += 1
+        with trace.span("cg_pass"):
+            x, r, p, rz, rr = cg.pcg_start(b, x)
+            if cg.fused:  # the kernel's latch: live whenever the host steps
+                it_d = torch.zeros((), dtype=torch.int64, device=b.device)
+                live = torch.ones((), dtype=torch.bool, device=b.device)
+            it = 0
+            while it < max_iters:
+                active = rr > thresh
+                CG_COUNTERS.flag_reads += 1
+                with trace.span("read"):
+                    go = space_any(active, mesh)
+                if not go:
+                    break
+                if cg.fused:
+                    cg.fused_step(x, r, p, rz, rr, it_d, live, thresh, max_iters)
+                else:
+                    x, r, p, rz, rr = cg.pcg_step(x, r, p, rz, rr, active)
+                it += 1
         CG_COUNTERS.iterations += it
         return cg.unpermute(x), it
 
@@ -915,7 +931,9 @@ def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
     for _ in range(MAX_REFINE):
         r64 = cg.deflate(b64 - cg.matvec_hi(x64))
         CG_COUNTERS.flag_reads += 1
-        if not space_any(cg.row_sums(r64 * r64) > thresh64, mesh):
+        with trace.span("read"):
+            unmet = space_any(cg.row_sums(r64 * r64) > thresh64, mesh)
+        if not unmet:
             break
         r_w = r64.to(cg.work)
         thresh_pass = torch.maximum(thresh_w, eta2 * cg.row_sums(r_w * r_w))
@@ -979,7 +997,9 @@ class _BlockedCG:
                 ws.run("finish", self._finish)
                 for _ in range(MAX_REFINE - 1):
                     CG_COUNTERS.flag_reads += 1
-                    if not bool(ws.bufs["unmet"]):
+                    with trace.span("read"):
+                        unmet = bool(ws.bufs["unmet"])
+                    if not unmet:
                         break
                     ws.run("init", self._init)
                     total += self._blocks()[0]
@@ -988,15 +1008,21 @@ class _BlockedCG:
         return ws.bufs["out"], total
 
     def _blocks(self):
-        """Blocks until the flag falls; (the pass's inner iterations, its
-        gate)."""
+        """One pass: blocks until the flag falls; (the pass's inner
+        iterations, its gate). The first pass of a refined solve starts
+        before its check is read, so it counts even where its gate is
+        false and its blocks ran as no-ops."""
         ws = self.ws
-        while True:
-            ws.run("block", self._block)
-            CG_COUNTERS.flag_reads += 1
-            live, it, gate = ws.bufs["flags"].tolist()
-            if not live:
-                break
+        CG_COUNTERS.passes += 1
+        with trace.span("cg_pass"):
+            while True:
+                with trace.span("cg_block"):
+                    ws.run("block", self._block)
+                    CG_COUNTERS.flag_reads += 1
+                    with trace.span("read"):
+                        live, it, gate = ws.bufs["flags"].tolist()
+                if not live:
+                    break
         CG_COUNTERS.iterations += it
         return it, gate
 

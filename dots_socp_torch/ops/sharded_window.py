@@ -69,7 +69,7 @@ def _set_launches(n):
 
 
 # A launch recorded in a CUDA graph counts at every replay (`ops.graphs`).
-graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches)
+graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches, "sharded_window.launches")
 
 
 class ShardedWindow(NamedTuple):

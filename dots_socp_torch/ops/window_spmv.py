@@ -35,7 +35,7 @@ def _set_launches(n):
 
 
 # A launch recorded in a CUDA graph counts at every replay (`ops.graphs`).
-graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches)
+graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches, "window_spmv.launches")
 
 #: Time modes per kernel block: one per warp lane.
 MODE_GROUP = 32

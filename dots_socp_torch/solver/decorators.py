@@ -13,6 +13,7 @@ from typing import Tuple
 import numpy as np
 
 from dots_socp_torch.solver.socp import solver_socp
+from dots_socp_torch.utils import trace
 from dots_socp_torch.utils.history import RunningHistory
 from dots_socp_torch.utils.types import (
     GeometryData,
@@ -61,13 +62,14 @@ def solver_decorator_time_stagger_to_center(dot_solver):
     return solver_dot_center
 
 
-solver_raw = solver_decorator_socp_to_dot(solver_socp)
+# Each public entry opens the trace's problem when it is the outermost call.
+solver_raw = trace.problem(solver_decorator_socp_to_dot(solver_socp))
 solver_raw.__name__ = "dot_solver_socp"
 solver_raw.__doc__ = (
     "DOT solver (SOCP backend); solution on the time-staggered grid in DOT units."
 )
 
-solver = solver_decorator_time_stagger_to_center(solver_raw)
+solver = trace.problem(solver_decorator_time_stagger_to_center(solver_raw))
 solver.__name__ = "dot_solver_socp_center"
 solver.__doc__ = (
     "DOT solver (SOCP backend); solution on the time-centered grid in DOT units."

@@ -66,6 +66,7 @@ from dots_socp_torch.solver.step import (
 )
 from dots_socp_torch.config import LOG_LEVELS
 from dots_socp_torch.utils.history import RunningHistory
+from dots_socp_torch.utils import trace
 from dots_socp_torch.utils.snapshot import load_snapshot, save_snapshot, state_from_arrays
 from dots_socp_torch.utils.types import CheckpointDotData, GeometryData, SolutionSocpData
 
@@ -126,6 +127,7 @@ def _output_on_rank0(fn):
     return wrapper
 
 
+@trace.problem
 @_output_on_rank0
 def solver_socp(
     n_time,
@@ -217,30 +219,32 @@ def solver_socp(
         device = mesh.device
 
     # --- problem assembly (host numpy/scipy, then one move to the device) ---
-    t_setup = time.perf_counter()
+    # The trace's phase `assembly` runs from the public call's entry to
+    # run_history.start().
     cg_rtol_adaptive = cg_rtol is None
     cg_rtol_floor = 1e-12 if precision == "float64" else 2e-6
     sigma_freeze = float(sigma_freeze_error) if sigma_freeze_error is not None else -np.inf
     sigma_frozen = False
-    config, data, extras = build_problem(
-        n_time,
-        geometry,
-        eps=eps,
-        is_palm=is_palm,
-        laplacian_mode=laplacian_mode,
-        max_dense_vertices=max_dense_vertices,
-        cg_max_iters=cg_max_iters,
-        cg_rtol=cg_rtol if cg_rtol is not None else 1e-3,
-        cg_deflation_k=cg_deflation_k,
-        dtype=precision,
-        pad_multiple=pad_multiple,
-        space_partitions=space_size,
-        mesh_axes=(mesh.time, space_size) if mesh is not None else None,
-        phi_refine=phi_refine,
-        # A sharded problem is built whole on the host, then cut into shards.
-        device="cpu" if space_size > 1 else device,
-        mesh=mesh,
-    )
+    with trace.timed("build_problem") as built:
+        config, data, extras = build_problem(
+            n_time,
+            geometry,
+            eps=eps,
+            is_palm=is_palm,
+            laplacian_mode=laplacian_mode,
+            max_dense_vertices=max_dense_vertices,
+            cg_max_iters=cg_max_iters,
+            cg_rtol=cg_rtol if cg_rtol is not None else 1e-3,
+            cg_deflation_k=cg_deflation_k,
+            dtype=precision,
+            pad_multiple=pad_multiple,
+            space_partitions=space_size,
+            mesh_axes=(mesh.time, space_size) if mesh is not None else None,
+            phi_refine=phi_refine,
+            # A sharded problem is built whole on the host, then cut into shards.
+            device="cpu" if space_size > 1 else device,
+            mesh=mesh,
+        )
     if config.phi_refine:
         logging.log(
             LOG_LEVELS["kkt"],
@@ -249,7 +253,7 @@ def solver_socp(
         )
     logging.debug(
         "---- Laplace matrix ".ljust(42, "-")
-        + f"\nFactorizing the Laplace matrix: {time.perf_counter() - t_setup:.2f}s."
+        + f"\nFactorizing the Laplace matrix: {built.seconds:.2f}s."
     )
     # Compare the freeze threshold at the work precision, as the segment does.
     sigma_freeze = float(config.np_dtype(sigma_freeze))
@@ -277,18 +281,19 @@ def solver_socp(
         (np.sum(mu0**2 / av) + np.sum(mu1**2 / av)) / (r * dt) ** 2 / (n_time + 1)
     )
 
-    state = initial_state(
-        config,
-        data,
-        extras,
-        init_solution=_pad_init_solution(init_solution or {}, config, extras),
-        congestion=congestion,
-        tau=tau,
-        eps=eps,
-        r=r,
-        norm_constant_d=extras["norm_constant_d"],
-        norm_boundary=norm_boundary,
-    )
+    with trace.span("initial_state"):
+        state = initial_state(
+            config,
+            data,
+            extras,
+            init_solution=_pad_init_solution(init_solution or {}, config, extras),
+            congestion=congestion,
+            tau=tau,
+            eps=eps,
+            r=r,
+            norm_constant_d=extras["norm_constant_d"],
+            norm_boundary=norm_boundary,
+        )
     # --- resume from an on-disk snapshot (every rank reads the file) --------
     resumed = None
     if snapshot_path is not None and rank0_decides(os.path.exists(snapshot_path), mesh):
@@ -342,21 +347,24 @@ def solver_socp(
     prim_gap = 1.0 + 1.0 * exp(-100 * congestion)
     converged_mask = np.zeros(7, dtype=bool)
 
+    # The phase `loop` runs from run_history.start() to the end of the last segment.
+    trace.phase("loop")
     run_history.start()
     run_history.create_tol_progress(target_tol=tol)
 
     # Initial scalings (already baked into a resumed state).
     if resumed is None:
-        if is_z_scaling:
-            logging.log(LOG_LEVELS["scaling"], "Initially scale z with z factor: 2.0")
-            state = apply_z_scale(state, 2.0, data.mesh)
-        if is_constant_scaling:
-            state = _initial_constant_scaling(config, data, state, n_time)
+        with trace.span("scaling"):
+            if is_z_scaling:
+                logging.log(LOG_LEVELS["scaling"], "Initially scale z with z factor: 2.0")
+                state = apply_z_scale(state, 2.0, data.mesh)
+            if is_constant_scaling:
+                state = _initial_constant_scaling(config, data, state, n_time)
 
     def fetch_kkt(state):
-        t0 = time.perf_counter()
-        table = _host(compute_kkt(config, data, state))
-        run_history.add_step_time(KKT_TAG, time.perf_counter() - t0)
+        with trace.timed("fetch_kkt") as fetched:
+            table = _host(compute_kkt(config, data, state))
+        run_history.add_step_time(KKT_TAG, fetched.seconds)
         return table[:, 0], table[:, 1]
 
     def snapshot_checkpoint(state, iteration, org):
@@ -441,16 +449,17 @@ def solver_socp(
     while it < nit:
         # ---- pre-iteration events at iteration `it` ------------------------
         if is_constant_scaling and SigmaSchedule.is_to_scale(it):
-            prim, dual = (_host(t) for t in compute_var_norms(config, data, state))
-            pr, dr = SigmaSchedule.compute_scale_factor(
-                prim, dual, msg=f"Var Norm at iteration {it}"
-            )
-            if max(pr, dr) / min(pr, dr) > 2.0:
-                logging.log(
-                    LOG_LEVELS["scaling"],
-                    f"Scale/Rescale with (prim, dual) factor: {1.0/pr}, {1.0/dr}",
+            with trace.span("scaling"):
+                prim, dual = (_host(t) for t in compute_var_norms(config, data, state))
+                pr, dr = SigmaSchedule.compute_scale_factor(
+                    prim, dual, msg=f"Var Norm at iteration {it}"
                 )
-                state = apply_prim_dual_scale(state, pr, dr)
+                if max(pr, dr) / min(pr, dr) > 2.0:
+                    logging.log(
+                        LOG_LEVELS["scaling"],
+                        f"Scale/Rescale with (prim, dual) factor: {1.0/pr}, {1.0/dr}",
+                    )
+                    state = apply_prim_dual_scale(state, pr, dr)
 
         if is_z_scaling and sched.is_to_scale_matrix(
             it, run_history.get_current_kkt_errors()
@@ -462,7 +471,8 @@ def solver_socp(
                     LOG_LEVELS["scaling"],
                     f"Rescale z at iteration {it} with z factor: {rescale_z}",
                 )
-                state = apply_z_scale(state, rescale_z, data.mesh)
+                with trace.span("scaling"):
+                    state = apply_z_scale(state, rescale_z, data.mesh)
 
         def process_validation(org, scaled, check_it, whether_adjust, sigma_on_device=False):
             """Record one validated KKT table and run every host schedule
@@ -568,11 +578,11 @@ def solver_socp(
                 ],
                 dtype=config.np_dtype,
             )
-            t0 = time.perf_counter()
-            state, packed = run_chunk_adaptive(
-                config, data, state, it, k, cadence.iterations_until_next(), aux, max_chunk
-            )
-            run_history.add_step_time(STEP_TAG, time.perf_counter() - t0)
+            with trace.timed("segment", it=it) as seg:
+                state, packed = run_chunk_adaptive(
+                    config, data, state, it, k, cadence.iterations_until_next(), aux, max_chunk
+                )
+            run_history.add_step_time(STEP_TAG, seg.seconds)
 
             n_checks = int(packed[0])
             it_total = int(packed[1])
@@ -599,9 +609,10 @@ def solver_socp(
                         LOG_LEVELS["scaling"],
                         f"Adjust sigma at iteration {check_it} with factor: {factor}",
                     )
-                process_validation(
-                    table[:, 0], table[:, 1], check_it, adjusted, sigma_on_device=True
-                )
+                with trace.span("process_validation"):
+                    process_validation(
+                        table[:, 0], table[:, 1], check_it, adjusted, sigma_on_device=True
+                    )
                 if passed:
                     break
 
@@ -611,10 +622,10 @@ def solver_socp(
             continue
 
         # ---- step-by-step path: one iteration + validation per segment -----
-        t0 = time.perf_counter()
-        state, kkt_dev = run_chunk_kkt(config, data, state, k)
-        table = _host(kkt_dev)
-        run_history.add_step_time(STEP_TAG, time.perf_counter() - t0)
+        with trace.timed("segment", it=it) as seg:
+            state, kkt_dev = run_chunk_kkt(config, data, state, k)
+            table = _host(kkt_dev)
+        run_history.add_step_time(STEP_TAG, seg.seconds)
         it_done = stop_after
         it = stop_after + 1
 
@@ -622,16 +633,20 @@ def solver_socp(
         whether_adjust = sched.is_to_adjust(it_done) or is_time_up
         cadence.advance(k - 1)
         cadence.tick(forced=True)
-        process_validation(table[:, 0], table[:, 1], it_done, whether_adjust)
+        with trace.span("process_validation"):
+            process_validation(table[:, 0], table[:, 1], it_done, whether_adjust)
         maybe_snapshot(it_done)
         if passed or is_time_up:
             break
 
+    # --- final validation + recovery ---------------------------------------
+    # The phase `finish`: `final_kkt` to run_history.end(), then `recover`
+    # to the public call's return (the decorators' translation included).
+    trace.phase("finish", "final_kkt")
     counter_main = it_done if it_done >= 0 else -1
     maybe_snapshot(counter_main, force=True)
     graphs.release()  # this solve's static buffers and CUDA graphs
 
-    # --- final validation + recovery ---------------------------------------
     org, scaled = fetch_kkt(state)
     cost, lagrangian = map(float, objective_functional(config, data, state))
     run_history.record(
@@ -639,11 +654,14 @@ def solver_socp(
         kkt_errors=org,
         history={"Transportation cost": cost, "Objective value": lagrangian},
     )
+    trace.note(iterations=max(counter_main, 0) + 1)
+    trace.phase("finish", "recover")
     run_history.end()
 
     if sharded:
         state = gather_state(mesh, state)  # every shard, on every rank
-    solution = _recover_solution(state, checkpoint_solutions, vertex_slot, triangle_slot)
+    with trace.span("recover_solution"):
+        solution = _recover_solution(state, checkpoint_solutions, vertex_slot, triangle_slot)
 
     congestion_norm = float(
         np.linalg.norm(
