@@ -1,11 +1,12 @@
 """One-time problem assembly: operators, Laplacian factor, KKT constants.
 
 Counterpart of `dots_socp_tpu/solver/problem.py`. Everything is assembled
-on the host with numpy/scipy and moved to the device once. With
-`space_partitions` > 1 the problem takes the blocked shard layout
-(`parallel.partition`) and carries the halo tables, the per-shard window
-operator and the f64 ops of the refinement, for every shard;
-`parallel.mesh.shard_problem` then keeps one rank's shard.
+on the host with numpy/scipy and moved to the device once; on one device
+the process keeps the last mesh's assembly for the next call on it
+(`build_problem`, `clear`). With `space_partitions` > 1 the problem takes
+the blocked shard layout (`parallel.partition`) and carries the halo
+tables, the per-shard window operator and the f64 ops of the refinement,
+for every shard; `parallel.mesh.shard_problem` then keeps one rank's shard.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from dots_socp_torch.ops import resolve_device
 from dots_socp_torch.ops.laplacian import (
     CGOperator,
     SpectralFactor,
+    _ritz_cache_dir,
     build_cg_operator,
     build_spectral_factor,
 )
@@ -31,6 +33,7 @@ from dots_socp_torch.geometry.surface import (
     triangle_quantities,
     vertex_areas,
 )
+from dots_socp_torch.utils import trace
 from dots_socp_torch.utils.types import GeometryData
 
 
@@ -148,8 +151,110 @@ def build_problem(
 
     extras holds host floats {norm_constant_d, area_mesh}, NumPy av / area_f
     (real sizes), padded mu0/mu1 and the vertex/triangle placement maps.
+
+    Everything but the padded densities depends on the mesh and the options
+    alone. On one device (no `mesh`, one space partition) that part is kept
+    for the last mesh and its options (`_cached_assembly`), so that a call
+    on the same mesh with new densities builds and moves nothing: it returns
+    the same config, the same `data` and the same NumPy arrays (read-only)
+    in `extras`. No caller may write a tensor of `data` in place.
     """
     device = resolve_device(device)
+    options = dict(
+        eps=eps,
+        is_palm=is_palm,
+        laplacian_mode=laplacian_mode,
+        max_dense_vertices=max_dense_vertices,
+        cg_max_iters=cg_max_iters,
+        cg_rtol=cg_rtol,
+        cg_deflation_k=cg_deflation_k,
+        dtype=dtype,
+        pad_multiple=pad_multiple,
+        mesh_axes=tuple(mesh_axes) if mesh_axes is not None else None,
+        phi_refine=phi_refine,
+        device=device,
+    )
+    if mesh is not None or space_partitions > 1:
+        # A sharded build runs collectives (`build_cg_operator`): never cached.
+        config, data, extras = _assemble(
+            n_time, geometry, space_partitions=space_partitions, mesh=mesh, **options
+        )
+    else:
+        config, data, extras = _cached_assembly(n_time, geometry, options)
+    padded = {}
+    for name in ("mu0", "mu1"):
+        mu = padded[f"{name}_padded"] = np.zeros(config.n_vertices)
+        mu[extras["vertex_slot"]] = np.asarray(geometry[name], dtype=np.float64)
+    return config, data, dict(extras, **padded)
+
+
+#: `build_problem`'s lookups of the last mesh's assembly in this process.
+ASSEMBLY_COUNTS = {"hits": 0, "misses": 0}
+trace.add_counters(lambda: {f"assembly.{k}": v for k, v in ASSEMBLY_COUNTS.items()})
+
+#: (key, (config, data, extras)) of the last mesh assembled on one device.
+_KEPT = None
+
+
+def clear():
+    """Forget the kept assembly (its device tensors with it)."""
+    global _KEPT
+    _KEPT = None
+
+
+def _content(a) -> tuple:
+    """What a cache key holds of an array: its shape, dtype and bytes (a
+    copy, so that an array edited in place after the call misses)."""
+    a = np.asarray(a)
+    return a.shape, a.dtype.str, a.tobytes()
+
+
+def _cached_assembly(n_time, geometry, options):
+    """`_assemble` on one device, kept for the last mesh: keyed on the
+    content of the vertices and triangles, every option, and the factor
+    cache's directory (a run pointed at a fresh one computes fresh factors).
+    A miss drops the kept operators before it builds, so that a solve's
+    peak device memory does not hold two problems."""
+    global _KEPT
+    key = (
+        _content(geometry["vertices"]),
+        _content(geometry["triangles"]),
+        n_time,
+        tuple(options.items()),
+        _ritz_cache_dir(),
+    )
+    if _KEPT is not None and _KEPT[0] == key:
+        ASSEMBLY_COUNTS["hits"] += 1
+        return _KEPT[1]
+    ASSEMBLY_COUNTS["misses"] += 1
+    _KEPT = None
+    config, data, extras = _assemble(n_time, geometry, **options)
+    for name in ("av", "area_f", "vertex_slot", "triangle_slot"):
+        extras[name].setflags(write=False)
+    _KEPT = key, (config, data, extras)
+    return _KEPT[1]
+
+
+def _assemble(
+    n_time,
+    geometry,
+    eps,
+    is_palm,
+    laplacian_mode,
+    max_dense_vertices,
+    cg_max_iters,
+    cg_rtol,
+    cg_deflation_k,
+    dtype,
+    pad_multiple,
+    mesh_axes,
+    phi_refine,
+    device,
+    space_partitions=1,
+    mesh=None,
+):
+    """`build_problem` but the padded densities: everything the mesh and
+    the options give."""
     vertices = np.asarray(geometry["vertices"], dtype=np.float64)
     triangles = np.asarray(geometry["triangles"])
     n_vertices = vertices.shape[0]
@@ -309,7 +414,7 @@ def build_problem(
         cg_rtol=cg_rtol,
         dtype=dtype,
         phi_refine=phi_refine,
-        mesh_axes=tuple(mesh_axes) if mesh_axes is not None else None,
+        mesh_axes=mesh_axes,
     )
     data = ProblemData(
         ops=ops,
@@ -324,17 +429,11 @@ def build_problem(
         halo=halo,
         ops_hi=ops_hi,
     )
-    mu0 = np.zeros(v_pad)
-    mu0[vertex_slot] = np.asarray(geometry["mu0"], dtype=np.float64)
-    mu1 = np.zeros(v_pad)
-    mu1[vertex_slot] = np.asarray(geometry["mu1"], dtype=np.float64)
     extras = {
         "area_mesh": float(area_f.sum()),
         "norm_constant_d": math.sqrt(2.0 * float(area_f.sum())),
         "av": av,
         "area_f": area_f,
-        "mu0_padded": mu0,
-        "mu1_padded": mu1,
         "vertex_slot": vertex_slot,
         "triangle_slot": triangle_slot,
     }

@@ -385,6 +385,8 @@ def solver_socp(
     passed = False
 
     def set_cg_rtol(value):
+        # Replaced, never written in place: `data` is the assembly that
+        # `build_problem` keeps for the next call on this mesh.
         nonlocal data
         data = data._replace(
             cg_op=data.cg_op._replace(
