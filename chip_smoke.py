@@ -222,6 +222,29 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                per shard-call inside the solve. With four cards, the same
                legs' checks on 2x2 at ntime 32.
 
+21. float64 -- the float64 CG path (plane n200, `precision="float64"`: no
+               refinement, kernels B1-f64 and K4-f64): on the window operator
+               the main path's `build_problem` makes at 32 and 128 modes,
+               B1-f64 against its plain version on the card and SciPy's
+               float64 L @ x within F64_TOL * max|y|, one call one launch
+               counted in B1-f64's counter alone, timed as in phase 3 beside
+               its bound at 8 bytes a value; from the settled float64 inner
+               state (`settled_cg_state(..., dtype="float64")`) K4-f64
+               (`fused_step`) against the float64 torch route (`gated_step`)
+               one latched iteration after another until the latch falls, x,
+               r, p, rz, rr, it and live bit for bit after every one, with
+               the launch counters set to 0 before and read after (B1-f64
+               twice and K4-f64 STAGES times a step, no float32 launch); K4-f64
+               and the whole inner iteration timed on each route beside
+               `cg_step_bound(..., value_bytes=8)`; then `solver` on n200 in
+               float64 for F64_SOLVE_NIT iterations (the automatic phi solve,
+               CUDA graphs) on K4-f64's route and inside `torch_route()`:
+               float64 arrays back, B1-f64's launches equal to the window
+               matvecs, K4-f64's to STAGES per fused step and every live
+               inner iteration counted in `f64_fused_steps` (none on the torch
+               route), no float32 kernel, the same validation points and
+               final KKT within SLICE_KKT_RTOL.
+
 The sharded phases (7, 11, 12, 13) run through the same mesh loops, and
 phases 7, 11 and 12 report per rank the backend, the card count and
 whether the rank's segments were captured (over nccl they must be, over
@@ -239,11 +262,11 @@ of phases 7, 11, 12, 13 and 20, or by the drivers of phase 14: the script checks
 
     python3 chip_smoke.py --phase time_sharded_slice
 
-runs phases 1 and 2 and then the one phase named (12, 15, 16, 17, 18, 19 or 20; 7 and 11
+runs phases 1 and 2 and then the one phase named (12, 15, 16, 17, 18, 19, 20 or 21; 7 and 11
 after phases 4 and 5, whose results they are held to) with its checks, and prints no
-kernel or result line: phase 12 alone on a machine with four cards is the check of a
-`TxS` mesh over nccl, phases 7, 11 and 20 alone on two or more the check of the
-captured mesh loops.
+result line and no kernel line (phase 21 alone: the kernel line of its two kernels): phase
+12 alone on a machine with four cards is the check of a `TxS` mesh over nccl, phases 7, 11
+and 20 alone on two or more the check of the captured mesh loops.
 """
 
 from __future__ import annotations
@@ -363,6 +386,13 @@ CG_STEP_SHAPE_REPS = 20
 # Kernel K4's launches on each path that drives the single-device CG, each
 # counted from 0 (`count_k4`).
 K4_PATHS = {}
+# Phase 21: the float64 CG path's kernels (B1-f64, K4-f64) at these mode
+# counts, B1-f64 within F64_TOL * max|y| of its plain version and of SciPy
+# (float64 sums in another order), and the iALM iterations of its main-path
+# solve on each route.
+F64_MODES = (32, 128)
+F64_TOL = 1e-13
+F64_SOLVE_NIT = 100
 # Phase 20: the legs (name, plane n, ntime, iterations at most, tol) that every
 # rank of the 1x2 mesh solves inside `graphs.eager()` and then through the
 # mesh loops: over nccl (a card per rank) 100 iterations of n200, n200 to tol
@@ -399,10 +429,17 @@ NOT_TIMES = ("cg_fixed_overhead_ms", "unattributed_ms", "kernel_build_sec")
 
 
 def reset_counts():
-    """B1's and K4's launch counts and the CG's counters to 0: what follows
-    is one path's."""
+    """B1's and K4's launch counts (float32 and float64) and the CG's
+    counters to 0: what follows is one path's."""
     window_spmv.KERNEL_LAUNCHES = cg_step.KERNEL_LAUNCHES = 0
+    window_spmv.KERNEL_LAUNCHES_F64 = cg_step.KERNEL_LAUNCHES_F64 = 0
     CG_COUNTERS.reset()
+
+
+def f64_launches():
+    """(B1-f64's, K4-f64's, B1's, K4's) launches since `reset_counts`."""
+    return (window_spmv.KERNEL_LAUNCHES_F64, cg_step.KERNEL_LAUNCHES_F64,
+            window_spmv.KERNEL_LAUNCHES, cg_step.KERNEL_LAUNCHES)
 
 
 def count_k4(path, expected=True):
@@ -1370,6 +1407,197 @@ def phase_cg_step(card):
             "bound_ms": bound["ms"], "bound_by": bound["by"], "library_ms": None}
 
 
+def f64_kernel_rows(fields):
+    """The kernel line's rows of B1-f64 and K4-f64 from phase 21's fields."""
+    return [{
+        "name": "window_spmv_f64",
+        "route": "cuda",
+        "source": "dots_socp_torch/ops/csrc/window_spmv.cu",
+        "replaces": "dots_socp_tpu/ops/laplacian.py::ell_matvec",
+        "replaces_kind": "the float64 padded-ELL gather (the window kernel is float32 only), "
+                         "not a Pallas call",
+        **fields["window_spmv_f64"],
+    }, {
+        "name": "cg_step_f64",
+        "route": "cuda",
+        "source": "dots_socp_torch/ops/csrc/cg_step.cu",
+        "replaces": "dots_socp_tpu/ops/laplacian.py:928-955",
+        "replaces_kind": "XLA fusion of the float64 inner CG while_loop body, not a Pallas call",
+        **fields["cg_step_f64"],
+    }]
+
+
+def phase_float64(card):
+    """Phase 21. Returns the kernel line's fields of B1-f64 and K4-f64 and
+    their launches by path."""
+    t0 = time.perf_counter()
+    geometry = cli.load_geometry("plane", 200)
+    b1, b1_paths = {}, {}
+    for lanes in F64_MODES:
+        config, data, _ = build_problem(lanes - 1, geometry, dtype="float64", device="cuda")
+        op = data.cg_op
+        wop = op.window if op is not None else None
+        if (config.laplacian_mode != "cg" or wop is None or wop.vals.dtype != torch.float64
+                or op.ell_w_hi is not None):
+            raise RuntimeError(f"n200 float64 at {lanes} modes did not build the float64 window "
+                               f"CG without refinement ({config.laplacian_mode})")
+        lap = ell_laplacian(op)
+        v = lap.shape[0]
+        x = np.random.default_rng(lanes).standard_normal((lanes, v))
+        xp = torch.from_numpy(np.ascontiguousarray(x[:, wop.perm.cpu().numpy()])).cuda()
+        iperm = wop.iperm.cpu().numpy()
+        reset_counts()
+        y_kernel = window_spmv.window_matvec(wop, xp)
+        torch.cuda.synchronize()
+        once = f64_launches()
+        y_plain = window_spmv.window_matvec_plain(wop, xp)
+        y_ref = (lap @ x.T).T  # host scipy, float64
+        yk = y_kernel.cpu().numpy()[:, iperm]
+        yp = y_plain.cpu().numpy()[:, iperm]
+        scale = float(np.abs(y_ref).max())
+        abs_kp = float(np.abs(yk - yp).max())
+        err_kp, err_kr = abs_kp / scale, float(np.abs(yk - y_ref).max()) / scale
+        reset_counts()
+        times = kernel_times(lambda: window_spmv.window_matvec(wop, xp),
+                             lambda: window_spmv.window_matvec_plain(wop, xp),
+                             "window_spmv_f64_kernel", (wop, xp, v))
+        b1_paths[f"kernel_{lanes}"] = 1 + window_spmv.KERNEL_LAUNCHES_F64
+        bound = window_bound(wop, v, lanes, v)
+        b1[lanes] = {"shape": [lanes, v], "max_abs_err_vs_plain": abs_kp, "max_abs_y": scale,
+                     "rel_err_vs_plain": err_kp, "rel_err_vs_scipy": err_kr,
+                     "launches_one_call": once, **times, "bound_us": bound["ms"] * 1e3,
+                     "bound": bound}
+        if once != (1, 0, 0, 0):
+            raise AssertionError(f"one B1-f64 call counted (B1-f64, K4-f64, B1, K4) {once}")
+        if not (err_kp <= F64_TOL and err_kr <= F64_TOL):
+            raise AssertionError(f"B1-f64 at {lanes} modes: {err_kp}, {err_kr} > {F64_TOL}")
+        del data, op, wop
+
+    # K4-f64 against the float64 torch route over a latched solve from the
+    # main path's settled state, each on its own copy, on the same B1-f64.
+    cg, st = common.settled_cg_state(200, N_TIME, "cuda", settle=20, inner=0, rtol=1e-8,
+                                     dtype="float64")
+    if not (cg.work == torch.float64 and cg.use_window and cg.fused):
+        raise RuntimeError("n200 float64 did not put its inner CG on B1-f64 and K4-f64")
+    names = ("x", "r", "p", "rz", "rr", "it", "live")
+    rows, n = st["x"].shape
+    k = cg.leaves.defl_q.shape[-1]
+    thresh, max_iters = st["thresh"], 2**31 - 1
+    ref = tuple(st[key].clone() for key in names)
+    ker = tuple(st[key].clone() for key in names)
+    reset_counts()
+    steps, unequal = 0, None
+    while bool(ref[6]) and steps < 5000 and unequal is None:
+        ref = cg.gated_step(*ref, thresh, max_iters)
+        ker = cg.fused_step(*ker, thresh, max_iters)
+        steps += 1
+        unequal = next((name for name, a, b in zip(names, ref, ker) if not torch.equal(a, b)),
+                       None)
+    latched = f64_launches()
+    latch_fell = not bool(ker[6]) and int(ker[5]) == steps
+    # Device time per call: K4-f64 with the GEMMs between its launches, its
+    # plain version, and the whole inner iteration on each route, every row
+    # live (threshold 0); each state advances as it is timed.
+    zero = torch.zeros_like(thresh)
+    lap = window_spmv.window_matvec(cg.wop, st["p"])
+    on_k, on_p, on_it, on_torch = ([st[key].clone() for key in names] for _ in range(4))
+    reset_counts()
+    ms_k, by_kernel, ev_k = device_ms(
+        lambda: cg_step.cg_step(lap, *on_k, zero, max_iters, cg.leaves), REPS)
+    k4_timed = cg_step.KERNEL_LAUNCHES_F64
+    ms_p, _, ev_p = device_ms(
+        lambda: cg_step.cg_step_plain(lap, *on_p, zero, max_iters, cg.leaves), REPS)
+    ms_it, by_it, _ = device_ms(lambda: cg.fused_step(*on_it, zero, max_iters), REPS)
+    ms_torch, _, _ = device_ms(lambda: cg.gated_step(*on_torch, zero, max_iters), REPS)
+    timed = f64_launches()
+    bound = cg_step_bound(rows, n, k, value_bytes=8)
+    it_bound = cg_step_bound(rows, n, k, cg.wop, value_bytes=8)
+    del cg, st, ref, ker, lap, on_k, on_p, on_it, on_torch
+
+    # The main path: `solver` on plane n200 in float64 (the automatic phi
+    # solve, CUDA graphs), on K4-f64's route and inside `torch_route()`.
+    from dots_socp_torch.solver import solver
+
+    legs, runs = {}, {}
+    for route in ("cg_step", "torch"):
+        reset_counts()
+        with cg_step.torch_route() if route == "torch" else contextlib.nullcontext():
+            solution, history = solver(N_TIME, geometry, nit=F64_SOLVE_NIT, tol=1e-4,
+                                       time_limit=3000, precision="float64", device="cuda")
+        torch.cuda.synchronize()
+        counts = f64_launches()
+        runs[route] = (np.asarray(history.kkt_iteration), history.kkt_errors[-1],
+                       solution["phi"])
+        legs[route] = {"iterations": int(history.kkt_iteration[-1]) + 1,
+                       "validations": len(history.kkt_iteration),
+                       "dtypes": sorted({str(np.asarray(solution[key]).dtype)
+                                         for key in ("phi", "mu", "E")}),
+                       "kkt": [float(e) for e in history.kkt_errors[-1]],
+                       "solve_sec": history.running_time,
+                       "launches": dict(zip(("b1_f64", "k4_f64", "b1", "k4"), counts)),
+                       "window_matvecs": CG_COUNTERS.window_matvecs,
+                       "fused_steps": CG_COUNTERS.fused_steps,
+                       "inner_cg_iterations": CG_COUNTERS.iterations,
+                       "f64_fused_steps": CG_COUNTERS.f64_fused_steps}
+    b1_paths["solve"] = legs["cg_step"]["launches"]["b1_f64"]
+    b1_paths["solve_torch_route"] = legs["torch"]["launches"]["b1_f64"]
+    k4_paths = {"latched_solve": latched[1], "timed": k4_timed,
+                "solve": legs["cg_step"]["launches"]["k4_f64"]}
+    kkt_k, kkt_t = runs["cg_step"][1], runs["torch"][1]
+    phi_bits = bool(np.array_equal(runs["cg_step"][2], runs["torch"][2]))
+    emit("float64", b1_f64=b1, latched_steps=steps, latched_unequal=unequal,
+         latched_launches=dict(zip(("b1_f64", "k4_f64", "b1", "k4"), latched)),
+         shape=[rows, n], deflation_rank=k,
+         device_us={"cg_step": ms_k * 1e3, "plain": ms_p * 1e3,
+                    "by_kernel": {name[:80]: t * 1e3 for name, t in by_kernel.items()},
+                    "iteration": ms_it * 1e3,
+                    "iteration_by_kernel": {name[:80]: t * 1e3 for name, t in by_it.items()},
+                    "iteration_torch_route": ms_torch * 1e3},
+         bound_us={"cg_step": bound["ms"] * 1e3, "iteration": it_bound["ms"] * 1e3},
+         bound=bound, iteration_bound=it_bound,
+         timed_launches=dict(zip(("b1_f64", "k4_f64", "b1", "k4"), timed)),
+         profiler_events={"cg_step": ev_k, "plain": ev_p}, solves=legs,
+         phi_bit_equal_kernel_vs_torch=phi_bits,
+         launches_by_path={"window_spmv_f64": b1_paths, "cg_step_f64": k4_paths},
+         phase_seconds=time.perf_counter() - t0, card=card)
+    if unequal is not None or not latch_fell or steps <= 10:
+        raise AssertionError(f"K4-f64 against the float64 torch route: {unequal} differs at "
+                             f"step {steps}, or the latch did not fall")
+    if latched != (2 * steps, cg_step.STAGES * steps, 0, 0):
+        raise AssertionError(f"the latched solve counted (B1-f64, K4-f64, B1, K4) {latched} "
+                             f"for {steps} steps on each route")
+    if timed[2:] != (0, 0) or timed[1] < REPS * cg_step.STAGES:
+        raise AssertionError(f"timing counted (B1-f64, K4-f64, B1, K4) {timed}")
+    for route, leg in legs.items():
+        got = leg["launches"]
+        fused_route = route == "cg_step"
+        if not (got["b1_f64"] == leg["window_matvecs"] > 0 and got["b1"] == got["k4"] == 0
+                and got["k4_f64"] == cg_step.STAGES * leg["fused_steps"] * fused_route
+                and leg["f64_fused_steps"] == leg["inner_cg_iterations"] * fused_route
+                and leg["dtypes"] == ["float64"]):
+            raise AssertionError(f"float64 solve on the {route} route: {leg}")
+        if not np.all(np.isfinite(leg["kkt"])):
+            raise AssertionError(f"float64 solve on the {route} route: KKT {leg['kkt']}")
+    if not np.array_equal(runs["cg_step"][0], runs["torch"][0]):
+        raise AssertionError("the K4-f64 and torch routes validate at other iterations")
+    ref_kkt = np.where(kkt_t != 0, kkt_t, np.nan)
+    if not float(np.nanmax(np.abs(kkt_k - ref_kkt) / np.abs(ref_kkt))) <= SLICE_KKT_RTOL:
+        raise AssertionError(f"K4-f64 against the torch route: KKT {kkt_k} against {kkt_t}")
+    b1_row = b1[F64_MODES[0]]
+    return {
+        "window_spmv_f64": {
+            "max_abs_err": max(e["max_abs_err_vs_plain"] for e in b1.values()),
+            "ms": b1_row["device_us"]["wrapper"] / 1e3,
+            "plain_ms": b1_row["device_us"]["plain"] / 1e3, "bound_ms": b1_row["bound"]["ms"],
+            "bound_by": b1_row["bound"]["by"], "library_ms": b1_row["library_us"] / 1e3,
+            "launches": sum(b1_paths.values()), "launches_by_path": b1_paths},
+        "cg_step_f64": {
+            "max_abs_err": 0.0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound["ms"],
+            "bound_by": bound["by"], "library_ms": None,
+            "launches": sum(k4_paths.values()), "launches_by_path": k4_paths},
+    }
+
+
 def _loops_rank(rank, world, port, backend, mesh_shape, legs, profile, results):
     """One rank of phase 20 (a spawned process): the mesh brought up once,
     then every leg solved through the port's `solver` inside `graphs.eager()`
@@ -1492,6 +1720,9 @@ def main(argv=None):
              "spectral_records": phase_spectral_records, "graphs": phase_graphs,
              "adaptive": phase_adaptive, "cg_step": phase_cg_step,
              "mesh_loops": phase_mesh_loops,
+             # Phase 21 alone prints its two rows of the kernel line.
+             "float64": lambda card: print(json.dumps({"kernels": f64_kernel_rows(
+                 phase_float64(card))}), flush=True),
              # The sharded phases 7 and 11 after the unsharded runs they are held to.
              "sharded_slice": lambda card: phase_sharded_slice(card, phase_slice(card)[1]),
              "sharded_spectral": lambda card: phase_sharded_spectral(card, phase_spectral(card))}
@@ -1532,6 +1763,7 @@ def main(argv=None):
     b1_paths["adaptive"] = phase_adaptive(card)
     fused = phase_cg_step(card)
     b2_loops = phase_mesh_loops(card)
+    f64 = phase_float64(card)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_128["max_abs_err"])
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
@@ -1561,7 +1793,7 @@ def main(argv=None):
         "launches": sum(K4_PATHS.values()),
         "launches_by_path": dict(K4_PATHS),
         **fused,
-    }]}))
+    }, *f64_kernel_rows(f64)]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,4 +1,5 @@
-"""Times of the port's hand-written kernels, B1 and B2, on one NVIDIA GPU.
+"""Times of the port's hand-written kernels, B1 and B2, B1-f64 and K4-f64,
+on one NVIDIA GPU.
 
     python -m dots_socp_torch.bench_kernels [--n_space N] [--skip_b2] [--sweep] [--out FILE]
 
@@ -21,6 +22,15 @@ kernel B2 on every shard of 2 and of 4 blocked shards. For each, per call:
                 moved once at 3.35 TB/s against 2 flops per nonzero and mode
                 at 67 TFLOP/s (the larger wins; `by` says which)
 
+Then the float64 kernels at 32 and 128 modes (ntime 31 and
+127), with the tiles and the settled state the float64 main path makes
+(`b1_f64`, `k4_f64`): B1-f64 beside its bound at 8 bytes a value, its plain
+version, the library call in float64 and the float64 ELL gather; K4-f64 as
+one whole inner iteration of the float64 CG on its route (`kernel`: B1-f64,
+K4-f64's five launches and the deflation GEMMs; `k4_us`: K4-f64's launches
+alone) beside the torch route's (`plain`, `_CGSystem.gated_step`) and K4's
+bound at 8 bytes a value.
+
 With --sweep the kernels are also timed at every tile size of
 SWEEP_TILE_ROWS and of `tile_candidates` (the rule of ops/window_spmv.py
 rests on this), and B1 at 128 modes.
@@ -40,6 +50,7 @@ import torch
 
 from dots_socp_torch.kernel_timing import (
     N_TIME,
+    cg_step_bound,
     device_ms,
     ell_laplacian,
     library_ms,
@@ -54,6 +65,7 @@ from dots_socp_torch.ops import window_spmv
 from dots_socp_torch.ops.laplacian import ell_matvec
 
 SHARD_COUNTS = (2, 4)
+F64_MODES = (32, 128)
 SWEEP_TILE_ROWS = (64, 96, 128, 176, 256, 352, 512)
 
 
@@ -73,8 +85,9 @@ def measure_b1(wop, cg_op, lanes=N_TIME + 1, with_plain=True):
     """B1 on one operator: the wrapper, the plain version, the library call
     and the ELL matvec, each on the same x."""
     v = wop.perm.shape[0]
+    dtype = np.float64 if wop.vals.dtype == torch.float64 else np.float32
     x = torch.from_numpy(
-        np.random.default_rng(0).standard_normal((lanes, v)).astype(np.float32)
+        np.random.default_rng(0).standard_normal((lanes, v)).astype(dtype)
     ).cuda()
     out = {"shape": [lanes, v], "meta": _meta(wop, v),
            "bound": window_bound(wop, v, lanes, v),
@@ -107,6 +120,35 @@ def measure_b2(sw_all, n_shards, with_plain=True):
         per_shard.append(out)
     return {"shards": n_shards, "meta": _meta(shards[0], shards[0].state_in.shape[-1]),
             "per_shard": per_shard}
+
+
+def measure_f64(n_space, lanes):
+    """B1-f64 and K4-f64 at `lanes` modes on plane `n_space`'s float64 CG
+    path: B1-f64 on the main path's operator (`measure_b1`), and whole
+    inner iterations from a settled float64 state (live, every row active)
+    on K4-f64's route and on the torch route."""
+    from dots_socp_torch.ops import cg_step as k4
+    from dots_socp_torch.scripts.common import settled_cg_state
+
+    cg, st = settled_cg_state(n_space, lanes - 1, "cuda", settle=5, inner=0, rtol=1e-30,
+                              dtype="float64")
+    if not (cg.fused and cg.work == torch.float64):
+        raise RuntimeError("bench_kernels: the float64 CG is not on K4-f64's route")
+    names = ("x", "r", "p", "rz", "rr", "it", "live")
+    fused = tuple(st[k].clone() for k in names)
+    plain = tuple(st[k].clone() for k in names)
+    n, k = cg.op.s.shape[0], cg.leaves.defl_q.shape[-1]
+    kernel = _timed(lambda: cg.fused_step(*fused, st["thresh"], 2**31 - 1))
+    k4_us = sum(t for name, t in kernel["by_kernel"].items() if "cg_step_f64" in name)
+
+    def torch_route():
+        nonlocal plain
+        plain = cg.gated_step(*plain, st["thresh"], 2**31 - 1)
+
+    return {"b1_f64": measure_b1(cg.wop, cg.op, lanes=lanes),
+            "k4_f64": {"shape": [lanes, n], "k": k,
+                       "bound": cg_step_bound(lanes, n, k, value_bytes=8),
+                       "kernel": kernel, "k4_us": k4_us, "plain": _timed(torch_route)}}
 
 
 def _problems(n_space=200, shard_counts=SHARD_COUNTS):
@@ -182,6 +224,7 @@ def main(argv=None):
     out = {"card": nvidia_smi_line(), "n_space": args.n_space,
            "b1": measure_b1(data.cg_op.window, data.cg_op),
            "b2": [measure_b2(blocked[s].cg_op.swindow, s) for s in shard_counts]}
+    out["f64"] = {str(lanes): measure_f64(args.n_space, lanes) for lanes in F64_MODES}
     if args.sweep:
         out.update(sweep(geometry, data, blocked))
     print(json.dumps(out), flush=True)

@@ -21,6 +21,7 @@ N_TIME = 31
 REPS = 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM FP32 rate outside the tensor cores
+FP64_FLOPS = 34e12  # H100 SXM FP64 rate outside the tensor cores
 
 
 def nvidia_smi_line() -> str:
@@ -128,9 +129,10 @@ def launch_times_us(fn, kernel_name, launches, reps=REPS, tries=3):
 
 
 def operator_csr(op, n_rows, n_cols):
-    """The (n_rows, n_cols) float32 CSR matrix a window operator (B1's, or
-    one shard's of B2) applies, on the operator's device: every nonzero
-    (row, tile_start[row // TV] + lcol, vals), padding slots dropped."""
+    """The (n_rows, n_cols) CSR matrix (in the operator's value dtype) a
+    window operator (B1's, B1-f64's, or one shard's of B2) applies, on the
+    operator's device: every nonzero (row, tile_start[row // TV] + lcol,
+    vals), padding slots dropped."""
     lcol, vals = op.lcol[:n_rows], op.vals[:n_rows]
     start = op.tile_start.long().repeat_interleave(op.tile_rows)[:n_rows]
     keep = vals != 0
@@ -147,18 +149,20 @@ def window_bound(op, n_rows, lanes, in_floats, once_bytes=0):
     n_rows output floats per mode, 8 bytes (column, value) per nonzero of the
     operator's rows, its tile starts, and `once_bytes` of other arrays that
     do not grow with the modes (B2's int32 window codes); against 2 flops per
-    nonzero and mode. Padding slots are not charged. Returns {"bytes",
-    "flops", "ms", "by"}."""
+    nonzero and mode. Padding slots are not charged. An operator of float64
+    values (B1-f64) moves 8-byte elements and 12 bytes a nonzero, against
+    the FP64 rate. Returns {"bytes", "flops", "ms", "by"}."""
     nnz = int((op.vals[:n_rows] != 0).sum())
     n_tiles = -(-n_rows // op.tile_rows)
-    n_bytes = (in_floats + n_rows) * lanes * 4 + nnz * 8 + n_tiles * 4 + once_bytes
+    size = op.vals.element_size()
+    n_bytes = (in_floats + n_rows) * lanes * size + nnz * (4 + size) + n_tiles * 4 + once_bytes
     flops = 2 * nnz * lanes
-    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / (FP64_FLOPS if size == 8 else FP32_FLOPS)
     return {"bytes": int(n_bytes), "flops": int(flops), "ms": max(t_bytes, t_flops) * 1e3,
             "by": "bytes" if t_bytes >= t_flops else "operations"}
 
 
-def cg_step_bound(rows, n, k, window=None):
+def cg_step_bound(rows, n, k, window=None, value_bytes=4):
     """The least time the card could take for one `ops.cg_step` call, each
     input and output moved once: it reads lap, x, r, p and the Jacobi rows
     (rows x n floats each), the Ritz vectors once (n x k; `defl_qt` is a
@@ -166,14 +170,16 @@ def cg_step_bound(rows, n, k, window=None):
     deflation products' 4 rows n k flops and ~20 per state element. With
     `window` (B1's operator), the whole inner iteration: B1's bytes and
     flops are added, and lap (which B1 writes and K4 reads) and K4's second
-    read of p drop out. Returns {"bytes", "flops", "ms", "by"}."""
-    n_bytes = (8 * rows * n + n * k + 3 * n + 8 * rows) * 4
+    read of p drop out. `value_bytes` 8: K4-f64's doubles, against the FP64
+    rate. Returns {"bytes", "flops", "ms", "by"}."""
+    n_bytes = (8 * rows * n + n * k + 3 * n + 8 * rows) * value_bytes
     flops = 4 * rows * n * k + 20 * rows * n
     if window is not None:
         b1 = window_bound(window, n, rows, n)
-        n_bytes += b1["bytes"] - 3 * rows * n * 4
+        n_bytes += b1["bytes"] - 3 * rows * n * value_bytes
         flops += b1["flops"]
-    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_flops = flops / (FP64_FLOPS if value_bytes == 8 else FP32_FLOPS)
     return {"bytes": int(n_bytes), "flops": int(flops), "ms": max(t_bytes, t_flops) * 1e3,
             "by": "bytes" if t_bytes >= t_flops else "operations"}
 

@@ -1,6 +1,6 @@
-"""Build and load the port's CUDA kernels, B1 and B2 (`csrc/window_spmv.cu`)
-and K4 (`csrc/cg_step.cu`): nvcc into one plain-C shared library, bound
-with ctypes.
+"""Build and load the port's CUDA kernels, B1, B1-f64 and B2
+(`csrc/window_spmv.cu`) and K4 and K4-f64 (`csrc/cg_step.cu`): nvcc into one
+plain-C shared library, bound with ctypes.
 
 At first use, every source under `csrc/` compiles at the same time, one
 nvcc each, with
@@ -121,14 +121,15 @@ def load() -> ctypes.CDLL:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn = lib.dots_window_spmv_f32  # B1: 5 arrays, 8 sizes, the stream
-        fn.argtypes = [p] * 5 + [i] * 8 + [p]
-        fn.restype = i
+        for fn in (lib.dots_window_spmv_f32, lib.dots_window_spmv_f64):
+            fn.argtypes = [p] * 5 + [i] * 8 + [p]  # B1, B1-f64: 5 arrays, 8 sizes, the stream
+            fn.restype = i
         fn = lib.dots_sharded_window_spmv_f32  # B2: 7 arrays, 9 sizes, the stream
         fn.argtypes = [p] * 7 + [i] * 9 + [p]
         fn.restype = i
-        fn = lib.dots_cg_step_f32  # K4: the stage, 22 arrays, the geometry, 3 sizes, the stream
-        fn.argtypes = [i] + [p] * 22 + [ctypes.POINTER(i)] + [i] * 3 + [p]
-        fn.restype = i
+        for fn in (lib.dots_cg_step_f32, lib.dots_cg_step_f64):
+            # K4, K4-f64: the stage, 22 arrays, the geometry, 3 sizes, the stream
+            fn.argtypes = [i] + [p] * 22 + [ctypes.POINTER(i)] + [i] * 3 + [p]
+            fn.restype = i
         _lib = lib
     return _lib

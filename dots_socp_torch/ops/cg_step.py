@@ -15,11 +15,12 @@ the CG state in place, given lap = L p (kernel B1) and the operator's
 `CGStepLeaves`; `cg_step_plain` does the same with PyTorch ops, the torch
 route's arithmetic in the torch route's order. With `live` false every
 output keeps its bits. On a CPU tensor `cg_step` runs the plain version; on
-a CUDA tensor it launches the kernel, which takes contiguous float32 only,
-or raises. `KERNEL_LAUNCHES` counts the kernel's launches (STAGES per
-call); inside `torch_route()` the solver takes the torch route on the card
-too (for comparisons); inside `walk_plan(lanes, depth, cluster)` the walks
-take that split (for sweeps).
+a CUDA tensor it launches the kernel, which takes contiguous float32 (K4)
+or float64 (K4-f64, the same bodies in double, for the float64 CG), every
+array of one dtype, or raises. `KERNEL_LAUNCHES` counts K4's launches
+(STAGES per call), `KERNEL_LAUNCHES_F64` K4-f64's; inside `torch_route()`
+the solver takes the torch route on the card too (for comparisons); inside
+`walk_plan(lanes, depth, cluster)` the walks take that split (for sweeps).
 """
 
 from __future__ import annotations
@@ -34,8 +35,9 @@ import torch
 from dots_socp_torch.ops import graphs
 
 #: Launches of the CUDA kernel in this process (the wrapper adds one per
-#: launch; the plain version does not count).
+#: launch; the plain version does not count): K4, and K4-f64 apart.
 KERNEL_LAUNCHES = 0
+KERNEL_LAUNCHES_F64 = 0
 
 
 def _set_launches(n):
@@ -43,8 +45,14 @@ def _set_launches(n):
     KERNEL_LAUNCHES = n
 
 
+def _set_launches_f64(n):
+    global KERNEL_LAUNCHES_F64
+    KERNEL_LAUNCHES_F64 = n
+
+
 # A launch recorded in a CUDA graph counts at every replay (`ops.graphs`).
 graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches, "cg_step.launches")
+graphs.register_counter(lambda: KERNEL_LAUNCHES_F64, _set_launches_f64, "cg_step.launches_f64")
 
 #: The kernel's stages in launch order (`csrc/cg_step.cu`; stage 3 is the
 #: null rows' mean and deflation, stage 4 before), and their launches per call.
@@ -56,8 +64,10 @@ SCALARS = ("den", "alpha", "step", "mean", "beta")
 #: Threads of one block of PyTorch's reduce kernel for float, at most.
 REDUCE_THREADS = 512
 #: Threads of a walk block at most, by the depth of its loads (vectors of
-#: each input in flight per thread): the register file at 8 deep.
+#: each input in flight per thread): the register file at 8 deep. K4-f64's
+#: doubles take twice the registers: half the threads.
 WALK_THREADS = {4: 512, 8: 256}
+WALK_THREADS_F64 = {4: 256, 8: 128}
 #: Blocks of a thread block cluster at most (above 8 non-portable: Hopper's 16).
 CLUSTER_BLOCKS = 16
 #: Lane rows of a null row's virtual blocks (ctas x bh) stage 3 can hold.
@@ -151,7 +161,15 @@ def row_sum_config(rows, n, sms=132, threads_per_sm=2048):
     in ATen/native/cuda/Reduce.cuh, vt0 = input_vec_size = 4, on a card of
     `sms` SMs of `threads_per_sm` threads), which fixes the order of its
     additions. Returns (bw, bh, vec, im0, im1, im2, om1, step_in, step_out,
-    ctas) as `csrc/cg_step.cu::Red` reads them."""
+    ctas) as `csrc/cg_step.cu::Red` reads them.
+
+    A float64 sum over the same rows takes the same geometry: PyTorch's
+    sum_functor launches double with the same vt0 = input_vec_size = 4 and
+    512 threads a block (`mnt_wrapper`: 256 for complex double alone), and
+    nothing in `setReduceConfig` reads the element size; its vectors are
+    then 32 bytes, aligned so that a row's head is the same row_off % 4
+    elements. K4-f64 reads it from here too (held bit for bit to the
+    float64 torch route on the card)."""
     step_in = step_out = ctas = 1
     im = [0, 0, 0]
     om1 = 0
@@ -214,7 +232,7 @@ SPLIT_SPREAD = (8, 8, True)
 SPLIT_FILLED = (4, 4, False)
 
 
-def split_plan(red, rows, sms=132, lanes=None, depth=None, cluster=None):
+def split_plan(red, rows, sms=132, lanes=None, depth=None, cluster=None, elem_bytes=4):
     """The physical grid of the walks for `row_sum_config`'s geometry `red`
     of a (rows, n) state on a card of `sms` SMs (see `SplitPlan`). The
     lanes of a virtual block split into blocks of whole lane rows, so each
@@ -224,8 +242,10 @@ def split_plan(red, rows, sms=132, lanes=None, depth=None, cluster=None):
     lane rows' values in block_y_reduce's order
     (`csrc/cg_step.cu::row_sums`), so the split changes no bit. By default
     SPLIT_SPREAD or SPLIT_FILLED (4 deep where a lane row is too wide for
-    more). Layout, as the kernel computes it (`plan_layout`): virtual block
-    v = group * ctas + cta, its block `part` is v * parts + part and holds
+    more, and always for K4-f64's 8-byte elements, `elem_bytes` 8: 4 vectors
+    of doubles are as many bytes in flight as 8 of floats). Layout, as the
+    kernel computes it (`plan_layout`): virtual block v = group * ctas +
+    cta, its block `part` is v * parts + part and holds
     lane rows part * lanes ...; lane row y's value of sum j goes to
     staging[2 V + (j V + v) bh + y], virtual block v's value to
     staging[j V + v]; counter 0 is stage 6's, 1 + group a split row's
@@ -237,16 +257,19 @@ def split_plan(red, rows, sms=132, lanes=None, depth=None, cluster=None):
     virtual = groups * ctas
     whole_warps = max(1, min(bh, 32 // bw))  # a block holds whole warps
     parts, default_depth, default_cluster = SPLIT_FILLED if 2 * virtual >= sms else SPLIT_SPREAD
+    cap = WALK_THREADS_F64 if elem_bytes == 8 else WALK_THREADS
+    if elem_bytes == 8:
+        default_depth = 4
     if depth is None:
-        depth = default_depth if bw * whole_warps <= WALK_THREADS[default_depth] else 4
-    if depth not in WALK_THREADS:
-        raise ValueError(f"split_plan: depth {depth}, not one of {sorted(WALK_THREADS)}")
+        depth = default_depth if bw * whole_warps <= cap[default_depth] else 4
+    if depth not in cap:
+        raise ValueError(f"split_plan: depth {depth}, not one of {sorted(cap)}")
     if lanes is None:
-        lanes = _last_pow2(min(max(whole_warps, bh // parts), max(WALK_THREADS[depth] // bw, 1)))
+        lanes = _last_pow2(min(max(whole_warps, bh // parts), max(cap[depth] // bw, 1)))
     if (lanes < whole_warps or lanes > bh or bh % lanes or lanes & (lanes - 1)
-            or lanes * bw > WALK_THREADS[depth]):
+            or lanes * bw > cap[depth]):
         raise ValueError(f"split_plan: {lanes} lane rows of {bw} lanes per block do not split "
-                         f"{bh} lane rows into whole warps of at most {WALK_THREADS[depth]} "
+                         f"{bh} lane rows into whole warps of at most {cap[depth]} "
                          f"threads")
     parts = bh // lanes
     if cluster is None:
@@ -337,7 +360,8 @@ def cg_step(lap, x, r, p, rz, rr, it, live, thresh, max_iters, leaves, trace=Non
 
 
 def _check(lap, x, r, p, rz, rr, it, live, thresh, leaves):
-    """The kernel's input contract; returns (rows, n, k)."""
+    """The kernel's input contract; returns (rows, n, k). Every array is
+    float32 (K4) or every one float64 (K4-f64)."""
     if x.dim() != 2:
         raise ValueError(f"cg_step takes a (rows, n) state, got {tuple(x.shape)}")
     rows, n = x.shape
@@ -352,16 +376,21 @@ def _check(lap, x, r, p, rz, rr, it, live, thresh, leaves):
         "defl_q": (leaves.defl_q, (n, k)), "defl_qt": (leaves.defl_qt, (k, n)),
         "defl_winv": (leaves.defl_winv, (rows, k)),
     }
+    dtype = x.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"cg_step takes float32 or float64, got {dtype}")
     for name, (t, shape) in expect.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"cg_step takes float32, got {t.dtype} for {name}")
+        if t.dtype != dtype:
+            raise TypeError(f"cg_step takes one dtype, {dtype} for x, got {t.dtype} for {name}")
         flat = (t.numel(),) if len(shape) == 1 else tuple(t.shape)
         if t.device != device or flat != shape or not t.is_contiguous():
             raise ValueError(f"cg_step: {name} must be contiguous {shape} on {device}, "
                              f"got {tuple(t.shape)} on {t.device}")
+    align = 4 * x.element_size()  # PyTorch's vectors of 4 elements
     for name in ("lap", "x", "r", "p", "jacobi"):
-        if expect[name][0].data_ptr() % 16:
-            raise ValueError(f"cg_step reads {name} 16 bytes at a time: it must be 16-byte aligned")
+        if expect[name][0].data_ptr() % align:
+            raise ValueError(f"cg_step reads {name} {align} bytes at a time: it must be "
+                             f"{align}-byte aligned")
     for name, t, dtype in (("it", it, torch.int64), ("live", live, torch.bool)):
         if t.dtype != dtype or t.numel() != 1 or t.device != device:
             raise ValueError(f"cg_step: {name} must be one {dtype} on {device}")
@@ -379,7 +408,7 @@ def _cg_step_cuda(lap, x, r, p, rz, rr, it, live, thresh, max_iters, leaves, tra
     device = x.device
     sms, threads_per_sm = _card(device)
     red = row_sum_config(rows, n, sms, threads_per_sm)
-    plan = split_plan(red, rows, sms, **_PLAN)
+    plan = split_plan(red, rows, sms, elem_bytes=x.element_size(), **_PLAN)
     prepare(device, plan.counters)
     with torch.cuda.device(device):  # the C side launches on the current device
         return run_stages(_build.load(), torch.cuda.current_stream(device).cuda_stream,
@@ -389,22 +418,25 @@ def _cg_step_cuda(lap, x, r, p, rz, rr, it, live, thresh, max_iters, leaves, tra
 
 def run_stages(lib, stream, counter, red, plan, lap, x, r, p, rz, rr, it, live, thresh,
                max_iters, leaves, trace=None):
-    """One call's STAGES launches through `lib.dots_cg_step_f32` on
-    `stream`, with the two deflation GEMMs between stages 3 and 5: geometry
-    `red`, split `plan`, handshake `counter`s (0 between launches); scratch
-    from the state's allocator. A launch that returns an error raises."""
+    """One call's STAGES launches through `lib.dots_cg_step_f32` (float64:
+    `lib.dots_cg_step_f64`) on `stream`, with the two deflation GEMMs
+    between stages 3 and 5: geometry `red`, split `plan`, handshake
+    `counter`s (0 between launches); scratch from the state's allocator. A
+    launch that returns an error raises."""
     rows, n = x.shape
     k = leaves.defl_q.shape[-1]
+    f64 = x.dtype == torch.float64
+    kernel = lib.dots_cg_step_f64 if f64 else lib.dots_cg_step_f32
     red_c = (ctypes.c_int * (len(red) + 3))(*red, plan.lanes, plan.depth, int(plan.cluster))
-    staging = torch.empty(plan.staging, dtype=torch.float32, device=x.device)
-    scal = torch.empty(len(SCALARS) * rows, dtype=torch.float32, device=x.device)
+    staging = torch.empty(plan.staging, dtype=x.dtype, device=x.device)
+    scal = torch.empty(len(SCALARS) * rows, dtype=x.dtype, device=x.device)
     sr, z = torch.empty_like(x), torch.empty_like(x)
     lv = leaves
     max_iters = min(int(max_iters), 2**31 - 1)
 
     def launch(stage, g=None):
-        global KERNEL_LAUNCHES
-        err = lib.dots_cg_step_f32(
+        global KERNEL_LAUNCHES, KERNEL_LAUNCHES_F64
+        err = kernel(
             stage, lap.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(), rz.data_ptr(),
             rr.data_ptr(), it.data_ptr(), live.data_ptr(), thresh.data_ptr(),
             lv.shifts.data_ptr(), lv.av.data_ptr(), lv.jacobi.data_ptr(), lv.s.data_ptr(),
@@ -414,7 +446,10 @@ def run_stages(lib, stream, counter, red, plan, lap, x, r, p, rz, rr, it, live, 
             max_iters, stream)
         if err != 0:
             raise RuntimeError(f"cg_step kernel launch (stage {stage}) failed: CUDA error {err}")
-        KERNEL_LAUNCHES += 1
+        if f64:
+            KERNEL_LAUNCHES_F64 += 1
+        else:
+            KERNEL_LAUNCHES += 1
         if trace is not None:
             _trace(stage, trace, x, r, p, rz, rr, it, live, sr, z, scal, rows)
 

@@ -1,6 +1,8 @@
 // One inner iteration of the single-device CG phi-solve for Hopper (sm_90a):
 // kernel family K4, cg_step_walk_kernel, cg_step_wide_kernel and
-// cg_step_null_kernel.
+// cg_step_null_kernel, and K4-f64, the same bodies in float64 for the
+// float64 CG (cg_step_f64_walk_kernel, cg_step_f64_wide_kernel,
+// cg_step_f64_null_kernel; dots_cg_step_f64).
 //
 // It replaces what XLA fuses around the Pallas SpMV in the JAX package's
 // inner CG loop: `body` of the lax.while_loop in
@@ -96,13 +98,36 @@
 //   at once when it is false, so an iteration after convergence launches
 //   and does nothing (B1 and the GEMMs between the launches still run).
 //   With live false every output keeps its bits.
+// * K4-f64. Every body is a template on the element type F: in float64 each
+//   product and sum is rounded as PyTorch's double ops round them
+//   (__dmul_rn / __dadd_rn ...), a vector is 4 doubles (two 16-byte loads;
+//   PyTorch's aligned_vector<double, 4> is 32-byte aligned, so a row's head
+//   is the same row_off % 4 elements), and the row sums take PyTorch's
+//   reduce geometry for double on the same (rows, n), which the wrapper
+//   computes as for float (Reduce.cuh: sum_functor's vt0 = input_vec_size =
+//   4 for both, 512 threads a block). The doubles take twice the registers:
+//   a walk block holds half the threads of a float one at the same depth
+//   (walk_threads), and the wrapper's plan loads 4 vectors deep (as many
+//   bytes in flight as 8 floats).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
+
+// Each product and sum rounded alone, as PyTorch's elementwise and reduce
+// kernels round them (no contraction into FMAs).
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 
 constexpr int kThreads = 256;  // the wide body
 constexpr int kPerThread = 4;
@@ -116,7 +141,7 @@ constexpr int kMaxNullItems = 2048;  // lane rows of a null row's virtual blocks
 enum Scalar { kDenS = 0, kAlpha = 1, kStep = 2, kMeanS = 3, kBeta = 4 };
 enum Stage { kDen = 1, kUpdate = 2, kNull = 3, kPrecond = 5, kDirection = 6 };
 
-// PyTorch's ReduceConfig for a float32 sum over the last axis of a
+// PyTorch's ReduceConfig for a float32 or float64 sum over the last axis of a
 // contiguous (rows, n) tensor (ops/cg_step.py::row_sum_config), and the
 // split plan of the walks (ops/cg_step.py::split_plan).
 struct Red {
@@ -129,28 +154,30 @@ struct Red {
   int depth;        // vectors of each input loaded before any is added
 };
 
+// F: float (K4) or double (K4-f64), every array of the state and the leaves.
+template <typename F>
 struct Args {
-  const float* lap;
-  float* x;
-  float* r;
-  float* p;
-  float* rz;
-  float* rr;
+  const F* lap;
+  F* x;
+  F* r;
+  F* p;
+  F* rz;
+  F* rr;
   long long* it;
   unsigned char* live;
-  const float* thresh;
-  const float* shifts;
-  const float* av;
-  const float* jacobi;
-  const float* s;
-  const float* real;
-  const float* null_w;
-  const float* n_real;
-  const float* g;  // G, the deflation product, or nullptr (no deflation)
-  float* sr;  // s * r
-  float* z;   // z, and the null rows' mean terms from stage 2 to stage 3
-  float* staging;  // 2 x V virtual blocks' sums, then 2 x V x bh lane rows' sums
-  float* scal;     // (5, rows) row scalars
+  const F* thresh;
+  const F* shifts;
+  const F* av;
+  const F* jacobi;
+  const F* s;
+  const F* real;
+  const F* null_w;
+  const F* n_real;
+  const F* g;  // G, the deflation product, or nullptr (no deflation)
+  F* sr;  // s * r
+  F* z;   // z, and the null rows' mean terms from stage 2 to stage 3
+  F* staging;  // 2 x V virtual blocks' sums, then 2 x V x bh lane rows' sums
+  F* scal;     // (5, rows) row scalars
   unsigned int* counter;  // the last-block handshakes, 0 between launches
   int rows, n, max_iters;
   Red red;
@@ -164,31 +191,47 @@ __host__ __device__ __forceinline__ int groups_of(const Red& c, int rows) {
   return (rows + c.step_out - 1) / c.step_out;
 }
 
-template <int N>
+template <typename F, int N>
 struct Vals {
-  float v[N];
+  F v[N];
 };
 
-template <int N>
-__device__ __forceinline__ void add_to(Vals<N>& acc, const Vals<N>& b) {
+template <typename F, int N>
+__device__ __forceinline__ void add_to(Vals<F, N>& acc, const Vals<F, N>& b) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) acc.v[j] = __fadd_rn(acc.v[j], b.v[j]);
+  for (int j = 0; j < N; ++j) acc.v[j] = add_rn(acc.v[j], b.v[j]);
 }
 
-__device__ __forceinline__ float ap_of(float lap, float shift, float av, float p) {
-  return -__fadd_rn(lap, __fmul_rn(__fmul_rn(shift, av), p));
+template <typename F>
+__device__ __forceinline__ F ap_of(F lap, F shift, F av, F p) {
+  return -add_rn(lap, mul_rn(mul_rn(shift, av), p));
 }
 
-__device__ __forceinline__ float clamp_tiny(float v) {
-  return v < 1e-30f ? 1e-30f : v;  // torch.clamp(v, min=1e-30): NaN stays NaN
+// torch.clamp(v, min=1e-30): NaN stays NaN.
+__device__ __forceinline__ float clamp_tiny(float v) { return v < 1e-30f ? 1e-30f : v; }
+__device__ __forceinline__ double clamp_tiny(double v) { return v < 1e-30 ? 1e-30 : v; }
+
+// Four consecutive elements, the first 4-element aligned: one 16-byte load
+// of floats, two of doubles.
+template <typename F>
+struct Quad {
+  F v[4];
+};
+
+__device__ __forceinline__ Quad<float> ld4(const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  return {{q.x, q.y, q.z, q.w}};
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {  // p 16-byte aligned
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ Quad<double> ld4(const double* p) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  return {{a.x, a.y, b.x, b.y}};
 }
 
-__device__ __forceinline__ float at4(const float4& q, int i) {
-  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+template <typename F>
+__device__ __forceinline__ F at4(const Quad<F>& q, int i) {
+  return q.v[i];
 }
 
 // ---- PyTorch's row-sum order (Reduce.cuh: ReduceOp::run) ------------------
@@ -207,15 +250,15 @@ struct Pos {
 // elements from e0 (16-byte aligned in the (rows, n) arrays), `op.apply(e,
 // in)` updates element e and returns its terms of the N sums. The 4-wide
 // walk loads D vectors of every input before it adds any.
-template <int N, int D, class Op>
-__device__ Vals<N> thread_sums(const Red& c, const Pos& t, const Op& op, size_t row_off, int n,
-                               bool tail_ok) {
+template <typename F, int N, int D, class Op>
+__device__ Vals<F, N> thread_sums(const Red& c, const Pos& t, const Op& op, size_t row_off,
+                                  int n, bool tail_ok) {
   using In = typename Op::In;
-  Vals<N> acc[4];
+  Vals<F, N> acc[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) acc[i].v[j] = 0.0f;
+    for (int j = 0; j < N; ++j) acc[i].v[j] = F(0);
   const int stride = c.step_in;
   int idx = t.x * c.im0 + t.y * c.im1 + t.cta * c.im2;
   if (c.vec) {
@@ -276,23 +319,24 @@ __device__ Vals<N> thread_sums(const Red& c, const Pos& t, const Op& op, size_t 
 
 // The partial sums of virtual thread `t` of row `row` (0 where the thread
 // starts past the row's end, as ReduceOp::run leaves them).
-template <int N, int D, class Op>
-__device__ Vals<N> virtual_thread_sums(const Args& a, const Pos& t, const Op& op, int row) {
+template <typename F, int N, int D, class Op>
+__device__ Vals<F, N> virtual_thread_sums(const Args<F>& a, const Pos& t, const Op& op, int row) {
   const Red& c = a.red;
   const bool block_y = c.im1 != 0, global = c.im2 != 0;
   const bool tail_ok = (!block_y || t.y == 0) && (!global || t.cta == 0);
   const int idx = t.x * c.im0 + t.y * c.im1 + t.cta * c.im2;
-  Vals<N> value;
+  Vals<F, N> value;
 #pragma unroll
-  for (int j = 0; j < N; ++j) value.v[j] = 0.0f;
+  for (int j = 0; j < N; ++j) value.v[j] = F(0);
   if (row < a.rows && idx < a.n)
-    value = thread_sums<N, D>(c, t, op, static_cast<size_t>(row) * a.n, a.n, tail_ok);
+    value = thread_sums<F, N, D>(c, t, op, static_cast<size_t>(row) * a.n, a.n, tail_ok);
   return value;
 }
 
 // block_x_reduce on this block's lane rows: a shared-memory tree down to a
 // warp, then a shuffle tree. `x` is the lane, `a` the thread's own slot.
-__device__ float block_x_sum(float value, float* sh, int bw, int x) {
+template <typename F>
+__device__ F block_x_sum(F value, F* sh, int bw, int x) {
   int dim_x = bw;
   if (dim_x > 32) {
     const int a = threadIdx.x;
@@ -300,7 +344,7 @@ __device__ float block_x_sum(float value, float* sh, int bw, int x) {
     for (int off = dim_x / 2; off >= 32; off >>= 1) {
       __syncthreads();
       if (x < off && x + off < bw) {
-        value = __fadd_rn(value, sh[a + off]);
+        value = add_rn(value, sh[a + off]);
         sh[a] = value;
       }
     }
@@ -308,18 +352,19 @@ __device__ float block_x_sum(float value, float* sh, int bw, int x) {
   }
   __syncthreads();
   for (int off = dim_x >> 1; off > 0; off >>= 1)
-    value = __fadd_rn(value, __shfl_down_sync(0xffffffffu, value, off));
+    value = add_rn(value, __shfl_down_sync(0xffffffffu, value, off));
   return value;
 }
 
 // block_y_reduce's tree, on values laid out as its threads' (sh[x + y bw]):
 // sh[x + y bw] += sh[x + (y + off) bw] for y < off, off = bh / 2, ..., 1.
 // Every thread of the block calls it; sh is complete on return.
-__device__ void tree_y(float* sh, int bw, int bh) {
+template <typename F>
+__device__ void tree_y(F* sh, int bw, int bh) {
   for (int off = bh / 2; off > 0; off >>= 1) {
     __syncthreads();
     for (int k = threadIdx.x; k < off * bw; k += blockDim.x)
-      sh[k] = __fadd_rn(sh[k], sh[k + off * bw]);
+      sh[k] = add_rn(sh[k], sh[k + off * bw]);
   }
   __syncthreads();
 }
@@ -327,12 +372,13 @@ __device__ void tree_y(float* sh, int bw, int bh) {
 // block_x_reduce's tree on `lane_rows` lane rows of sh (the same additions
 // as its shared-memory steps and its shuffles): sh[x + y bw] += sh[x + off
 // + y bw] for x < off, off = bw / 2, ..., 1.
-__device__ void tree_x(float* sh, int bw, int lane_rows) {
+template <typename F>
+__device__ void tree_x(F* sh, int bw, int lane_rows) {
   for (int off = bw / 2; off > 0; off >>= 1) {
     __syncthreads();
     for (int k = threadIdx.x; k < off * lane_rows; k += blockDim.x) {
       const int y = k / off, a = k - y * off + y * bw;
-      sh[a] = __fadd_rn(sh[a], sh[a + off]);
+      sh[a] = add_rn(sh[a], sh[a + off]);
     }
   }
   __syncthreads();
@@ -341,13 +387,13 @@ __device__ void tree_x(float* sh, int bw, int lane_rows) {
 // global_reduce: the last block of a split row sums the ctas blocks' values
 // get(k): virtual thread k of a bw x bh block adds k, k + bw bh, ... from
 // 0, then block_y_reduce, then block_x_reduce. The sum is sh[0].
-template <class Get>
-__device__ float global_pass(const Red& c, float* sh, const Get& get) {
+template <typename F, class Get>
+__device__ F global_pass(const Red& c, F* sh, const Get& get) {
   const int threads = c.bw * c.bh;
   __syncthreads();
   for (int k = threadIdx.x; k < threads; k += blockDim.x) {
-    float v = 0.0f;
-    for (int kk = k; kk < c.ctas; kk += threads) v = __fadd_rn(v, get(kk));
+    F v = F(0);
+    for (int kk = k; kk < c.ctas; kk += threads) v = add_rn(v, get(kk));
     sh[k] = v;
   }
   tree_y(sh, c.bw, c.bh);
@@ -376,13 +422,13 @@ __device__ __forceinline__ void cluster_wait() {
 // through distributed shared memory (the caller arrived on the cluster's
 // barrier when it started); else through `staging`, the last block to
 // arrive (an integer atomicAdd between fences) taking block 0's place.
-template <int N, int D, bool kCluster, class Op>
-__device__ bool row_sums(const Args& a, const Pos& t, const Op& op, int row, Vals<N>& out) {
-  __shared__ float sh[kMaxReduceThreads];
-  __shared__ float slots[2 * kMaxReduceThreads];
+template <typename F, int N, int D, bool kCluster, class Op>
+__device__ bool row_sums(const Args<F>& a, const Pos& t, const Op& op, int row, Vals<F, N>& out) {
+  __shared__ F sh[kMaxReduceThreads];
+  __shared__ F slots[2 * kMaxReduceThreads];
   __shared__ bool last;
   const Red& c = a.red;
-  Vals<N> value = virtual_thread_sums<N, D>(a, t, op, row);
+  Vals<F, N> value = virtual_thread_sums<F, N, D>(a, t, op, row);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     __syncthreads();
@@ -404,7 +450,7 @@ __device__ bool row_sums(const Args& a, const Pos& t, const Op& op, int row, Val
     }
   } else if (kCluster) {
     cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-    float* slots0 = cluster.map_shared_rank(slots, 0);
+    F* slots0 = cluster.map_shared_rank(slots, 0);
     cluster_wait();  // block 0 has started
     if (t.x == 0) {
 #pragma unroll
@@ -420,7 +466,7 @@ __device__ bool row_sums(const Args& a, const Pos& t, const Op& op, int row, Val
       __syncthreads();
     }
   } else {
-    float* lane_st = a.staging + 2 * V;
+    F* lane_st = a.staging + 2 * V;
     if (t.x == 0) {
 #pragma unroll
       for (int j = 0; j < N; ++j) lane_st[(j * V + v) * c.bh + t.y] = value.v[j];
@@ -457,7 +503,7 @@ __device__ bool row_sums(const Args& a, const Pos& t, const Op& op, int row, Val
   __syncthreads();
   if (!last) return false;
   __threadfence();
-  const float* cta_st = a.staging + t.group * c.ctas;
+  const F* cta_st = a.staging + t.group * c.ctas;
 #pragma unroll
   for (int j = 0; j < N; ++j)
     value.v[j] = global_pass(c, sh, [&](int k) { return __ldcg(cta_st + j * V + k); });
@@ -468,59 +514,62 @@ __device__ bool row_sums(const Args& a, const Pos& t, const Op& op, int row, Val
 
 // ---- the stages' elementwise work -----------------------------------------
 
+template <typename F>
 struct DenOp {  // stage 1: the terms p * ap of den
-  const Args& a;
+  const Args<F>& a;
   size_t row;
-  float shift;
+  F shift;
   struct In {
-    float p, lap, av;
+    F p, lap, av;
   };
   __device__ In load(int e) const { return {a.p[row + e], a.lap[row + e], a.av[e]}; }
   __device__ void load4(int e, In* in) const {
-    const float4 p = ld4(a.p + row + e), l = ld4(a.lap + row + e);
+    const Quad<F> p = ld4(a.p + row + e), l = ld4(a.lap + row + e);
 #pragma unroll
     for (int i = 0; i < 4; ++i) in[i] = {at4(p, i), at4(l, i), a.av[e + i]};
   }
-  __device__ Vals<1> apply(int, const In& in) const {
-    return {{__fmul_rn(in.p, ap_of(in.lap, shift, in.av, in.p))}};
+  __device__ Vals<F, 1> apply(int, const In& in) const {
+    return {{mul_rn(in.p, ap_of(in.lap, shift, in.av, in.p))}};
   }
 };
 
+template <typename F>
 struct MeanOp {  // stage 3: the null row's mean terms r * real, left in z by stage 2
-  const Args& a;
+  const Args<F>& a;
   size_t row;
   struct In {
-    float t;
+    F t;
   };
   __device__ In load(int e) const { return {a.z[row + e]}; }
   __device__ void load4(int e, In* in) const {
-    const float4 t = ld4(a.z + row + e);
+    const Quad<F> t = ld4(a.z + row + e);
 #pragma unroll
     for (int i = 0; i < 4; ++i) in[i] = {at4(t, i)};
   }
-  __device__ Vals<1> apply(int, const In& in) const { return {{in.t}}; }
+  __device__ Vals<F, 1> apply(int, const In& in) const { return {{in.t}}; }
 };
 
+template <typename F>
 struct PrecondOp {  // stage 5: z, and the terms of rr and rz
-  const Args& a;
+  const Args<F>& a;
   size_t row;
   struct In {
-    float r, j, g, s;
+    F r, j, g, s;
   };
   __device__ In load(int e) const {
-    return {a.r[row + e], a.jacobi[row + e], a.g ? a.g[row + e] : 0.0f, a.g ? a.s[e] : 0.0f};
+    return {a.r[row + e], a.jacobi[row + e], a.g ? a.g[row + e] : F(0), a.g ? a.s[e] : F(0)};
   }
   __device__ void load4(int e, In* in) const {
-    const float4 r = ld4(a.r + row + e), j = ld4(a.jacobi + row + e);
-    const float4 g = a.g ? ld4(a.g + row + e) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const Quad<F> r = ld4(a.r + row + e), j = ld4(a.jacobi + row + e);
+    const Quad<F> g = a.g ? ld4(a.g + row + e) : Quad<F>{{F(0), F(0), F(0), F(0)}};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) in[i] = {at4(r, i), at4(j, i), at4(g, i), a.g ? a.s[e + i] : 0.0f};
+    for (int i = 0; i < 4; ++i) in[i] = {at4(r, i), at4(j, i), at4(g, i), a.g ? a.s[e + i] : F(0)};
   }
-  __device__ Vals<2> apply(int e, const In& in) const {
-    float z = __fmul_rn(in.j, in.r);
-    if (a.g) z = __fadd_rn(z, __fmul_rn(in.s, in.g));
+  __device__ Vals<F, 2> apply(int e, const In& in) const {
+    F z = mul_rn(in.j, in.r);
+    if (a.g) z = add_rn(z, mul_rn(in.s, in.g));
     a.z[row + e] = z;
-    return {{__fmul_rn(in.r, in.r), __fmul_rn(in.r, z)}};
+    return {{mul_rn(in.r, in.r), mul_rn(in.r, z)}};
   }
 };
 
@@ -537,18 +586,19 @@ __device__ bool last_to_arrive(unsigned int* counter) {
 }
 
 // At most 128 registers a thread at 512 threads: 8 vectors deep takes
-// blocks of at most 256.
-template <int D>
+// blocks of at most 256; doubles, twice the registers, half the threads
+// (ops/cg_step.py::WALK_THREADS).
+template <typename F, int D>
 constexpr int walk_threads() {
-  return D <= 4 ? kMaxReduceThreads : kMaxReduceThreads / 2;
+  return (D <= 4 ? kMaxReduceThreads : kMaxReduceThreads / 2) / (sizeof(F) == 8 ? 2 : 1);
 }
 
 // Stages 1 and 5: one block per `lanes` lane rows of a virtual block of
 // PyTorch's reduce geometry (`Red`), the blocks of a virtual block adjacent
 // (with kCluster, a cluster). The row scalars the last step reads are
 // loaded before the walk.
-template <int D, bool kCluster>
-__global__ void __launch_bounds__(walk_threads<D>()) cg_step_walk_kernel(Args a, int stage) {
+template <typename F, int D, bool kCluster>
+__device__ __forceinline__ void walk(const Args<F>& a, int stage) {
   if (!*a.live) return;
   const Red& c = a.red;
   const int rows = a.rows, parts = c.bh / c.lanes;
@@ -558,26 +608,38 @@ __global__ void __launch_bounds__(walk_threads<D>()) cg_step_walk_kernel(Args a,
               part * c.lanes + static_cast<int>(threadIdx.x) / c.bw, v / c.ctas, v % c.ctas};
   const int row = t.y * c.om1 + t.group * c.step_out, rm = row < rows ? row : 0;
   const size_t off = static_cast<size_t>(rm) * a.n;
-  float* step_s = a.scal + kStep * rows;
-  const float rz_old = a.rz[rm];
+  F* step_s = a.scal + kStep * rows;
+  const F rz_old = a.rz[rm];
   if (stage == kDen) {
     const bool active = a.rr[rm] > a.thresh[rm];  // live holds here
-    Vals<1> den;
-    if (row_sums<1, D, kCluster>(a, t, DenOp{a, off, a.shifts[rm]}, row, den)) {
-      const bool step = active && den.v[0] > 0.0f;
+    Vals<F, 1> den;
+    if (row_sums<F, 1, D, kCluster>(a, t, DenOp<F>{a, off, a.shifts[rm]}, row, den)) {
+      const bool step = active && den.v[0] > F(0);
       a.scal[kDenS * rows + row] = den.v[0];
-      a.scal[kAlpha * rows + row] = step ? __fdiv_rn(rz_old, clamp_tiny(den.v[0])) : 0.0f;
-      step_s[row] = step ? 1.0f : 0.0f;
+      a.scal[kAlpha * rows + row] = step ? div_rn(rz_old, clamp_tiny(den.v[0])) : F(0);
+      step_s[row] = step ? F(1) : F(0);
     }
   } else if (stage == kPrecond) {
-    const bool step = step_s[rm] > 0.5f;
-    Vals<2> sums;
-    if (row_sums<2, D, kCluster>(a, t, PrecondOp{a, off}, row, sums)) {
-      a.scal[kBeta * rows + row] = step ? __fdiv_rn(sums.v[1], clamp_tiny(rz_old)) : 0.0f;
+    const bool step = step_s[rm] > F(0.5);
+    Vals<F, 2> sums;
+    if (row_sums<F, 2, D, kCluster>(a, t, PrecondOp<F>{a, off}, row, sums)) {
+      a.scal[kBeta * rows + row] = step ? div_rn(sums.v[1], clamp_tiny(rz_old)) : F(0);
       a.rz[row] = step ? sums.v[1] : rz_old;
       a.rr[row] = sums.v[0];
     }
   }
+}
+
+template <int D, bool kCluster>
+__global__ void __launch_bounds__(walk_threads<float, D>())
+    cg_step_walk_kernel(Args<float> a, int stage) {
+  walk<float, D, kCluster>(a, stage);
+}
+
+template <int D, bool kCluster>
+__global__ void __launch_bounds__(walk_threads<double, D>())
+    cg_step_f64_walk_kernel(Args<double> a, int stage) {
+  walk<double, D, kCluster>(a, stage);
 }
 
 // Stage 3, the null rows: one cluster of kNullBlocks blocks of T threads
@@ -591,16 +653,17 @@ __global__ void __launch_bounds__(walk_threads<D>()) cg_step_walk_kernel(Args a,
 // every block deflates its share of the row: r - null * mean, padding
 // slots zeroed, and s * r. The latch, the first rows' flags and n_real are
 // read together, a thread's first E elements of the share before the walk.
-template <int T>
+// Doubles hold half as many of each in the same registers.
+template <typename F, int T>
 struct NullShape {
-  static constexpr int D = T <= 256 ? 16 : 8;  // vectors of the walk in flight
-  static constexpr int E = T <= 256 ? 12 : 6;  // elements of the deflation held
+  static constexpr int kScale = sizeof(F) / sizeof(float);
+  static constexpr int D = (T <= 256 ? 16 : 8) / kScale;  // vectors of the walk in flight
+  static constexpr int E = (T <= 256 ? 12 : 6) / kScale;  // elements of the deflation held
 };
 
-template <int T>
-__device__ void null_row(const Args& a, float* vals, float* sh, float* mean_sh, float n_real,
-                         int m) {
-  constexpr int kD = NullShape<T>::D, kE = NullShape<T>::E;
+template <typename F, int T>
+__device__ void null_row(const Args<F>& a, F* vals, F* sh, F* mean_sh, F n_real, int m) {
+  constexpr int kD = NullShape<F, T>::D, kE = NullShape<F, T>::E;
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const Red& c = a.red;
   const int rank = static_cast<int>(cluster.block_rank()), blocks = kNullBlocks;
@@ -608,15 +671,15 @@ __device__ void null_row(const Args& a, float* vals, float* sh, float* mean_sh, 
   const int first = rank * T + static_cast<int>(threadIdx.x);
   const size_t base = static_cast<size_t>(m) * a.n;
   cluster_arrive();  // this block has started (wait: before writing into block 0)
-  float rv[kE], realv[kE], sv[kE];
+  F rv[kE], realv[kE], sv[kE];
 #pragma unroll
   for (int k = 0; k < kE; ++k) {
     const int e = first + k * step;
-    rv[k] = e < a.n ? a.r[base + e] : 0.0f;
-    realv[k] = e < a.n ? a.real[e] : 0.0f;
-    sv[k] = e < a.n ? a.s[e] : 0.0f;
+    rv[k] = e < a.n ? a.r[base + e] : F(0);
+    realv[k] = e < a.n ? a.real[e] : F(0);
+    sv[k] = e < a.n ? a.s[e] : F(0);
   }
-  const float nl = a.null_w[m];
+  const F nl = a.null_w[m];
   // The lane rows: item i = (cta, lane row) of the row's virtual blocks
   // (the row's own lane row alone where the lane rows own rows), item i in
   // lane-row slot i mod (blocks x slots) of the cluster.
@@ -624,72 +687,72 @@ __device__ void null_row(const Args& a, float* vals, float* sh, float* mean_sh, 
   const int group = m / c.step_out, items = block_y ? c.ctas * c.bh : 1;
   const int x = static_cast<int>(threadIdx.x) % c.bw, ly = static_cast<int>(threadIdx.x) / c.bw;
   const int slots = blocks * (T / c.bw);
-  const MeanOp op{a, base};
-  float* vals0 = cluster.map_shared_rank(vals, 0);
+  const MeanOp<F> op{a, base};
+  F* vals0 = cluster.map_shared_rank(vals, 0);
   for (int i0 = 0; i0 < items; i0 += slots) {
     const int i = i0 + ly * blocks + rank;
     const Pos t = block_y ? Pos{x, i % c.bh, group, i / c.bh}
                           : Pos{x, m - group * c.step_out, group, 0};
-    const float value = i < items ? virtual_thread_sums<1, kD>(a, t, op, m).v[0] : 0.0f;
+    const F value = i < items ? virtual_thread_sums<F, 1, kD>(a, t, op, m).v[0] : F(0);
     __syncthreads();
-    const float lane_sum = block_x_sum(value, sh, c.bw, x);
+    const F lane_sum = block_x_sum(value, sh, c.bw, x);
     if (i0 == 0) cluster_wait();
     if (i < items && x == 0) vals0[block_y ? t.y * c.ctas + t.cta : 0] = lane_sum;
   }
   cluster.sync();  // every lane row's value is in block 0
   if (rank == 0) {
-    float sum = vals[0];
+    F sum = vals[0];
     if (block_y) {
       tree_y(vals, c.ctas, c.bh);  // block_y_reduce of each virtual block, side by side
       sum = c.ctas == 1 ? vals[0] : global_pass(c, sh, [&](int k) { return vals[k]; });
     }
     if (threadIdx.x == 0) {
-      *mean_sh = __fdiv_rn(sum, n_real);
+      *mean_sh = div_rn(sum, n_real);
       a.scal[kMeanS * a.rows + m] = *mean_sh;
     }
   }
   cluster.sync();
-  const float shift_mean = __fmul_rn(nl, *cluster.map_shared_rank(mean_sh, 0));
+  const F shift_mean = mul_rn(nl, *cluster.map_shared_rank(mean_sh, 0));
   cluster_arrive();  // done with block 0's shared memory
   for (int e0 = first; e0 < a.n; e0 += kE * step) {
     if (e0 != first) {
 #pragma unroll
       for (int k = 0; k < kE; ++k) {
         const int e = e0 + k * step;
-        rv[k] = e < a.n ? a.r[base + e] : 0.0f;
-        realv[k] = e < a.n ? a.real[e] : 0.0f;
-        sv[k] = e < a.n ? a.s[e] : 0.0f;
+        rv[k] = e < a.n ? a.r[base + e] : F(0);
+        realv[k] = e < a.n ? a.real[e] : F(0);
+        sv[k] = e < a.n ? a.s[e] : F(0);
       }
     }
 #pragma unroll
     for (int k = 0; k < kE; ++k) {
       const int e = e0 + k * step;
       if (e >= a.n) break;
-      const float r2 = __fmul_rn(__fsub_rn(rv[k], shift_mean), realv[k]);
+      const F r2 = mul_rn(sub_rn(rv[k], shift_mean), realv[k]);
       a.r[base + e] = r2;
-      a.sr[base + e] = __fmul_rn(sv[k], r2);
+      a.sr[base + e] = mul_rn(sv[k], r2);
     }
   }
   cluster_wait();
 }
 
 // T threads a block: 256, or 512 where a lane row is that wide (one row).
-template <int T>
-__global__ void __launch_bounds__(T) cg_step_null_kernel(Args a) {
-  __shared__ float vals[kMaxNullItems];
-  __shared__ float sh[kMaxReduceThreads];
+template <typename F, int T>
+__device__ __forceinline__ void null_rows(const Args<F>& a) {
+  __shared__ F vals[kMaxNullItems];
+  __shared__ F sh[kMaxReduceThreads];
   __shared__ int flags[T];
-  __shared__ float mean_sh;
+  __shared__ F mean_sh;
   const bool live = *a.live;
   const int rows = a.rows, lane = static_cast<int>(threadIdx.x) & 31;
-  bool null_flag = static_cast<int>(threadIdx.x) < rows && a.null_w[threadIdx.x] > 0.0f;
-  const float n_real = *a.n_real;
+  bool null_flag = static_cast<int>(threadIdx.x) < rows && a.null_w[threadIdx.x] > F(0);
+  const F n_real = *a.n_real;
   if (!live) return;
   for (int first = 0; first < rows; first += T) {
     __syncthreads();
     if (first > 0) {
       const int mm = first + static_cast<int>(threadIdx.x);
-      null_flag = mm < rows && a.null_w[mm] > 0.0f;
+      null_flag = mm < rows && a.null_w[mm] > F(0);
     }
     flags[threadIdx.x] = null_flag;
     __syncthreads();
@@ -698,70 +761,81 @@ __global__ void __launch_bounds__(T) cg_step_null_kernel(Args a) {
       while (mask) {  // the same rows in the same order in every block
         const int m = first + w + __ffs(mask) - 1;
         mask &= mask - 1;
-        null_row<T>(a, vals, sh, &mean_sh, n_real, m);
+        null_row<F, T>(a, vals, sh, &mean_sh, n_real, m);
       }
     }
   }
 }
 
+template <int T>
+__global__ void __launch_bounds__(T) cg_step_null_kernel(Args<float> a) {
+  null_rows<float, T>(a);
+}
+
+template <int T>
+__global__ void __launch_bounds__(T) cg_step_f64_null_kernel(Args<double> a) {
+  null_rows<double, T>(a);
+}
+
 // Stages 2 and 6: 256 threads, 4 elements each, on 1,024 elements of the
 // row blockIdx.y.
-__global__ void __launch_bounds__(kThreads) cg_step_wide_kernel(Args a, int stage) {
+template <typename F>
+__device__ __forceinline__ void wide(const Args<F>& a, int stage) {
   if (!*a.live) return;
   const int rows = a.rows;
   const int v0 = blockIdx.x * kChunk + threadIdx.x;
-  const float* step_s = a.scal + kStep * rows;
+  const F* step_s = a.scal + kStep * rows;
   if (stage == kUpdate) {
     const int m = blockIdx.y;
     const size_t base = static_cast<size_t>(m) * a.n;
-    const float shift = a.shifts[m], alpha = a.scal[kAlpha * rows + m];
-    const bool null_row = a.null_w[m] > 0.0f;
-    const float* w = null_row ? a.real : a.s;
-    float* out = null_row ? a.z : a.sr;
-    float pv[kPerThread], lv[kPerThread], avv[kPerThread], xv[kPerThread], rv[kPerThread],
+    const F shift = a.shifts[m], alpha = a.scal[kAlpha * rows + m];
+    const bool null_row = a.null_w[m] > F(0);
+    const F* w = null_row ? a.real : a.s;
+    F* out = null_row ? a.z : a.sr;
+    F pv[kPerThread], lv[kPerThread], avv[kPerThread], xv[kPerThread], rv[kPerThread],
         wv[kPerThread];
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int v = v0 + i * kThreads;
       const bool in = v < a.n;
-      pv[i] = in ? a.p[base + v] : 0.0f;
-      lv[i] = in ? a.lap[base + v] : 0.0f;
-      avv[i] = in ? a.av[v] : 0.0f;
-      xv[i] = in ? a.x[base + v] : 0.0f;
-      rv[i] = in ? a.r[base + v] : 0.0f;
-      wv[i] = in ? w[v] : 0.0f;
+      pv[i] = in ? a.p[base + v] : F(0);
+      lv[i] = in ? a.lap[base + v] : F(0);
+      avv[i] = in ? a.av[v] : F(0);
+      xv[i] = in ? a.x[base + v] : F(0);
+      rv[i] = in ? a.r[base + v] : F(0);
+      wv[i] = in ? w[v] : F(0);
     }
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int v = v0 + i * kThreads;
       if (v >= a.n) break;
-      const float ap = ap_of(lv[i], shift, avv[i], pv[i]);
-      a.x[base + v] = __fadd_rn(xv[i], __fmul_rn(alpha, pv[i]));
-      const float r1 = __fsub_rn(rv[i], __fmul_rn(alpha, ap));
+      const F ap = ap_of(lv[i], shift, avv[i], pv[i]);
+      a.x[base + v] = add_rn(xv[i], mul_rn(alpha, pv[i]));
+      const F r1 = sub_rn(rv[i], mul_rn(alpha, ap));
       a.r[base + v] = r1;
       // s * r (dfl is the identity off the null row); on the null row the
       // terms r * real of its mean, which stage 3 sums, in z (free until
       // stage 5): stage 3 writes the row's s * r while its blocks read them.
-      out[base + v] = __fmul_rn(wv[i], r1);
+      out[base + v] = mul_rn(wv[i], r1);
     }
     return;
   }
   if (stage != kDirection) return;
   const int m = blockIdx.y;
   const size_t base = static_cast<size_t>(m) * a.n;
-  if (step_s[m] > 0.5f) {
-    const float beta = a.scal[kBeta * rows + m];
-    float zv[kPerThread], pv[kPerThread];
+  if (step_s[m] > F(0.5)) {
+    const F beta = a.scal[kBeta * rows + m];
+    F zv[kPerThread], pv[kPerThread];
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int v = v0 + i * kThreads;
-      zv[i] = v < a.n ? a.z[base + v] : 0.0f;
-      pv[i] = v < a.n ? a.p[base + v] : 0.0f;
+      zv[i] = v < a.n ? a.z[base + v] : F(0);
+      pv[i] = v < a.n ? a.p[base + v] : F(0);
     }
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int v = v0 + i * kThreads;
-      if (v < a.n) a.p[base + v] = __fadd_rn(zv[i], __fmul_rn(beta, pv[i]));
+      if (v < a.n) a.p[base + v] = add_rn(zv[i], mul_rn(beta, pv[i]));
     }
   }
   if (!last_to_arrive(a.counter)) return;
@@ -774,6 +848,14 @@ __global__ void __launch_bounds__(kThreads) cg_step_wide_kernel(Args a, int stag
     *a.live = (it < a.max_iters && any) ? 1 : 0;
     *a.counter = 0;
   }
+}
+
+__global__ void __launch_bounds__(kThreads) cg_step_wide_kernel(Args<float> a, int stage) {
+  wide<float>(a, stage);
+}
+
+__global__ void __launch_bounds__(kThreads) cg_step_f64_wide_kernel(Args<double> a, int stage) {
+  wide<double>(a, stage);
 }
 
 // A launch of `kernel` on `st` in clusters of `cluster` blocks.
@@ -799,29 +881,81 @@ cudaError_t launch_clusters(void (*kernel)(Params...), int blocks, int threads, 
   return cudaLaunchKernelEx(&cfg, kernel, params...);
 }
 
-template <int D>
-cudaError_t launch_walk(const Args& a, int stage, bool cluster, cudaStream_t st) {
+template <typename F, int D>
+cudaError_t launch_walk(const Args<F>& a, int stage, bool cluster, cudaStream_t st) {
   const Red& c = a.red;
   const int threads = c.lanes * c.bw, parts = c.bh / c.lanes;
   cluster = cluster && c.im1 != 0 && parts > 1;  // lane rows to combine across blocks
-  if (threads > walk_threads<D>() || (cluster && parts > kMaxCluster))
+  if (threads > walk_threads<F, D>() || (cluster && parts > kMaxCluster))
     return cudaErrorInvalidValue;
   const int blocks = groups_of(c, a.rows) * c.ctas * parts;
-  if (cluster)
-    return launch_clusters(cg_step_walk_kernel<D, true>, blocks, threads, parts, st, a, stage);
-  cg_step_walk_kernel<D, false><<<blocks, threads, 0, st>>>(a, stage);
+  if constexpr (std::is_same<F, double>::value) {
+    if (cluster)
+      return launch_clusters(cg_step_f64_walk_kernel<D, true>, blocks, threads, parts, st, a,
+                             stage);
+    cg_step_f64_walk_kernel<D, false><<<blocks, threads, 0, st>>>(a, stage);
+  } else {
+    if (cluster)
+      return launch_clusters(cg_step_walk_kernel<D, true>, blocks, threads, parts, st, a, stage);
+    cg_step_walk_kernel<D, false><<<blocks, threads, 0, st>>>(a, stage);
+  }
   return cudaSuccess;
 }
 
 bool is_pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
+// One launch of `stage` (the C entry points below).
+template <typename F>
+int run_stage(int stage, const Args<F>& a, const int* red, cudaStream_t st) {
+  const Red& c = a.red;
+  const bool cluster = red[12] != 0;
+  const bool stage_ok = stage == kDen || stage == kUpdate || stage == kNull ||
+                        stage == kPrecond || stage == kDirection;
+  if (!stage_ok || a.rows < 1 || a.rows > 65535 || a.n < 1 || !is_pow2(c.bw) ||
+      !is_pow2(c.bh) || c.bw * c.bh > kMaxReduceThreads || c.step_out < 1 || c.ctas < 1 ||
+      !is_pow2(c.lanes) || c.lanes > c.bh || (c.depth != 4 && c.depth != 8) ||
+      (c.im1 != 0 && c.ctas * c.bh > kMaxNullItems)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSuccess;
+  if (stage == kDen || stage == kPrecond) {
+    err = c.depth == 4 ? launch_walk<F, 4>(a, stage, cluster, st)
+                       : launch_walk<F, 8>(a, stage, cluster, st);
+  } else if (stage == kNull) {
+    if constexpr (std::is_same<F, double>::value) {
+      err = c.bw <= 256 ? launch_clusters(cg_step_f64_null_kernel<256>, kNullBlocks, 256,
+                                          kNullBlocks, st, a)
+                        : launch_clusters(cg_step_f64_null_kernel<512>, kNullBlocks, 512,
+                                          kNullBlocks, st, a);
+    } else {
+      err = c.bw <= 256
+                ? launch_clusters(cg_step_null_kernel<256>, kNullBlocks, 256, kNullBlocks, st, a)
+                : launch_clusters(cg_step_null_kernel<512>, kNullBlocks, 512, kNullBlocks, st, a);
+    }
+  } else {
+    const dim3 grid((a.n + kChunk - 1) / kChunk, a.rows);
+    if constexpr (std::is_same<F, double>::value) {
+      cg_step_f64_wide_kernel<<<grid, kThreads, 0, st>>>(a, stage);
+    } else {
+      cg_step_wide_kernel<<<grid, kThreads, 0, st>>>(a, stage);
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Red red_of(const int* red) {
+  return Red{red[0], red[1], red[2], red[3],  red[4], red[5],
+             red[6], red[7], red[8], red[9], red[10], red[11]};
+}
+
 }  // namespace
 
-// C entry point, bound with ctypes (ops/_build.py, ops/cg_step.py). All
-// arrays are contiguous float32 except it (one int64), live (one byte) and
-// counter (uint32, 0 between launches, at least
+// C entry points, bound with ctypes (ops/_build.py, ops/cg_step.py). All
+// arrays are contiguous float32 (dots_cg_step_f64: float64) except it (one
+// int64), live (one byte) and counter (uint32, 0 between launches, at least
 // ops/cg_step.py::split_plan's `counters`); g is nullptr without deflation;
-// staging holds at least 2 V (1 + bh) floats; red holds the row-sum
+// staging holds at least 2 V (1 + bh) elements; red holds the row-sum
 // geometry and the split plan (bw, bh, vec, im0, im1, im2, om1, step_in,
 // step_out, ctas, lanes, depth, cluster). One launch of stage 1, 2, 3, 5 or 6 on
 // `stream` of the current device; returns cudaGetLastError() (0 on
@@ -834,32 +968,22 @@ extern "C" int dots_cg_step_f32(int stage, const float* lap, float* x, float* r,
                                 float* sr, float* z, float* staging, float* scal,
                                 unsigned int* counter, const int* red, int rows, int n,
                                 int max_iters, void* stream) {
-  const Red c{red[0], red[1], red[2], red[3],  red[4], red[5],
-              red[6], red[7], red[8], red[9], red[10], red[11]};
-  const bool cluster = red[12] != 0;
-  const bool stage_ok = stage == kDen || stage == kUpdate || stage == kNull ||
-                        stage == kPrecond || stage == kDirection;
-  if (!stage_ok || rows < 1 || rows > 65535 || n < 1 || !is_pow2(c.bw) || !is_pow2(c.bh) ||
-      c.bw * c.bh > kMaxReduceThreads || c.step_out < 1 || c.ctas < 1 || !is_pow2(c.lanes) ||
-      c.lanes > c.bh || (c.depth != 4 && c.depth != 8) ||
-      (c.im1 != 0 && c.ctas * c.bh > kMaxNullItems)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Args a{lap, x, r, p, rz, rr, it, live, thresh, shifts, av, jacobi, s, real, null_w, n_real,
-         g, sr, z, staging, scal, counter, rows, n, max_iters, c};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-  if (stage == kDen || stage == kPrecond) {
-    err = c.depth == 4 ? launch_walk<4>(a, stage, cluster, st)
-                       : launch_walk<8>(a, stage, cluster, st);
-  } else if (stage == kNull) {
-    err = c.bw <= 256
-              ? launch_clusters(cg_step_null_kernel<256>, kNullBlocks, 256, kNullBlocks, st, a)
-              : launch_clusters(cg_step_null_kernel<512>, kNullBlocks, 512, kNullBlocks, st, a);
-  } else {
-    const dim3 wide((n + kChunk - 1) / kChunk, rows);
-    cg_step_wide_kernel<<<wide, kThreads, 0, st>>>(a, stage);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const Args<float> a{lap, x, r, p, rz, rr, it, live, thresh, shifts, av, jacobi, s, real,
+                      null_w, n_real, g, sr, z, staging, scal, counter, rows, n, max_iters,
+                      red_of(red)};
+  return run_stage(stage, a, red, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dots_cg_step_f64(int stage, const double* lap, double* x, double* r, double* p,
+                                double* rz, double* rr, long long* it, unsigned char* live,
+                                const double* thresh, const double* shifts, const double* av,
+                                const double* jacobi, const double* s, const double* real,
+                                const double* null_w, const double* n_real, const double* g,
+                                double* sr, double* z, double* staging, double* scal,
+                                unsigned int* counter, const int* red, int rows, int n,
+                                int max_iters, void* stream) {
+  const Args<double> a{lap, x, r, p, rz, rr, it, live, thresh, shifts, av, jacobi, s, real,
+                       null_w, n_real, g, sr, z, staging, scal, counter, rows, n, max_iters,
+                       red_of(red)};
+  return run_stage(stage, a, red, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,5 @@
-// Windowed cotan-Laplacian SpMV for Hopper (sm_90a): kernels B1 and B2.
+// Windowed cotan-Laplacian SpMV for Hopper (sm_90a): kernels B1 and B2, and
+// B1-f64, B1's body in float64 (dots_window_spmv_f64).
 //
 // B1 (dots_window_spmv_f32) replaces the TPU kernel
 // dots_socp_tpu/ops/pallas_spmv.py::_window_kernel: y = P L P^T x, the
@@ -70,9 +71,17 @@
 //   cores, no TF32, so the result does not depend on scheduling or on TV.
 // * More than 32 modes: blockIdx.y walks the mode groups; the groups of one
 //   tile read the same (lcol, vals) block.
+// * B1-f64 (window_spmv_f64_kernel) is the same body over doubles: values,
+//   window, sums and output in float64 (fma, no float32 step), for the
+//   float64 CG. Its block's shared memory holds 12 bytes per (lcol, vals)
+//   slot and 8 per window element, so its tiles are cut for that
+//   (ops/window_spmv.py::build_window_tiles, value_bytes = 8); a warp's
+//   64-bit window reads take two half-warp passes, each conflict-free as P
+//   is odd.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -84,16 +93,33 @@ constexpr int kStageModes = 16;   // window loads a thread keeps in flight
 constexpr int kStageSplit = kModes / kStageModes;
 constexpr int kMaxDevices = 64;
 
+// T: float (B1, B2) or double (B1-f64).
+template <typename T>
 struct Args {
-  const float* x;          // (lanes, n_own) own values (B1: the whole vector)
-  const float* buf;        // (lanes, n_buf) gathered exports (B2), else null
+  const T* x;              // (lanes, n_own) own values (B1: the whole vector)
+  const T* buf;            // (lanes, n_buf) gathered exports (B2), else null
   const int* codes;        // (n_window) window position -> source (B2), else null
   const int* tile_start;   // (n_tiles)
   const int* lcol;         // (n_tiles * tile_rows, dp)
-  const float* vals;       // (n_tiles * tile_rows, dp)
-  float* y;                // (lanes, n_rows)
+  const T* vals;           // (n_tiles * tile_rows, dp)
+  T* y;                    // (lanes, n_rows)
   int n_rows, n_own, n_buf, n_window, lanes, tile_rows, width, pitch, dp;
 };
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
+
+// Four consecutive values of a row, 16-byte aligned (float: one vector
+// load; double: two).
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const double* p, double* v) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -126,32 +152,31 @@ __device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
 // One row's dot product with the staged window of this lane's mode, summed
 // in slot order. D > 0: D slots unrolled, read as (D + 3) / 4 vector loads.
 // D == 0: all dp slots (padding slots hold (0, 0.0) and add nothing).
-template <int D>
-__device__ __forceinline__ float row_dot(const int* __restrict__ rc,
-                                         const float* __restrict__ rv,
-                                         const float* __restrict__ wl, int dp) {
-  float acc = 0.0f;
+template <typename T, int D>
+__device__ __forceinline__ T row_dot(const int* __restrict__ rc, const T* __restrict__ rv,
+                                     const T* __restrict__ wl, int dp) {
+  T acc = T(0);
   if constexpr (D > 0) {
     constexpr int kVec = (D + 3) / 4;
     int c[4 * kVec];
-    float v[4 * kVec];
+    T v[4 * kVec];
 #pragma unroll
     for (int q = 0; q < kVec; ++q) {
       const int4 cc = reinterpret_cast<const int4*>(rc)[q];
-      const float4 vv = reinterpret_cast<const float4*>(rv)[q];
       c[4 * q] = cc.x, c[4 * q + 1] = cc.y, c[4 * q + 2] = cc.z, c[4 * q + 3] = cc.w;
-      v[4 * q] = vv.x, v[4 * q + 1] = vv.y, v[4 * q + 2] = vv.z, v[4 * q + 3] = vv.w;
+      load4(rv + 4 * q, v + 4 * q);
     }
 #pragma unroll
-    for (int k = 0; k < D; ++k) acc = fmaf(v[k], wl[c[k]], acc);
+    for (int k = 0; k < D; ++k) acc = fma_t(v[k], wl[c[k]], acc);
   } else {
     for (int q = 0; q < dp / 4; ++q) {
       const int4 cc = reinterpret_cast<const int4*>(rc)[q];
-      const float4 vv = reinterpret_cast<const float4*>(rv)[q];
-      acc = fmaf(vv.x, wl[cc.x], acc);
-      acc = fmaf(vv.y, wl[cc.y], acc);
-      acc = fmaf(vv.z, wl[cc.z], acc);
-      acc = fmaf(vv.w, wl[cc.w], acc);
+      T vv[4];
+      load4(rv + 4 * q, vv);
+      acc = fma_t(vv[0], wl[cc.x], acc);
+      acc = fma_t(vv[1], wl[cc.y], acc);
+      acc = fma_t(vv[2], wl[cc.z], acc);
+      acc = fma_t(vv[3], wl[cc.w], acc);
     }
   }
   return acc;
@@ -160,14 +185,14 @@ __device__ __forceinline__ float row_dot(const int* __restrict__ rc,
 // One block's tile. kFused: window elements are gathered through `codes`
 // from x and buf (B2); else the window is x[:, tile_start : tile_start + W]
 // (B1).
-template <int D, bool kFused>
-__device__ __forceinline__ void window_tile(const Args& a) {
+template <typename T, int D, bool kFused>
+__device__ __forceinline__ void window_tile(const Args<T>& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   // [mbarrier, 16 B][lcol TV*dp][vals TV*dp][window 32*P, reused as ytile 32*(TV+1)]
   uint64_t* bar_ptr = reinterpret_cast<uint64_t*>(smem);
   int* s_lcol = reinterpret_cast<int*>(smem + 16);
-  float* s_vals = reinterpret_cast<float*>(s_lcol + a.tile_rows * a.dp);
-  float* win = s_vals + a.tile_rows * a.dp;
+  T* s_vals = reinterpret_cast<T*>(s_lcol + a.tile_rows * a.dp);
+  T* win = s_vals + a.tile_rows * a.dp;
 
   const int tile = blockIdx.x;
   const int mode0 = blockIdx.y * kModes;
@@ -187,11 +212,12 @@ __device__ __forceinline__ void window_tile(const Args& a) {
   if (threadIdx.x == 0) {
     // The tile's (lcol, vals): two contiguous, 16-byte aligned blocks.
     const uint32_t bytes = static_cast<uint32_t>(a.tile_rows * a.dp * 4);
+    const uint32_t val_bytes = static_cast<uint32_t>(a.tile_rows * a.dp * sizeof(T));
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(2 * bytes)
+                 "r"(bytes + val_bytes)
                  : "memory");
     bulk_copy(s_lcol, a.lcol + static_cast<size_t>(row0) * a.dp, bytes, bar);
-    bulk_copy(s_vals, a.vals + static_cast<size_t>(row0) * a.dp, bytes, bar);
+    bulk_copy(s_vals, a.vals + static_cast<size_t>(row0) * a.dp, val_bytes, bar);
   }
 
   // The window. A unit is 32 consecutive window positions (one per lane)
@@ -202,7 +228,7 @@ __device__ __forceinline__ void window_tile(const Args& a) {
     const int j = (u / kStageSplit) * 32 + lane;
     if (j >= a.width) continue;
     const int pos = start + j;
-    const float* src = nullptr;  // stays null: the element is 0
+    const T* src = nullptr;  // stays null: the element is 0
     size_t stride = a.n_own;
     if constexpr (kFused) {
       if (pos < a.n_window) {
@@ -218,11 +244,11 @@ __device__ __forceinline__ void window_tile(const Args& a) {
       if (pos < a.n_own) src = a.x + pos;
     }
     const int m_lo = (u % kStageSplit) * kStageModes;
-    float v[kStageModes];
+    T v[kStageModes];
 #pragma unroll
     for (int i = 0; i < kStageModes; ++i) {
       const bool live = src != nullptr && m_lo + i < n_modes;
-      v[i] = live ? __ldg(src + (mode0 + m_lo + i) * stride) : 0.0f;
+      v[i] = live ? __ldg(src + (mode0 + m_lo + i) * stride) : T(0);
     }
 #pragma unroll
     for (int i = 0; i < kStageModes; ++i) {
@@ -233,8 +259,8 @@ __device__ __forceinline__ void window_tile(const Args& a) {
   __syncthreads();
 
   // Arithmetic: this warp's 16 rows, 4 at a time, lane = mode.
-  float acc[kRowsPerWarp];
-  const float* wl = win + lane * a.pitch;
+  T acc[kRowsPerWarp];
+  const T* wl = win + lane * a.pitch;
   const int rows_per_warp = a.tile_rows / n_warps;  // 8 or 16
   const int r_lo = warp * rows_per_warp;
 #pragma unroll
@@ -243,14 +269,14 @@ __device__ __forceinline__ void window_tile(const Args& a) {
 #pragma unroll
       for (int i = 0; i < kRowBatch; ++i) {
         const int r = r_lo + b + i;
-        acc[b + i] = row_dot<D>(s_lcol + r * a.dp, s_vals + r * a.dp, wl, a.dp);
+        acc[b + i] = row_dot<T, D>(s_lcol + r * a.dp, s_vals + r * a.dp, wl, a.dp);
       }
     }
   }
 
   // Output through shared memory: ytile[mode][TV + 1] over the window.
   __syncthreads();
-  float* ytile = win;
+  T* ytile = win;
   const int y_pitch = a.tile_rows + 1;
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -273,15 +299,20 @@ __device__ __forceinline__ void window_tile(const Args& a) {
   }
 }
 
-// B1 and B2 under the names the profiler shows.
+// B1, B2 and B1-f64 under the names the profiler shows.
 template <int D, int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads) window_spmv_kernel(const Args a) {
-  window_tile<D, false>(a);
+__global__ void __launch_bounds__(kMaxThreads) window_spmv_kernel(const Args<float> a) {
+  window_tile<float, D, false>(a);
 }
 
 template <int D, int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads) sharded_window_spmv_kernel(const Args a) {
-  window_tile<D, true>(a);
+__global__ void __launch_bounds__(kMaxThreads) sharded_window_spmv_kernel(const Args<float> a) {
+  window_tile<float, D, true>(a);
+}
+
+template <int D, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads) window_spmv_f64_kernel(const Args<double> a) {
+  window_tile<double, D, false>(a);
 }
 
 // Raises the kernel's dynamic shared-memory limit once per device, to the
@@ -304,13 +335,19 @@ int threads_of(int tile_rows) {
   return tile_rows / (tile_rows <= kSmallTile ? 8 : kRowsPerWarp) * 32;
 }
 
-template <int D, bool kFused, int kMaxThreads>
-int launch_variant(const Args& a, int n_tiles, cudaStream_t stream) {
+template <typename T, int D, bool kFused, int kMaxThreads>
+int launch_variant(const Args<T>& a, int n_tiles, cudaStream_t stream) {
   static int granted[kMaxDevices] = {};  // bytes granted so far, per device
   const int tile_floats = kModes * max(a.pitch, a.tile_rows + 1);
-  const int smem = 16 + a.tile_rows * a.dp * 8 + tile_floats * 4;
-  auto kernel = kFused ? sharded_window_spmv_kernel<D, kMaxThreads>
-                       : window_spmv_kernel<D, kMaxThreads>;
+  const int smem = 16 + a.tile_rows * a.dp * static_cast<int>(4 + sizeof(T)) +
+                   tile_floats * static_cast<int>(sizeof(T));
+  void (*kernel)(const Args<T>);
+  if constexpr (std::is_same<T, double>::value) {
+    kernel = window_spmv_f64_kernel<D, kMaxThreads>;
+  } else {
+    kernel = kFused ? sharded_window_spmv_kernel<D, kMaxThreads>
+                    : window_spmv_kernel<D, kMaxThreads>;
+  }
   cudaError_t err = grant_smem(kernel, granted, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n_tiles, (a.lanes + kModes - 1) / kModes);
@@ -327,27 +364,39 @@ int launch_variant(const Args& a, int n_tiles, cudaStream_t stream) {
 // aligned);
 // nnz is the widest row's nonzero count. The unrolled body serves the usual
 // mesh (nnz <= 7, dp = 8); any other width takes the run-time loop.
-template <bool kFused>
-int launch(Args a, int n_tiles, int nnz, void* stream) {
+// B1-f64's doubles take twice the registers: a block of up to 768 threads
+// (plane n200's 352-row tiles run 704) is bound to 85 registers a thread
+// rather than 1024 threads' 64.
+template <typename T, bool kFused>
+int launch(Args<T> a, int n_tiles, int nnz, void* stream) {
   if (a.tile_rows < kRowsPerWarp || a.tile_rows > 512 || a.tile_rows % kRowsPerWarp != 0 ||
       a.dp < 4 || a.dp % 4 != 0 || nnz > a.dp || a.width < 1 || n_tiles < 1 || a.lanes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.pitch = a.width | 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool small = threads_of(a.tile_rows) <= 512;  // up to 128 registers each
-  if (a.dp == 8 && nnz <= 7) {
-    return small ? launch_variant<7, kFused, 512>(a, n_tiles, s)
-                 : launch_variant<7, kFused, 1024>(a, n_tiles, s);
+  const int threads = threads_of(a.tile_rows);
+  const bool small = threads <= 512;  // up to 128 registers each
+  const bool unrolled = a.dp == 8 && nnz <= 7;
+  if constexpr (std::is_same<T, double>::value) {
+    if (!small && threads <= 768) {
+      return unrolled ? launch_variant<T, 7, kFused, 768>(a, n_tiles, s)
+                      : launch_variant<T, 0, kFused, 768>(a, n_tiles, s);
+    }
   }
-  return small ? launch_variant<0, kFused, 512>(a, n_tiles, s)
-               : launch_variant<0, kFused, 1024>(a, n_tiles, s);
+  if (unrolled) {
+    return small ? launch_variant<T, 7, kFused, 512>(a, n_tiles, s)
+                 : launch_variant<T, 7, kFused, 1024>(a, n_tiles, s);
+  }
+  return small ? launch_variant<T, 0, kFused, 512>(a, n_tiles, s)
+               : launch_variant<T, 0, kFused, 1024>(a, n_tiles, s);
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes. All arrays are contiguous; x, buf and y
-// are modes-major float32; tile_start (n_tiles,) and codes (n_window,) int32;
+// are modes-major float32 (B1-f64: float64); tile_start (n_tiles,) and codes
+// (n_window,) int32;
 // lcol / vals (n_tiles * tile_rows, dp). Each launches on `stream` of the
 // current device and returns cudaGetLastError() (0 on success); neither
 // synchronises.
@@ -357,9 +406,19 @@ extern "C" int dots_window_spmv_f32(const float* x, const int* tile_start, const
                                     const float* vals, float* y, int n_rows, int n_cols,
                                     int lanes, int n_tiles, int tile_rows, int width, int dp,
                                     int nnz, void* stream) {
-  Args a{x, nullptr, nullptr, tile_start, lcol, vals, y,
-         n_rows, n_cols, 0, n_cols, lanes, tile_rows, width, 0, dp};
-  return launch<false>(a, n_tiles, nnz, stream);
+  Args<float> a{x, nullptr, nullptr, tile_start, lcol, vals, y,
+                n_rows, n_cols, 0, n_cols, lanes, tile_rows, width, 0, dp};
+  return launch<float, false>(a, n_tiles, nnz, stream);
+}
+
+// B1-f64: the same in float64 (x, vals and y double).
+extern "C" int dots_window_spmv_f64(const double* x, const int* tile_start, const int* lcol,
+                                    const double* vals, double* y, int n_rows, int n_cols,
+                                    int lanes, int n_tiles, int tile_rows, int width, int dp,
+                                    int nnz, void* stream) {
+  Args<double> a{x, nullptr, nullptr, tile_start, lcol, vals, y,
+                 n_rows, n_cols, 0, n_cols, lanes, tile_rows, width, 0, dp};
+  return launch<double, false>(a, n_tiles, nnz, stream);
 }
 
 // B2: y (lanes, n_rows) = the shard's rows of L times its window vector,
@@ -370,7 +429,7 @@ extern "C" int dots_sharded_window_spmv_f32(const float* x, const float* buf, co
                                             const float* vals, float* y, int n_rows, int n_buf,
                                             int n_window, int lanes, int n_tiles, int tile_rows,
                                             int width, int dp, int nnz, void* stream) {
-  Args a{x, buf, codes, tile_start, lcol, vals, y,
-         n_rows, n_rows, n_buf, n_window, lanes, tile_rows, width, 0, dp};
-  return launch<true>(a, n_tiles, nnz, stream);
+  Args<float> a{x, buf, codes, tile_start, lcol, vals, y,
+                n_rows, n_rows, n_buf, n_window, lanes, tile_rows, width, 0, dp};
+  return launch<float, true>(a, n_tiles, nnz, stream);
 }

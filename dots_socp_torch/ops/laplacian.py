@@ -11,12 +11,13 @@ into T+1 shifted spatial solves, done one of two ways:
   preconditioned CG batched over all T+1 shifts (`cg_solve`), with f64
   iterative refinement around the f32 inner CG. The inner matvec is the
   windowed SpMV of `ops.window_spmv` (kernel B1 on the card) when the
-  work dtype is float32; the padded-ELL gather otherwise. On one shard of a
+  work dtype is float32, B1-f64 when it is float64 (a float64 solve, no
+  refinement); the padded-ELL gather otherwise. On one shard of a
   space-sharded problem it is the per-shard window SpMV of
   `ops.sharded_window` (kernel B2), or the halo incidence form; every dot
   product and deflation product then sums over the shards
-  (`ops.collectives`). On one card in float32 with the window SpMV, the
-  rest of each inner iteration is kernel K4 (`ops.cg_step`).
+  (`ops.collectives`). On one card with the window SpMV, the rest of each
+  inner iteration is kernel K4 (`ops.cg_step`), in float64 K4-f64.
 
 The host-side builders are numpy/scipy copies of the reference's.
 """
@@ -299,10 +300,14 @@ class CGCounters:
     fused_steps: int = 0  # inner iterations through `ops.cg_step` (no-ops included)
     flag_reads: int = 0  # the loops' reads of a flag on the host (blocks, passes, iterations)
     passes: int = 0  # inner PCG passes started (each starts with one matvec)
+    # Live inner iterations through K4-f64: taken where `iterations` is (a
+    # replay's count would hold the latched blocks' no-ops).
+    f64_fused_steps: int = 0
 
     def reset(self):
         self.solves = self.refined_solves = self.iterations = 0
         self.window_matvecs = self.fused_steps = self.flag_reads = self.passes = 0
+        self.f64_fused_steps = 0
 
 
 CG_COUNTERS = CGCounters()
@@ -465,10 +470,13 @@ def build_cg_operator(
 ) -> CGOperator:
     """Set up the matrix-free CG solver for meshes too large to densify.
 
-    The windowed SpMV operator is built when the inner CG work dtype is
-    float32 (dtype float32, or any dtype under `refine`), the T+1 modes fit
-    the kernel (<= 128) and the builder finds tiles; on every device (on
-    the CPU its plain version runs). Otherwise the CG uses the ELL matvec.
+    The windowed SpMV operator is built when the T+1 modes fit the kernel
+    (<= 128) and the builder finds tiles, on every device (on the CPU its
+    plain version runs), in the inner CG's work dtype: float32 (dtype
+    float32, or any dtype under `refine`; kernel B1), or float64 (dtype
+    float64 without `refine`, on one shard; kernel B1-f64, tiles cut for its
+    8-byte values). Otherwise the CG uses the ELL matvec (a sharded float64
+    problem: the halo incidence form).
 
     spmv_tile_rows : rows per window tile (None: the tile model picks).
     refine : attach the float64 leaves of mixed-precision iterative
@@ -516,9 +524,9 @@ def build_cg_operator(
     ell_idx, ell_w = _ell_arrays(lap_space)
 
     window = swindow = None
-    work_f32 = dtype == torch.float32 or refine
-    windowed = work_f32 and n_time + 1 <= 128 and hasattr(lap_space, "diagonal")
-    if windowed and shard_parts:
+    work = torch.float32 if dtype == torch.float32 or refine else dtype
+    windowed = n_time + 1 <= 128 and hasattr(lap_space, "diagonal")
+    if windowed and shard_parts and work == torch.float32:
         built = build_sharded_window(
             lap_space,
             av.shape[0] // shard_parts,
@@ -536,9 +544,10 @@ def build_cg_operator(
                      "CG uses the halo incidence matvec")
         else:
             swindow = sharded_window_to_torch(built[0], device=device)
-    elif windowed:
+    elif windowed and not shard_parts:
         tiles = build_window_tiles(
-            lap_space, tile_rows=spmv_tile_rows, coords=coords, n_modes=n_time + 1
+            lap_space, tile_rows=spmv_tile_rows, coords=coords, n_modes=n_time + 1,
+            value_bytes=torch.finfo(work).bits // 8,
         )
         if tiles is None:
             log.info("window SpMV: no tile candidate fits shared memory; CG uses the ELL matvec")
@@ -549,7 +558,7 @@ def build_cg_operator(
                 tiles.meta,
             )
             window = window_operator(
-                tiles, av, jacobi, 1.0 / np.sqrt(av), q, device=device
+                tiles, av, jacobi, 1.0 / np.sqrt(av), q, device=device, dtype=work
             )
 
     def t(a, dt=dtype):
@@ -650,10 +659,11 @@ def cg_solve(
     their own and runs the same blocks; over nccl the segments, their
     collectives inside, are CUDA graph replays, over gloo they run op by op.
 
-    On one card, with the window SpMV in float32, each inner iteration after
-    its matvec is kernel K4 (`ops.cg_step`, five launches and the two
-    deflation GEMMs) in both loops, graphed and eager; elsewhere, and inside
-    `cg_step.torch_route()`, it is `_CGSystem.gated_step`'s torch ops.
+    On one card, with the window SpMV, each inner iteration after its matvec
+    is kernel K4 (`ops.cg_step`, five launches and the two deflation GEMMs;
+    K4-f64 after B1-f64 in a float64 solve) in both loops, graphed and
+    eager; elsewhere, and inside `cg_step.torch_route()`, it is
+    `_CGSystem.gated_step`'s torch ops.
 
     Inside `graphs.eager()` the loops read one flag on the host per
     iteration (`_cg_solve_hosted`), on a mesh the same on every rank
@@ -674,7 +684,9 @@ def cg_solve(
     if rtol is None:
         rtol = op.rtol
     rtol = torch.as_tensor(rtol, dtype=rhs.dtype, device=rhs.device)
-    with trace.span("cg_solve"):
+    refined = op.ell_w_hi is not None and (halo is None or ops_hi is not None)
+    work = "float32" if refined else str(rhs.dtype).removeprefix("torch.")
+    with trace.span("cg_solve", work=work):
         if graphs.enabled():
             block = CG_BLOCK
             keep = graphs.leaves(ops, op._replace(rtol=None), halo, ops_hi)
@@ -704,7 +716,7 @@ class _CGSystem:
         # once at entry and exit); its preconditioner arrays come pre-permuted.
         # On a shard, the per-shard window order of `op.swindow`.
         wop = self.wop = op.window
-        self.use_window = wop is not None and not self.sharded and work == torch.float32
+        self.use_window = wop is not None and not self.sharded and work == wop.vals.dtype
         swop = self.swop = op.swindow
         self.use_swindow = swop is not None and self.sharded and work == torch.float32
         if self.use_window:
@@ -875,9 +887,17 @@ class _CGSystem:
 
 def _fused_route(cg, device) -> bool:
     """Whether `cg`'s inner iterations go through kernel K4: on one card,
-    no mesh, in float32 with the window SpMV, outside `torch_route()`."""
+    no mesh, with the window SpMV (float32: K4, float64: K4-f64), outside
+    `torch_route()`."""
     return (device.type == "cuda" and cg.mesh is None and not cg.sharded and cg.use_window
-            and cg.work == torch.float32 and fused.enabled())
+            and fused.enabled())
+
+
+def _count_iterations(cg, it):
+    """Add a pass's live inner iterations to `CG_COUNTERS`."""
+    CG_COUNTERS.iterations += it
+    if cg.fused and cg.work == torch.float64:
+        CG_COUNTERS.f64_fused_steps += it
 
 
 def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
@@ -906,7 +926,7 @@ def _cg_solve_hosted(ops, op, rhs, x0, max_iters, rtol, halo, mesh, ops_hi):
                 else:
                     x, r, p, rz, rr = cg.pcg_step(x, r, p, rz, rr, active)
                 it += 1
-        CG_COUNTERS.iterations += it
+        _count_iterations(cg, it)
         return cg.unpermute(x), it
 
     CG_COUNTERS.solves += 1
@@ -1023,7 +1043,7 @@ class _BlockedCG:
                         live, it, gate = ws.bufs["flags"].tolist()
                 if not live:
                     break
-        CG_COUNTERS.iterations += it
+        _count_iterations(self.cg, it)
         return it, gate
 
     def _pcg_state(self, b, x, thresh, gate=None):

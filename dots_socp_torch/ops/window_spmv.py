@@ -10,9 +10,13 @@ window-local (column, value) pairs padded to a row width DP that is a
 multiple of 4. It reads x and writes y modes-major, (lanes, V), as the CG
 holds them: one launch per matvec, no transpose.
 
-`window_matvec` launches the kernel on a CUDA tensor and runs the plain
-PyTorch version (`window_matvec_plain`) on a CPU tensor; nothing else picks
-between them. `KERNEL_LAUNCHES` counts the kernel's launches.
+The operator's values are float32 (kernel B1) or float64 (kernel B1-f64,
+the same body in float64 for the float64 CG: `build_window_tiles` and
+`window_operator` with `value_bytes=8` / `dtype=torch.float64`).
+`window_matvec` launches the kernel of the operator's dtype on a CUDA tensor
+of that dtype and runs the plain PyTorch version (`window_matvec_plain`) on
+a CPU tensor; nothing else picks between them. `KERNEL_LAUNCHES` counts B1's
+launches, `KERNEL_LAUNCHES_F64` B1-f64's.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch
 from dots_socp_torch.ops import graphs
 
 #: Launches of the CUDA kernel in this process (the wrapper adds one per
-#: launch; the plain version does not count).
+#: launch; the plain version does not count): B1, and B1-f64 apart.
 KERNEL_LAUNCHES = 0
+KERNEL_LAUNCHES_F64 = 0
 
 
 def _set_launches(n):
@@ -34,8 +39,15 @@ def _set_launches(n):
     KERNEL_LAUNCHES = n
 
 
+def _set_launches_f64(n):
+    global KERNEL_LAUNCHES_F64
+    KERNEL_LAUNCHES_F64 = n
+
+
 # A launch recorded in a CUDA graph counts at every replay (`ops.graphs`).
 graphs.register_counter(lambda: KERNEL_LAUNCHES, _set_launches, "window_spmv.launches")
+graphs.register_counter(lambda: KERNEL_LAUNCHES_F64, _set_launches_f64,
+                        "window_spmv.launches_f64")
 
 #: Time modes per kernel block: one per warp lane.
 MODE_GROUP = 32
@@ -60,13 +72,14 @@ class WindowOperator(NamedTuple):
     tile_start : (n_tiles,) int32 -- window start of each tile of TV rows
     lcol       : (n_tiles * TV, DP) int32 -- window-local column of each
                  nonzero of permuted row r (0 on padding slots)
-    vals       : (n_tiles * TV, DP) float32 -- matching values (0.0 on padding)
+    vals       : (n_tiles * TV, DP) float32 (B1) or float64 (B1-f64) --
+                 matching values (0.0 on padding)
     perm       : (V,) int64 -- new position -> old index (x_p = x[:, perm])
     iperm      : (V,) int64 -- inverse permutation
-    av_p       : (V,) permuted vertex areas (float32)
-    jacobi_p   : (T+1, V) permuted Jacobi preconditioner (float32)
-    s_p        : (V,) permuted av^{-1/2} (float32)
-    defl_q_p   : (V, k) row-permuted Ritz vectors (float32)
+    av_p       : (V,) permuted vertex areas (vals' dtype, as below)
+    jacobi_p   : (T+1, V) permuted Jacobi preconditioner
+    s_p        : (V,) permuted av^{-1/2}
+    defl_q_p   : (V, k) row-permuted Ritz vectors
     tile_rows  : TV, a multiple of 16
     width      : W, the window positions one tile stages
     nnz_width  : D, the widest row's nonzero count (DP = D rounded up to 4)
@@ -98,12 +111,12 @@ class WindowTiles(NamedTuple):
     vals: np.ndarray
 
 
-def smem_bytes(tile_rows: int, width: int, nnz_pad: int) -> int:
+def smem_bytes(tile_rows: int, width: int, nnz_pad: int, value_bytes: int = 4) -> int:
     """Dynamic shared memory of one kernel block: the mbarrier, the tile's
     (lcol, vals) block, and the window win[32][W | 1], whose memory the output
-    tile ytile[32][TV + 1] reuses."""
+    tile ytile[32][TV + 1] reuses; values of `value_bytes` (B1-f64: 8)."""
     tile_floats = MODE_GROUP * max(width | 1, tile_rows + 1)
-    return 16 + tile_rows * nnz_pad * 8 + tile_floats * 4
+    return 16 + tile_rows * nnz_pad * (4 + value_bytes) + tile_floats * value_bytes
 
 
 def tile_candidates(n_rows: int, groups: int = 1, tile_rows: int | None = None):
@@ -130,10 +143,10 @@ def tile_candidates(n_rows: int, groups: int = 1, tile_rows: int | None = None):
     return tuple(sizes)
 
 
-def fits_block(tile_rows: int, width: int, nnz: int) -> bool:
+def fits_block(tile_rows: int, width: int, nnz: int, value_bytes: int = 4) -> bool:
     """Whether one kernel block of such a tile fits shared memory."""
     nnz_pad = -(-max(nnz, 1) // 4) * 4
-    return smem_bytes(tile_rows, width, nnz_pad) <= SMEM_BYTES
+    return smem_bytes(tile_rows, width, nnz_pad, value_bytes) <= SMEM_BYTES
 
 
 def _tile_geometry(p_csr, tv):
@@ -163,18 +176,19 @@ def _tile_geometry(p_csr, tv):
     return -(-max(width, 8) // 8) * 8, np.maximum(st, 0)
 
 
-def compress_rows(rows, lcols, data, n_rows_pad):
+def compress_rows(rows, lcols, data, n_rows_pad, dtype=np.float32):
     """(lcol, vals, D): nonzeros given as (row, window-local column, value)
     triples sorted by row then column, laid out one row per line and padded
-    with (0, 0.0) to DP = D rounded up to a multiple of 4, D the widest row."""
+    with (0, 0.0) to DP = D rounded up to a multiple of 4, D the widest row;
+    values in `dtype`."""
     counts = np.bincount(rows, minlength=n_rows_pad)
     d = max(int(counts.max(initial=0)), 1)
     dp = -(-d // 4) * 4
     slots = np.arange(rows.size) - np.repeat(np.cumsum(counts) - counts, counts)
     lcol = np.zeros((n_rows_pad, dp), dtype=np.int32)
-    vals = np.zeros((n_rows_pad, dp), dtype=np.float32)
+    vals = np.zeros((n_rows_pad, dp), dtype=dtype)
     lcol[rows, slots] = lcols
-    vals[rows, slots] = np.asarray(data, dtype=np.float32)
+    vals[rows, slots] = np.asarray(data, dtype=dtype)
     return lcol, vals, d
 
 
@@ -183,6 +197,7 @@ def build_window_tiles(
     tile_rows: int | None = None,
     coords=None,
     n_modes: int = MODE_GROUP,
+    value_bytes: int = 4,
 ) -> WindowTiles | None:
     """Host-side: order the Laplacian for narrow windows and cut it into tiles.
 
@@ -194,8 +209,9 @@ def build_window_tiles(
     some ordering's block fits the 227 KB of shared memory, and the ordering
     with the narrowest window there wins, as in the reference (tested tile
     for tile). Each tile row keeps only its nonzeros, taken straight from
-    the permuted CSR. Returns None when no candidate fits; `cg_solve` then
-    uses the ELL matvec.
+    the permuted CSR. `value_bytes` 8 cuts the tiles for B1-f64's block
+    (float64 values and window) and stores the values in float64. Returns
+    None when no candidate fits; `cg_solve` then uses the ELL matvec.
     """
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
@@ -231,7 +247,7 @@ def build_window_tiles(
         for name, p in permuted.items():
             w, st = _tile_geometry(p, tv)
             nnz = int(np.diff(p.indptr).max(initial=0))
-            if fits_block(tv, w, nnz) and (best is None or w < best[0]):
+            if fits_block(tv, w, nnz, value_bytes) and (best is None or w < best[0]):
                 best = (w, name, tv, st)
         if best is not None:
             break
@@ -244,7 +260,8 @@ def build_window_tiles(
     p.eliminate_zeros()
     counts = np.diff(p.indptr)
     rows = np.repeat(np.arange(v), counts)
-    lcol, vals, d = compress_rows(rows, p.indices - st[rows // tv], p.data, st.shape[0] * tv)
+    lcol, vals, d = compress_rows(rows, p.indices - st[rows // tv], p.data, st.shape[0] * tv,
+                                  np.float64 if value_bytes == 8 else np.float32)
 
     iperm = np.empty(v, dtype=np.int32)
     iperm[perm] = np.arange(v, dtype=np.int32)
@@ -255,7 +272,7 @@ def build_window_tiles(
         "nnz_width": int(d),
         "nnz_pad": int(lcol.shape[1]),
         "tiles": int(st.shape[0]),
-        "smem_bytes": smem_bytes(tv, width, lcol.shape[1]),
+        "smem_bytes": smem_bytes(tv, width, lcol.shape[1], value_bytes),
     }
     return WindowTiles(
         perm=perm.astype(np.int32),
@@ -268,18 +285,20 @@ def build_window_tiles(
 
 
 def window_operator(
-    tiles: WindowTiles, av, jacobi, s_vec, defl_q, device="cpu"
+    tiles: WindowTiles, av, jacobi, s_vec, defl_q, device="cpu", dtype=torch.float32
 ) -> WindowOperator:
     """The device operator of `tiles`, with the preconditioner arrays
-    permuted into window order in float32 (the CG work dtype of the kernel).
+    permuted into window order in `dtype` (the CG work dtype of the kernel:
+    float32 for B1, float64 for B1-f64, whose tiles hold float64 values).
     av, s_vec (V,), jacobi (T+1, V) and defl_q (V, k) are in original order."""
     perm = np.asarray(tiles.perm, dtype=np.int64)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
 
-    def f32(a):
+    def leaf(a):
         # C order: `a[:, perm]` comes back column-major from numpy, and the CG
         # vectors computed from such a leaf would inherit its layout, while
         # the kernel reads the CG state modes-major, contiguous.
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=device)
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np_dtype), device=device)
 
     def idx(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -287,13 +306,13 @@ def window_operator(
     return WindowOperator(
         tile_start=idx(tiles.tile_start, torch.int32),
         lcol=idx(tiles.lcol, torch.int32),
-        vals=f32(tiles.vals),
+        vals=leaf(tiles.vals),
         perm=idx(perm, torch.int64),
         iperm=idx(tiles.iperm, torch.int64),
-        av_p=f32(np.asarray(av)[perm]),
-        jacobi_p=f32(np.asarray(jacobi)[:, perm]),
-        s_p=f32(np.asarray(s_vec)[perm]),
-        defl_q_p=f32(np.asarray(defl_q)[perm]),
+        av_p=leaf(np.asarray(av)[perm]),
+        jacobi_p=leaf(np.asarray(jacobi)[:, perm]),
+        s_p=leaf(np.asarray(s_vec)[perm]),
+        defl_q_p=leaf(np.asarray(defl_q)[perm]),
         tile_rows=int(tiles.meta["tile_rows"]),
         width=int(tiles.meta["width"]),
         nnz_width=int(tiles.meta["nnz_width"]),
@@ -303,19 +322,20 @@ def window_operator(
 def window_matvec_plain(op: WindowOperator, x):
     """Plain PyTorch version of the kernel: P L P^T @ x for x (..., V) in
     permuted order. Gathers x at tile_start[row // TV] + lcol, multiplies by
-    vals and sums each row, in float32."""
+    vals and sums each row, in the dtype of vals."""
     v = op.perm.shape[0]
     row_start = op.tile_start.long().repeat_interleave(op.tile_rows)[:v]
     cols = row_start[:, None] + op.lcol[:v].long()  # (V, D) global columns
-    xf = x.to(torch.float32)
+    xf = x.to(op.vals.dtype)
     return (xf[..., cols] * op.vals[:v]).sum(-1).to(x.dtype)
 
 
 def window_matvec(op: WindowOperator, x):
     """P L P^T @ x for x (..., V) in permuted order; at most 128 leading modes.
 
-    On a CPU tensor: the plain version. On a CUDA tensor: the kernel, which
-    takes contiguous float32 only; a refused launch raises.
+    On a CPU tensor: the plain version. On a CUDA tensor: the kernel of the
+    operator's dtype (B1: float32, B1-f64: float64), which takes contiguous x
+    of that dtype only; a refused launch raises.
     """
     if x.device.type == "cpu":
         return window_matvec_plain(op, x)
@@ -324,11 +344,11 @@ def window_matvec(op: WindowOperator, x):
     return _window_matvec_cuda(op, x)
 
 
-def check_kernel_input(what, x, n_last):
-    """The kernels' common input contract: contiguous float32 of shape
+def check_kernel_input(what, x, n_last, dtype=torch.float32):
+    """The kernels' common input contract: contiguous `dtype` of shape
     (..., n_last) with at most 128 leading modes. Returns (lead shape, lanes)."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"{what} takes float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{what} takes {dtype}, got {x.dtype}")
     lead = tuple(x.shape[:-1])
     lanes = int(np.prod(lead)) if lead else 1
     if x.dim() == 0 or x.shape[-1] != n_last or not 1 <= lanes <= 128:
@@ -341,10 +361,11 @@ def check_kernel_input(what, x, n_last):
     return lead, lanes
 
 
-def check_kernel_tiles(what, op, n_rows, device):
-    """The tile arrays of a window operator (B1's or one shard's of B2)
-    against what the kernel reads; returns the tile count."""
-    for name, dtype in (("tile_start", torch.int32), ("lcol", torch.int32), ("vals", torch.float32)):
+def check_kernel_tiles(what, op, n_rows, device, values=torch.float32):
+    """The tile arrays of a window operator (B1's, B1-f64's with `values`
+    float64, or one shard's of B2) against what the kernel reads; returns the
+    tile count."""
+    for name, dtype in (("tile_start", torch.int32), ("lcol", torch.int32), ("vals", values)):
         t = getattr(op, name)
         if t.device != device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous {dtype} on {device}")
@@ -354,22 +375,27 @@ def check_kernel_tiles(what, op, n_rows, device):
             or op.lcol.shape[0] < n_tiles * op.tile_rows or op.vals.shape != op.lcol.shape
             or dp % 4 or op.nnz_width > dp or op.tile_rows % ROWS_PER_WARP
             or not ROWS_PER_WARP <= op.tile_rows <= MAX_TILE_ROWS
-            or smem_bytes(op.tile_rows, op.width, dp) > SMEM_BYTES):
+            or smem_bytes(op.tile_rows, op.width, dp, values.itemsize) > SMEM_BYTES):
         raise ValueError(f"{what}: the tile arrays do not cover the rows, or do not fit a block")
     return n_tiles
 
 
 def _window_matvec_cuda(op: WindowOperator, x):
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, KERNEL_LAUNCHES_F64
     from dots_socp_torch.ops import _build
 
     v = op.perm.shape[0]
-    lead, lanes = check_kernel_input("window kernel", x, v)
-    n_tiles = check_kernel_tiles("window kernel", op, v, x.device)
+    values = op.vals.dtype
+    if values not in (torch.float32, torch.float64):
+        raise TypeError(f"window kernel: values of {values}; B1 takes float32, B1-f64 float64")
+    lead, lanes = check_kernel_input("window kernel", x, v, values)
+    n_tiles = check_kernel_tiles("window kernel", op, v, x.device, values)
     y = torch.empty_like(x)
     lib = _build.load()
+    f64 = values == torch.float64
+    kernel = lib.dots_window_spmv_f64 if f64 else lib.dots_window_spmv_f32
     with torch.cuda.device(x.device):  # the C side launches on the current device
-        err = lib.dots_window_spmv_f32(
+        err = kernel(
             x.data_ptr(), op.tile_start.data_ptr(), op.lcol.data_ptr(),
             op.vals.data_ptr(), y.data_ptr(), v, v, lanes, n_tiles, op.tile_rows,
             op.width, op.lcol.shape[1], op.nnz_width,
@@ -377,5 +403,8 @@ def _window_matvec_cuda(op: WindowOperator, x):
         )
     if err != 0:
         raise RuntimeError(f"window SpMV kernel launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES += 1
+    if f64:
+        KERNEL_LAUNCHES_F64 += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return y

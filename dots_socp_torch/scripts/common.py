@@ -54,8 +54,10 @@ def plane_problem(n_space, n_time, dtype, device, mesh=None, **build_kw):
     return config, data, state
 
 
-def settled_cg_state(n_space, n_time, device, settle=20, inner=10, rtol=1e-12, **build_kw):
-    """(cg, state): plane `n_space`'s single-device CG system (float32,
+def settled_cg_state(n_space, n_time, device, settle=20, inner=10, rtol=1e-12, dtype="float32",
+                     **build_kw):
+    """(cg, state): plane `n_space`'s single-device CG system (`dtype`:
+    float32 with refinement, or float64 without;
     `ops.laplacian._CGSystem`) and an inner PCG state as a settled phi
     solve has it: `settle` iALM iterations, then the phi solve's first
     inner system (the refinement's first correction, when the problem
@@ -67,7 +69,7 @@ def settled_cg_state(n_space, n_time, device, settle=20, inner=10, rtol=1e-12, *
     from dots_socp_torch.ops.laplacian import _CGSystem
     from dots_socp_torch.solver.step import laplacian_rhs, run_chunk
 
-    config, data, state = plane_problem(n_space, n_time, "float32", device, laplacian_mode="cg",
+    config, data, state = plane_problem(n_space, n_time, dtype, device, laplacian_mode="cg",
                                         **build_kw)
     state = run_chunk(config, data, state, settle)
     rhs = laplacian_rhs(config, data, state)

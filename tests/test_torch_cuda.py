@@ -124,6 +124,101 @@ def test_kernel_rejects_what_it_cannot_read():
     assert tw.KERNEL_LAUNCHES == before
 
 
+def _ell_f64(lap, device="cuda"):
+    """The float64 padded-ELL arrays of `lap`, as `ell_matvec` reads them."""
+    from types import SimpleNamespace
+
+    idx, w = tl._ell_arrays(lap)
+    return SimpleNamespace(ell_idx=torch.from_numpy(idx).long().to(device),
+                           ell_w=torch.from_numpy(w).to(device))
+
+
+@pytest.mark.parametrize("lanes", [32, 33, 128])
+def test_b1_f64_matches_the_f64_ell_gather_at_n200(lanes):
+    """Kernel B1-f64 on plane n200 with the tiles cut for its block, at 32,
+    33 (two mode groups) and 128 modes: within 1e-13 relative of the float64
+    ELL gather on the card and of SciPy's product; one launch counted in
+    KERNEL_LAUNCHES_F64, none in B1's KERNEL_LAUNCHES."""
+    _need_cuda()
+    vertices, _, av, lap = _plane(200)
+    tiles = tw.build_window_tiles(lap, coords=vertices, n_modes=lanes, value_bytes=8)
+    v = av.shape[0]
+    op = tw.window_operator(tiles, av, np.ones((1, v)), av, np.zeros((v, 0)), device="cuda",
+                            dtype=torch.float64)
+    x = np.random.default_rng(lanes).standard_normal((lanes, v))
+    xp = torch.from_numpy(np.ascontiguousarray(x[:, tiles.perm])).cuda()
+    before = (tw.KERNEL_LAUNCHES, tw.KERNEL_LAUNCHES_F64)
+    y = tw.window_matvec(op, xp)
+    torch.cuda.synchronize()
+    assert (tw.KERNEL_LAUNCHES, tw.KERNEL_LAUNCHES_F64) == (before[0], before[1] + 1)
+    got = y.cpu().numpy()[:, tiles.iperm]
+    ell = tl.ell_matvec(_ell_f64(lap), torch.from_numpy(x).cuda()).cpu().numpy()
+    ref = (lap @ x.T).T
+    scale = np.abs(ref).max()
+    assert np.abs(got - ell).max() <= 1e-13 * scale
+    assert np.abs(got - ref).max() <= 1e-13 * scale
+
+
+def test_k4_f64_is_bit_equal_to_the_f64_torch_route_over_a_solve():
+    """Kernel K4-f64 against the float64 torch route (`gated_step`) from
+    plane n200's settled float64 phi solve, one latched iteration after
+    another on the same B1-f64 matvec until the latch falls: x, r, p, rz,
+    rr and it bit for bit after every iteration's step, STAGES launches a
+    call counted in KERNEL_LAUNCHES_F64, none in K4's KERNEL_LAUNCHES."""
+    _need_cuda()
+    from dots_socp_torch.ops import cg_step as k4
+    from dots_socp_torch.scripts.common import settled_cg_state
+
+    cg, st = settled_cg_state(200, 31, "cuda", settle=20, inner=0, rtol=1e-8, dtype="float64")
+    assert cg.work == torch.float64 and cg.use_window and cg.fused
+    names = ("x", "r", "p", "rz", "rr", "it", "live")
+    ref = tuple(st[k].clone() for k in names)
+    ker = tuple(st[k].clone() for k in names)
+    before = (k4.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES_F64)
+    steps = 0
+    while bool(ref[6]) and steps < 5000:
+        ref = cg.gated_step(*ref, st["thresh"], 10_000)
+        ker = cg.fused_step(*ker, st["thresh"], 10_000)
+        steps += 1
+        for name, a, b in zip(names, ref, ker):
+            assert torch.equal(a, b), (name, steps, float((a.double() - b.double()).abs().max()))
+    assert steps > 10 and not bool(ker[6]) and int(ker[5]) == steps
+    assert (k4.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES_F64) == (
+        before[0], before[1] + steps * k4.STAGES)
+
+
+def test_graphed_f64_cg_solve_equals_eager():
+    """A float64 cg_solve on plane n200 on the card (B1-f64 and K4-f64 in
+    every inner iteration), its blocks CUDA graph replays, against the same
+    solve inside `graphs.eager()` (the host loop, one flag read per
+    iteration): x bit for bit, the same inner iteration count, all of them
+    counted in `CG_COUNTERS.f64_fused_steps`, and no float32 kernel launched."""
+    _need_cuda()
+    from dots_socp_torch.ops import cg_step as k4
+    from dots_socp_torch.ops import graphs
+
+    vertices, triangles, av, lap = _plane(200)
+    op = tl.build_cg_operator(31, 1.0 / 31, av, lap, dtype=torch.float64, deflation_k=16,
+                              coords=vertices, device="cuda")
+    assert op.window.vals.dtype == torch.float64
+    ops = t_mesh.build_surface_ops(vertices, triangles, dtype=torch.float64, device="cuda")
+    rhs = np.random.default_rng(41).standard_normal((32, av.shape[0]))
+    rhs = torch.from_numpy(rhs - rhs.mean()).cuda()
+    f32_launches = (tw.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES)
+    out = {}
+    for name, ctx in (("graphed", contextlib.nullcontext()), ("eager", graphs.eager())):
+        tl.CG_COUNTERS.reset()
+        with ctx:
+            x, iters = tl.cg_solve(ops, op, rhs, max_iters=2000, rtol=1e-8, return_iters=True)
+        torch.cuda.synchronize()
+        out[name] = (x.cpu(), iters, tl.CG_COUNTERS.f64_fused_steps)
+    graphs.release()
+    (xg, ig, fg), (xe, ie, fe) = out["graphed"], out["eager"]
+    assert ig == ie > 0 and fg == ig and fe == ie
+    assert torch.equal(xg, xe)
+    assert (tw.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES) == f32_launches
+
+
 def test_refined_cg_on_card_matches_cpu():
     """cg_solve with f64 refinement around the f32 inner CG: the card (the
     kernel) against the CPU (the plain version), same operator; the
@@ -811,8 +906,11 @@ def test_graphed_n200_solve_with_k4_equals_eager():
     assert min(launches) > 0
 
 
-@pytest.mark.parametrize("rows, n", [(32, 46_431), (128, 46_431), (32, 194_814), (8, 700),
-                                     (8, 64), (32, 97_485), (33, 46_431)])
+ROW_SUM_SHAPES = [(32, 46_431), (128, 46_431), (32, 194_814), (8, 700), (8, 64), (32, 97_485),
+                  (33, 46_431)]
+
+
+@pytest.mark.parametrize("rows, n", ROW_SUM_SHAPES)
 def test_cg_step_row_sums_are_pytorchs(rows, n):
     """K4 sums each row as PyTorch's reduce kernel does (its geometry, its
     order): on random states of these shapes (one block per row, rows split
@@ -820,19 +918,30 @@ def test_cg_step_row_sums_are_pytorchs(rows, n):
     start at every offset mod 4) den, rr, rz and the null row's mean equal
     torch's `.sum(dim=1)` of the same products bit for bit, and so do x,
     r, p."""
+    _row_sums_case(rows, n, torch.float32)
+
+
+@pytest.mark.parametrize("rows, n", ROW_SUM_SHAPES)
+def test_cg_step_f64_row_sums_are_pytorchs(rows, n):
+    """K4-f64 on the same shapes in float64: PyTorch's reduce geometry for
+    double (`row_sum_config`, the float one) and its order, bit for bit."""
+    _row_sums_case(rows, n, torch.float64)
+
+
+def _row_sums_case(rows, n, dtype):
     _need_cuda()
     from dots_socp_torch.ops import cg_step as k4
 
     gen = torch.Generator(device="cuda").manual_seed(rows + n)
 
     def rand(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen)
+        return torch.randn(*shape, device="cuda", generator=gen, dtype=dtype)
 
     k = 16
     q = rand(n, k)
-    real = torch.ones(n, device="cuda")
+    real = torch.ones(n, device="cuda", dtype=dtype)
     real[-3:] = 0.0
-    null = torch.zeros(rows, device="cuda")
+    null = torch.zeros(rows, device="cuda", dtype=dtype)
     null[-1] = 1.0
     leaves = k4.CGStepLeaves(
         shifts=-rand(rows).abs(), av=rand(n).abs() + 0.1, jacobi=rand(rows, n).abs(),
@@ -841,7 +950,7 @@ def test_cg_step_row_sums_are_pytorchs(rows, n):
     state = (rand(rows, n), rand(rows, n), rand(rows, n), rand(rows, 1).abs(),
              rand(rows, 1).abs() + 1.0, torch.zeros((), dtype=torch.int64, device="cuda"),
              torch.ones((), dtype=torch.bool, device="cuda"))
-    thresh = torch.full((rows, 1), 1e-3, device="cuda")
+    thresh = torch.full((rows, 1), 1e-3, device="cuda", dtype=dtype)
     lap = rand(rows, n)
     trace_k, trace_p = {}, {}
     out_k = tuple(t.clone() for t in state)

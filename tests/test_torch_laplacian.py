@@ -205,14 +205,16 @@ def _rhs(av, seed, n_time=T):
 
 
 def test_cg_solve_f64_matches_reference(mesh):
-    """Plain f64 CG (ELL matvec, no refinement) at rtol 1e-10: the same
-    inner iteration count, and the mean-removed difference <= 1e-8."""
+    """Plain f64 CG (no refinement; the port's matvec is the float64 window
+    operator's plain version, the JAX package's the ELL gather) at rtol
+    1e-10: the same inner iteration count, and the mean-removed difference
+    <= 1e-8."""
     vertices, triangles, lap, av = mesh
     jops = j_mesh.build_surface_ops(vertices, triangles, dtype=jnp.float64)
     tops = t_mesh.build_surface_ops(vertices, triangles, dtype=torch.float64)
     jop = jl.build_cg_operator(T, DT, av, lap, dtype=jnp.float64, deflation_k=8, use_pallas_spmv=False)
     top = tl.build_cg_operator(T, DT, av, lap, dtype=torch.float64, deflation_k=8)
-    assert top.window is None  # f64 work dtype: no window operator
+    assert top.window.vals.dtype == torch.float64  # f64 work dtype: B1-f64's operator
     rhs = _rhs(av, 32)
     x0 = np.random.default_rng(33).standard_normal(rhs.shape)
     for start in (None, x0):
