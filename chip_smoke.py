@@ -6,7 +6,7 @@ Phases, in order; each prints one JSON line, and a failing phase raises
 (exit code != 0, no result line):
 
 1. device   -- CUDA must be present; the card's name and power limit.
-2. build    -- nvcc builds the kernels from the sources (B1 / B2 and K4,
+2. build    -- nvcc builds the kernels from the sources (B1 / B2, K4, K6,
                one nvcc per source, all started together).
 3. kernel   -- at plane n200 (V=46,431, T+1=32 modes, float32), with the
                tiles the main path's `build_cg_operator` makes: the kernel
@@ -245,6 +245,22 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                route), no float32 kernel, the same validation points and
                final KKT within SLICE_KKT_RTOL.
 
+22. ialm_step -- kernel K6, the iALM step after phi (`ops.ialm_step`):
+               on plane n64 float32 (spectral, float32 phi), n200 float32
+               (CG, float64 phi) and n200 float64, from a state settled by
+               IALM_SETTLE host iterations, at each of IALM_CASES
+               (congestion, scale_z), one step through K6 (three launches,
+               counted from 0) against the torch route (`_after_phi`), every
+               one of its 13 arrays bit for bit; K6's device time per call
+               (its three launches alone, each stage, and with the torch ops
+               of its scalars) beside `ialm_step_bound` and the torch route's
+               time; then `solver` on n64 and n200 float32 for
+               IALM_SOLVE_NIT iterations on K6's route and inside
+               `ialm_step.torch_route()`: every returned array bit for bit,
+               the same validation points, `step.fused_steps` equal to the
+               iterations on K6's route (0 on the torch route), and K6's
+               launches three per iteration and per capture's warm-up.
+
 The sharded phases (7, 11, 12, 13) run through the same mesh loops, and
 phases 7, 11 and 12 report per rank the backend, the card count and
 whether the rank's segments were captured (over nccl they must be, over
@@ -296,6 +312,7 @@ from dots_socp_torch.kernel_timing import (
     cg_step_bound,
     device_ms,
     ell_laplacian,
+    ialm_step_bound,
     launch_times_us,
     library_ms,
     median_call_ms,
@@ -393,6 +410,10 @@ K4_PATHS = {}
 F64_MODES = (32, 128)
 F64_TOL = 1e-13
 F64_SOLVE_NIT = 100
+IALM_SETUPS = (("n64", 64, "float32"), ("n200", 200, "float32"), ("n200_f64", 200, "float64"))
+IALM_CASES = ((0.0, 1.0), (0.05, 1.7))  # (congestion, scale_z)
+IALM_SETTLE = 15
+IALM_SOLVE_NIT = 60
 # Phase 20: the legs (name, plane n, ntime, iterations at most, tol) that every
 # rank of the 1x2 mesh solves inside `graphs.eager()` and then through the
 # mesh loops: over nccl (a card per rank) 100 iterations of n200, n200 to tol
@@ -1598,6 +1619,109 @@ def phase_float64(card):
     }
 
 
+def phase_ialm_step(card):
+    """Phase 22. Returns the kernel line's fields of K6."""
+    from dots_socp_torch.ops import ialm_step
+    from dots_socp_torch.solver import solver, step
+
+    t0 = time.perf_counter()
+    setups, paths, failed = {}, {}, []
+    for name, n_space, precision in IALM_SETUPS:
+        cases = {}
+        for congestion, scale_z in IALM_CASES:
+            config, data, state, phi = common.settled_ialm_state(
+                n_space, N_TIME, precision, "cuda", settle=IALM_SETTLE, congestion=congestion,
+                scale_z=scale_z)
+            ref = step._after_phi(config, data, state, phi)
+            ker = state._replace(**{k: getattr(state, k).clone() for k in ialm_step.OUTPUTS})
+            ialm_step.KERNEL_LAUNCHES = 0
+            step._after_phi(config, data, ker, phi, fused=True)
+            torch.cuda.synchronize()
+            unequal = [k for k in ialm_step.OUTPUTS if not torch.equal(getattr(ker, k),
+                                                                       getattr(ref, k))]
+            cases[f"congestion={congestion},scale_z={scale_z}"] = {
+                "unequal": unequal, "launches": ialm_step.KERNEL_LAUNCHES}
+            if unequal or ialm_step.KERNEL_LAUNCHES != ialm_step.LAUNCHES:
+                failed.append((name, congestion, scale_z, unequal))
+            paths[f"step_{name}"] = paths.get(f"step_{name}", 0) + ialm_step.KERNEL_LAUNCHES
+        # Device time per call on the last case's inputs, each state advancing as it is timed.
+        T, V = state.A.shape
+        F, D = data.ops.tri.shape[0], data.ops.inc_table.shape[-1]
+        on_k, on_t = (state._replace(**{k: getattr(state, k).clone() for k in ialm_step.OUTPUTS})
+                      for _ in range(2))
+        ialm_step.KERNEL_LAUNCHES = 0
+        ms_k, by_k, ev_k = device_ms(
+            lambda: step._after_phi(config, data, on_k, phi, fused=True), REPS)
+        stages = launch_times_us(lambda: step._after_phi(config, data, on_k, phi, fused=True),
+                                 "ialm_", ialm_step.LAUNCHES)
+        paths[f"timed_{name}"] = ialm_step.KERNEL_LAUNCHES
+        ms_t, by_t, ev_t = device_ms(lambda: step._after_phi(config, data, on_t, phi), REPS)
+        k6_ms = sum(t for k, t in by_k.items() if "ialm_" in k)
+        bound = ialm_step_bound(T, V, F, D, state.A.element_size(), phi.element_size())
+        setups[name] = {
+            "shape": {"T": T, "V": V, "F": F, "D": D}, "work": str(state.A.dtype),
+            "phi": str(phi.dtype), "cases": cases,
+            "device_us": {"ialm_step": k6_ms * 1e3, "with_scalars": ms_k * 1e3,
+                          "stages": dict(zip(ialm_step.STAGE_NAMES, stages or [None] * 3)),
+                          "torch_route": ms_t * 1e3,
+                          "torch_route_kernels": sum(round(ev_t["seen"][k[:80]] / ev_t["calls"])
+                                                     for k in by_t)},
+            "bound_us": bound["ms"] * 1e3, "bound": bound,
+            "profiler_events": {"ialm_step": ev_k, "torch_route": ev_t}}
+        del config, data, state, phi, ref, ker, on_k, on_t
+
+    # The main path: `solver` on K6's route and inside `torch_route()`.
+    legs = {}
+    for name, n_space in (("n64", 64), ("n200", 200)):
+        geometry = cli.load_geometry("plane", n_space)
+        runs = {}
+        for route in ("ialm_step", "torch"):
+            ialm_step.KERNEL_LAUNCHES = 0
+            steps = step.FUSED_STEPS
+            with ialm_step.torch_route() if route == "torch" else contextlib.nullcontext():
+                solution, history = solver(N_TIME, geometry, nit=IALM_SOLVE_NIT, tol=1e-4,
+                                           time_limit=3000, precision="float32", device="cuda")
+            torch.cuda.synchronize()
+            runs[route] = (solution, np.asarray(history.kkt_iteration))
+            legs.setdefault(name, {})[route] = {
+                "iterations": int(history.kkt_iteration[-1]) + 1,
+                "validations": len(history.kkt_iteration), "solve_sec": history.running_time,
+                "fused_steps": step.FUSED_STEPS - steps, "launches": ialm_step.KERNEL_LAUNCHES}
+        paths[f"solve_{name}"] = legs[name]["ialm_step"]["launches"]
+        arrays = [k for k, v in runs["torch"][0].items() if isinstance(v, np.ndarray)]
+        legs[name]["unequal_arrays"] = [k for k in arrays if not np.array_equal(
+            runs["ialm_step"][0][k], runs["torch"][0][k])]
+        legs[name]["same_validation_points"] = bool(np.array_equal(runs["ialm_step"][1],
+                                                                   runs["torch"][1]))
+    emit("ialm_step", setups=setups, solves=legs, launches_by_path=paths,
+         phase_seconds=time.perf_counter() - t0, card=card)
+    if failed:
+        raise AssertionError(f"K6 against the torch route (setup, congestion, scale_z, "
+                             f"unequal arrays): {failed}")
+    for name, leg in legs.items():
+        k6, torch_leg = leg["ialm_step"], leg["torch"]
+        if (leg["unequal_arrays"] or not leg["same_validation_points"]
+                or k6["fused_steps"] != k6["iterations"] or torch_leg["fused_steps"]
+                or torch_leg["launches"]
+                or k6["launches"] != ialm_step.LAUNCHES * (k6["iterations"] + 1)):
+            raise AssertionError(f"solver on plane {name}, K6 against the torch route: {leg}")
+    n200 = setups["n200"]
+    return {"max_abs_err": 0.0, "ms": n200["device_us"]["ialm_step"] / 1e3,
+            "plain_ms": n200["device_us"]["torch_route"] / 1e3, "bound_ms": n200["bound"]["ms"],
+            "bound_by": n200["bound"]["by"], "library_ms": None,
+            "launches": sum(paths.values()), "launches_by_path": paths}
+
+
+def ialm_kernel_row(fields):
+    """The kernel line's row of K6 from phase 22's fields."""
+    return {"name": "ialm_step", "route": "cuda",
+            "source": "dots_socp_torch/ops/csrc/ialm_step.cu",
+            "replaces": "dots_socp_tpu/solver/step.py (steps 1b, 2 and 3 of `iteration`)",
+            "replaces_kind": "XLA fusions of the SOC projection, the q/lambda solve and the "
+                             "multiplier ascent, not a Pallas call",
+            **fields}
+
+
 def _loops_rank(rank, world, port, backend, mesh_shape, legs, profile, results):
     """One rank of phase 20 (a spawned process): the mesh brought up once,
     then every leg solved through the port's `solver` inside `graphs.eager()`
@@ -1723,6 +1847,9 @@ def main(argv=None):
              # Phase 21 alone prints its two rows of the kernel line.
              "float64": lambda card: print(json.dumps({"kernels": f64_kernel_rows(
                  phase_float64(card))}), flush=True),
+             # Phase 22 alone prints its row of the kernel line.
+             "ialm_step": lambda card: print(json.dumps({"kernels": [ialm_kernel_row(
+                 phase_ialm_step(card))]}), flush=True),
              # The sharded phases 7 and 11 after the unsharded runs they are held to.
              "sharded_slice": lambda card: phase_sharded_slice(card, phase_slice(card)[1]),
              "sharded_spectral": lambda card: phase_sharded_spectral(card, phase_spectral(card))}
@@ -1764,6 +1891,7 @@ def main(argv=None):
     fused = phase_cg_step(card)
     b2_loops = phase_mesh_loops(card)
     f64 = phase_float64(card)
+    k6 = phase_ialm_step(card)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_128["max_abs_err"])
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
@@ -1793,7 +1921,7 @@ def main(argv=None):
         "launches": sum(K4_PATHS.values()),
         "launches_by_path": dict(K4_PATHS),
         **fused,
-    }, *f64_kernel_rows(f64)]}))
+    }, *f64_kernel_rows(f64), ialm_kernel_row(k6)]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

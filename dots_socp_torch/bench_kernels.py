@@ -1,5 +1,5 @@
 """Times of the port's hand-written kernels, B1 and B2, B1-f64 and K4-f64,
-on one NVIDIA GPU.
+and K6, on one NVIDIA GPU.
 
     python -m dots_socp_torch.bench_kernels [--n_space N] [--skip_b2] [--sweep] [--out FILE]
 
@@ -31,6 +31,14 @@ K4-f64's five launches and the deflation GEMMs; `k4_us`: K4-f64's launches
 alone) beside the torch route's (`plain`, `_CGSystem.gated_step`) and K4's
 bound at 8 bytes a value.
 
+Then kernel K6, the iALM step after phi (`k6`), at plane n64 float32
+(spectral, float32 phi), at --n_space float32 (CG, float64 phi) and float64,
+on a state settled by 15 host iterations: its three launches (`kernel`,
+with `by_kernel`; `k6_us` the three alone, without the torch ops of its
+scalars) beside the torch route (`plain`, `solver/step.py::_after_phi`)
+and `ialm_step_bound`, and whether one step of each gives the same bits
+(`bit_equal`).
+
 With --sweep the kernels are also timed at every tile size of
 SWEEP_TILE_ROWS and of `tile_candidates` (the rule of ops/window_spmv.py
 rests on this), and B1 at 128 modes.
@@ -53,6 +61,7 @@ from dots_socp_torch.kernel_timing import (
     cg_step_bound,
     device_ms,
     ell_laplacian,
+    ialm_step_bound,
     library_ms,
     median_call_ms,
     nvidia_smi_line,
@@ -151,6 +160,34 @@ def measure_f64(n_space, lanes):
                        "kernel": kernel, "k4_us": k4_us, "plain": _timed(torch_route)}}
 
 
+def measure_k6(n_space, precision):
+    """K6 on plane `n_space` (`precision`) from a settled state: one step
+    against the torch route's bits, then each timed on its own copy of the
+    state, which advances as it is timed."""
+    from dots_socp_torch.ops import ialm_step as k6
+    from dots_socp_torch.scripts.common import settled_ialm_state
+    from dots_socp_torch.solver import step
+
+    config, data, state, phi = settled_ialm_state(n_space, N_TIME, precision, "cuda")
+
+    def copy():
+        return state._replace(**{name: getattr(state, name).clone() for name in k6.OUTPUTS})
+
+    fused, plain = copy(), copy()
+    ref = step._after_phi(config, data, state, phi)
+    step._after_phi(config, data, fused, phi, fused=True)
+    bit_equal = all(torch.equal(getattr(fused, k), getattr(ref, k)) for k in k6.OUTPUTS)
+    kernel = _timed(lambda: step._after_phi(config, data, fused, phi, fused=True))
+    T, V = state.A.shape
+    F, D = data.ops.tri.shape[0], data.ops.inc_table.shape[-1]
+    return {"shape": {"T": T, "V": V, "F": F, "D": D}, "work": str(state.A.dtype),
+            "phi": str(phi.dtype), "bit_equal": bit_equal,
+            "bound": ialm_step_bound(T, V, F, D, state.A.element_size(), phi.element_size()),
+            "kernel": kernel,
+            "k6_us": sum(t for name, t in kernel["by_kernel"].items() if "ialm_" in name),
+            "plain": _timed(lambda: step._after_phi(config, data, plain, phi))}
+
+
 def _problems(n_space=200, shard_counts=SHARD_COUNTS):
     """(geometry, unsharded problem data, {S: blocked problem data}) of plane
     `n_space` as the main path builds them; no deflation vectors (the tiles
@@ -225,6 +262,9 @@ def main(argv=None):
            "b1": measure_b1(data.cg_op.window, data.cg_op),
            "b2": [measure_b2(blocked[s].cg_op.swindow, s) for s in shard_counts]}
     out["f64"] = {str(lanes): measure_f64(args.n_space, lanes) for lanes in F64_MODES}
+    out["k6"] = {"n64": measure_k6(64, "float32"),
+                 f"n{args.n_space}": measure_k6(args.n_space, "float32"),
+                 f"n{args.n_space}_f64": measure_k6(args.n_space, "float64")}
     if args.sweep:
         out.update(sweep(geometry, data, blocked))
     print(json.dumps(out), flush=True)

@@ -184,6 +184,28 @@ def cg_step_bound(rows, n, k, window=None, value_bytes=4):
             "by": "bytes" if t_bytes >= t_flops else "operations"}
 
 
+def ialm_step_bound(T, V, F, D, value_bytes=4, phi_bytes=4):
+    """The least time the card could take for one `ops.ialm_step` call
+    (kernel K6), each input and output moved once: it reads beta_mid (T x 2
+    x F x 3 x 3 values), B and E ((T+1) x F x 3 each), A, mu, beta_fst and
+    beta_end (T x V each), phi ((T+1) x V of `phi_bytes`) and the operator's
+    tri, inc_table (int64), grad_basis, inc_mask and diag_soc; it writes
+    z_mid and beta_mid, B, E and dx_phi, and A, lambda_c, z_fst, z_end, mu,
+    beta_fst, beta_end and dt_phi. Against ~30 flops per cone-block element
+    at the FP32 (FP64 for `value_bytes` 8) rate. Returns {"bytes", "flops",
+    "ms", "by"}; the kernel reads beta_mid twice (`reads_twice_bytes`)."""
+    mid = 18 * T * F
+    face = 3 * (T + 1) * F
+    values = 3 * mid + 5 * face + 12 * T * V + 9 * F + 3 * F + V * D
+    n_bytes = values * value_bytes + (T + 1) * V * phi_bytes + 8 * (3 * F + V * D)
+    flops = 30 * mid + 20 * face + 40 * T * V
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_flops = flops / (FP64_FLOPS if value_bytes == 8 else FP32_FLOPS)
+    return {"bytes": int(n_bytes), "flops": int(flops), "ms": max(t_bytes, t_flops) * 1e3,
+            "by": "bytes" if t_bytes >= t_flops else "operations",
+            "reads_twice_bytes": int(n_bytes + mid * value_bytes)}
+
+
 def shard_bound(sw, lanes, n_buf):
     """`window_bound` of one shard's B2 call: its inputs are the shard's own
     state and the (lanes, n_buf) export buffer, per mode, and the window

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels, B1, B1-f64 and B2
-(`csrc/window_spmv.cu`) and K4 and K4-f64 (`csrc/cg_step.cu`): nvcc into one
-plain-C shared library, bound with ctypes.
+(`csrc/window_spmv.cu`), K4 and K4-f64 (`csrc/cg_step.cu`) and K6
+(`csrc/ialm_step.cu`): nvcc into one plain-C shared library, bound with
+ctypes.
 
 At first use, every source under `csrc/` compiles at the same time, one
 nvcc each, with
@@ -31,7 +32,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("window_spmv.cu", "cg_step.cu")
+SOURCES = ("window_spmv.cu", "cg_step.cu", "ialm_step.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -131,5 +132,9 @@ def load() -> ctypes.CDLL:
             # K4, K4-f64: the stage, 22 arrays, the geometry, 3 sizes, the stream
             fn.argtypes = [i] + [p] * 22 + [ctypes.POINTER(i)] + [i] * 3 + [p]
             fn.restype = i
+        # K6: the 22 arrays, the element sizes, 1 / dt, the 4 sizes, the stream
+        fn = lib.dots_ialm_step
+        fn.argtypes = [ctypes.POINTER(p), i, i, ctypes.c_double, ctypes.POINTER(i), p]
+        fn.restype = i
         _lib = lib
     return _lib

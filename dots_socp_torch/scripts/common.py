@@ -93,6 +93,27 @@ def settled_cg_state(n_space, n_time, device, settle=20, inner=10, rtol=1e-12, d
     return cg, dict(zip(("x", "r", "p", "rz", "rr", "it", "live"), out), thresh=thresh)
 
 
+def settled_ialm_state(n_space, n_time, dtype, device, settle=15, congestion=None,
+                       scale_z=None):
+    """(config, data, state, phi): plane `n_space`'s problem (`dtype`; the
+    automatic phi solve: spectral up to 16,384 vertices, else the CG, with
+    refinement in float32), its state after `settle` iALM iterations from
+    the host (`graphs.eager()`), with `congestion` and `scale_z` put in its
+    scalars where given, and the phi solve of the next iteration: the
+    inputs of the step after phi (`solver.step._after_phi`, kernel K6)."""
+    from dots_socp_torch.ops import graphs
+    from dots_socp_torch.solver.step import run_chunk, solve_laplacian
+
+    config, data, state = plane_problem(n_space, n_time, dtype, device, cg_rtol=5e-4)
+    with graphs.eager():
+        state = run_chunk(config, data, state, settle)
+        for name, value in (("congestion", congestion), ("scale_z", scale_z)):
+            if value is not None:
+                state = state._replace(**{name: torch.full_like(getattr(state, name), value)})
+        phi = solve_laplacian(config, data, state)
+    return config, data, state, phi
+
+
 def on_card(device) -> bool:
     return resolve_device(device).type == "cuda"
 

@@ -17,7 +17,11 @@ whose host reads (one per block of inner iterations, one per refinement
 pass) are the iteration's only syncs. On a mesh each rank runs the same
 segments over its shard, the collectives inside them: CUDA graph replays
 over nccl, op by op over gloo (whose collectives cannot be captured).
-Inside `graphs.eager()` every op is launched from the host.
+Inside `graphs.eager()` every op is launched from the host. On one card
+steps 1b-3 are kernel K6 (`ops.ialm_step`, `_after_phi_in_place`), which
+writes the state into the buffers in place, bit for bit as the torch ops
+(`_after_phi`) compute it; a mesh, the CPU and `graphs.eager()` take the
+torch ops.
 `run_chunk_adaptive` is the reference's device-resident segment with its
 packed-record output, so the host loop in `socp.py` reads it unchanged: its
 validations and decisions run on the device over the same buffers (one
@@ -34,10 +38,12 @@ import numpy as np
 import torch
 
 from dots_socp_torch.ops import graphs
+from dots_socp_torch.ops import ialm_step as k6
 from dots_socp_torch.ops.cones import project_soc
 from dots_socp_torch.ops.laplacian import cg_solve, spectral_solve
 from dots_socp_torch.ops.mesh_ops import div_space, grad_space
 from dots_socp_torch.ops.time_stencils import (
+    SQRT3,
     decouple_space,
     decouple_space_adjoint,
     div_time,
@@ -102,8 +108,7 @@ def solve_q_lambda(config: ProblemConfig, state: SolverState, dt_phi, dx_phi, me
     On a mesh with a time axis (`mesh`) B, like every centered array, is
     computed whole by every time-rank from the gathered cone blocks."""
     sz = state.scale_z
-    a1 = sz * (1.0 + state.congestion * state.r)
-    a2 = 1.0 + 2.0 * sz * a1
+    a1, a2, interior, endpoint, c_lambda = _q_lambda_scalars(state)
 
     memo_a = dt_phi + state.mu
     memo_b = decouple_space_adjoint(state.z_mid + state.beta_mid, sz, mesh)
@@ -111,17 +116,25 @@ def solve_q_lambda(config: ProblemConfig, state: SolverState, dt_phi, dx_phi, me
     A = (1.0 / a2) * memo_a + (a1 / a2) * (
         state.z_end + state.beta_end - state.z_fst - state.beta_fst
     )
-    # Diagonal of the B system: 1 + 2 sz^2 on interior time slices,
-    # 1 + sz^2 at the endpoints (each endpoint slice has one cone copy).
-    interior = 1.0 + 2.0 * sz * sz
-    endpoint = 1.0 + sz * sz
     diag_b = torch.cat(
         [endpoint[None], interior.expand(config.n_time - 1), endpoint[None]]
     )
     B = (dx_phi + state.E + memo_b) / diag_b[:, None, None]
-    cr = state.congestion * state.r
-    lambda_c = (cr / (1.0 + cr)) * (memo_a - A)
+    lambda_c = c_lambda * (memo_a - A)
     return A, B, lambda_c
+
+
+def _q_lambda_scalars(state: SolverState):
+    """The q/lambda solve's scalars (0-d tensors): a1, a2, the diagonal of
+    the B system on interior time slices (1 + 2 sz^2) and at the endpoints
+    (1 + sz^2: each endpoint slice has one cone copy), and cr / (1 + cr)."""
+    sz = state.scale_z
+    a1 = sz * (1.0 + state.congestion * state.r)
+    a2 = 1.0 + 2.0 * sz * a1
+    interior = 1.0 + 2.0 * sz * sz
+    endpoint = 1.0 + sz * sz
+    cr = state.congestion * state.r
+    return a1, a2, interior, endpoint, cr / (1.0 + cr)
 
 
 def _palm_step(config: ProblemConfig, data: ProblemData, state: SolverState):
@@ -133,8 +146,12 @@ def _palm_step(config: ProblemConfig, data: ProblemData, state: SolverState):
     return state._replace(A=A, B=B, lambda_c=lambda_c)
 
 
-def _after_phi(config: ProblemConfig, data: ProblemData, state: SolverState, phi):
-    """Steps 1b, 2 and 3 of the iteration, given its phi."""
+def _after_phi(config: ProblemConfig, data: ProblemData, state: SolverState, phi, fused=False):
+    """Steps 1b, 2 and 3 of the iteration, given its phi; `fused`: through
+    kernel K6, which writes the new values into the state's own tensors
+    (`_after_phi_in_place`)."""
+    if fused:
+        return _after_phi_in_place(config, data, state, phi)
     # Step 1b shares the pre-update state with the Laplacian solve.
     z_fst, z_mid, z_end = solve_proj_soc(config, data, state)
 
@@ -174,11 +191,41 @@ def _after_phi(config: ProblemConfig, data: ProblemData, state: SolverState, phi
     )
 
 
-def iteration(config: ProblemConfig, data: ProblemData, state: SolverState):
-    """One full iALM iteration; returns the new state."""
+def _after_phi_in_place(config: ProblemConfig, data: ProblemData, state: SolverState, phi):
+    """`_after_phi` through kernel K6 (`ops.ialm_step`): the same values,
+    written into the state's own tensors (a workspace's buffers), which the
+    returned state holds, with `phi`. The scalar factors are the torch
+    route's own ops. On CPU tensors, where there is no kernel, the torch
+    route's values are copied in (the CPU tests of the plumbing)."""
+    if phi.device.type == "cpu":
+        new = _after_phi(config, data, state, phi)
+        for name in k6.OUTPUTS:
+            getattr(state, name).copy_(getattr(new, name))
+        return state._replace(phi=phi)
+    sz = state.scale_z
+    a1, a2, interior, endpoint, c_lambda = _q_lambda_scalars(state)
+    scal = torch.stack([sz, sz / SQRT3, state.tau, state.constant_d, 1.0 / a2, a1 / a2,
+                        interior, endpoint, c_lambda])
+    k6.ialm_step(data.ops, state, phi.contiguous(), scal, config.stepsize_time)
+    return state._replace(phi=phi)
+
+
+def _fused_route(config: ProblemConfig, data: ProblemData, device) -> bool:
+    """Whether `_GraphedIteration` takes the step after phi through kernel
+    K6: on the card, one device (no mesh, no halo), arrays the kernel takes
+    (`ialm_step.supports`), outside `ialm_step.torch_route()`. Elsewhere,
+    and in `_HostIteration` (inside `graphs.eager()`), the torch route."""
+    return (torch.device(device).type == "cuda" and data.mesh is None
+            and not config.spmd_kwargs(data) and k6.enabled()
+            and k6.supports(data.ops, config.torch_dtype, config.phi_dtype))
+
+
+def iteration(config: ProblemConfig, data: ProblemData, state: SolverState, fused=False):
+    """One full iALM iteration; returns the new state (`fused`: the step
+    after phi through kernel K6, in place into `state`'s tensors)."""
     state = _palm_step(config, data, state)
     phi = solve_laplacian(config, data, state)
-    return _after_phi(config, data, state, phi)
+    return _after_phi(config, data, state, phi, fused)
 
 
 class _GraphedIteration:
@@ -191,12 +238,16 @@ class _GraphedIteration:
     KKT table (`table`) and a validation of the adaptive segment
     (`validate`) are segments over the same buffers. A state comes in and
     goes out as a copy, so no caller keeps an alias of a buffer that a
-    later replay overwrites."""
+    later replay overwrites. On one card the step after phi is kernel K6
+    (`fused`, `_fused_route`), which writes the state's buffers in place:
+    the `iteration` and `after` segments are declared `in_place` (their
+    capture's warm-up runs on copies of the buffers)."""
 
     def __init__(self, config: ProblemConfig, data: ProblemData, state: SolverState):
         self.config, self.data = config, data
         mesh = data.mesh
-        self.ws = graphs.Workspace(state.phi.device, mesh=mesh,
+        self.fused = _fused_route(config, data, state.phi.device)
+        self.ws = graphs.Workspace(state.phi.device, in_place=("iteration", "after"), mesh=mesh,
                                    group=None if mesh is None else mesh.world_group)
         self.bufs = self.ws.bufs
 
@@ -222,13 +273,18 @@ class _GraphedIteration:
 
     def step(self, data: ProblemData):
         """One iteration; `data` carries the CG's current inner tolerance."""
-        config, ws = self.config, self.ws
+        global FUSED_STEPS
+        config, ws, fused = self.config, self.ws, self.fused
         if config.laplacian_mode == "spectral":
-            ws.run("iteration", lambda b: iteration(config, self.data, _state_of(b))._asdict())
-            return
-        ws.run("before", self._before)
-        ws.load("phi_next", _cg_phi(config, data, ws.bufs["rhs"], ws.bufs["phi"]))
-        ws.run("after", lambda b: _after_phi(config, self.data, _state_of(b), b["phi_next"])._asdict())
+            ws.run("iteration",
+                   lambda b: iteration(config, self.data, _state_of(b), fused)._asdict())
+        else:
+            ws.run("before", self._before)
+            ws.load("phi_next", _cg_phi(config, data, ws.bufs["rhs"], ws.bufs["phi"]))
+            ws.run("after", lambda b: _after_phi(config, self.data, _state_of(b), b["phi_next"],
+                                                 fused)._asdict())
+        if fused:
+            FUSED_STEPS += 1
 
     def _before(self, bufs):
         state = _palm_step(self.config, self.data, _state_of(bufs))
@@ -269,6 +325,19 @@ def _state_of(bufs) -> SolverState:
 #: interface's bounded profiler trace counts iterations through it.
 AFTER_ITERATION = None
 
+#: Iterations in this process whose step after phi ran kernel K6 (one per
+#: `_GraphedIteration.step` on the fused route, counted where the host runs
+#: the segment: a capture's warm-up is no iteration), in `graphs.counters()`.
+FUSED_STEPS = 0
+
+
+def _set_fused_steps(n):
+    global FUSED_STEPS
+    FUSED_STEPS = n
+
+
+graphs.register_counter(lambda: FUSED_STEPS, _set_fused_steps, "step.fused_steps")
+
 
 def _runner(config: ProblemConfig, data: ProblemData, state: SolverState):
     """The cached `_GraphedIteration` of this problem (on one device or this
@@ -279,7 +348,7 @@ def _runner(config: ProblemConfig, data: ProblemData, state: SolverState):
     else:
         cg_op = data.cg_op._replace(rtol=None) if data.cg_op is not None else None
         key = ("iteration", config, tuple((t.shape, t.dtype, t.device) for t in state),
-               graphs.mesh_key(data.mesh))
+               graphs.mesh_key(data.mesh), k6.enabled())
         runner = graphs.cached(key, lambda: _GraphedIteration(config, data, state),
                                graphs.leaves(data._replace(cg_op=cg_op)))
     runner.load(state)

@@ -999,3 +999,110 @@ def test_cg_step_every_split_is_bit_equal_and_leaves_counters_at_zero(rows, n):
         for key in k4_sweep.TRACE_KEYS:
             assert torch.equal(trace_k[key], trace_p[key]), (split, key)
         assert torch.equal(trace_k["mean"][-1], trace_p["mean"][-1]), split
+
+
+IALM_SETUPS = [(64, "float32"), (200, "float32"), (200, "float64")]
+IALM_IDS = ["n64-f32-spectral", "n200-f32-cg-f64phi", "n200-f64-cg"]
+
+
+def _ialm_inputs(n, precision, congestion=None, scale_z=None, settle=15):
+    from dots_socp_torch.scripts.common import settled_ialm_state
+
+    return settled_ialm_state(n, 31, precision, "cuda", settle=settle, congestion=congestion,
+                              scale_z=scale_z)
+
+
+@pytest.mark.parametrize("congestion, scale_z", [(0.0, 1.0), (0.05, 1.7)],
+                         ids=["congestion0", "congestion0.05-scale_z1.7"])
+@pytest.mark.parametrize("n, precision", IALM_SETUPS, ids=IALM_IDS)
+def test_ialm_step_is_bit_equal_to_the_torch_route(n, precision, congestion, scale_z):
+    """Kernel K6, one step after phi from a settled state: its three
+    launches give every one of the 13 arrays of the torch route
+    (`_after_phi`) bit for bit, written in place into the state's own
+    tensors; plane n64 float32 (spectral, float32 phi), n200 float32 (CG,
+    float64 phi) and n200 float64, without and with congestion and scale_z,
+    on states where some cones project and some do not."""
+    _need_cuda()
+    from dots_socp_torch.ops import ialm_step as k6
+    from dots_socp_torch.solver import step
+
+    config, data, state, phi = _ialm_inputs(n, precision, congestion, scale_z)
+    ref = step._after_phi(config, data, state, phi)
+    ker = state._replace(**{name: getattr(state, name).clone() for name in k6.OUTPUTS})
+    ptrs = {name: getattr(ker, name).data_ptr() for name in k6.OUTPUTS}
+    before = k6.KERNEL_LAUNCHES
+    out = step._after_phi(config, data, ker, phi, fused=True)
+    torch.cuda.synchronize()
+    assert k6.KERNEL_LAUNCHES - before == k6.LAUNCHES and out.phi is phi
+    for name in k6.OUTPUTS:
+        assert getattr(out, name).data_ptr() == ptrs[name], name
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    inside = ref.z_fst == state.constant_d - state.scale_z * state.A - state.beta_fst
+    assert 0 < int(inside.sum()) < inside.numel()  # some cones project, some do not
+
+
+@pytest.mark.parametrize("n, precision", IALM_SETUPS, ids=IALM_IDS)
+def test_graphed_ialm_iterations_equal_the_torch_route(n, precision):
+    """52 iterations with CUDA graphs through K6 (the `iteration` or `after`
+    segment, in place) against the same iterations with graphs inside
+    `ialm_step.torch_route()` and inside `graphs.eager()`, from a settled
+    state with congestion 0.05 and scale_z 1.7: every state array bit for
+    bit; `step.fused_steps` ticks once an iteration on K6's route only, and
+    K6 launches three times an iteration and once more at the capture's
+    warm-up."""
+    _need_cuda()
+    from dots_socp_torch.ops import graphs
+    from dots_socp_torch.ops import ialm_step as k6
+    from dots_socp_torch.solver import step
+
+    config, data, state, _ = _ialm_inputs(n, precision, 0.05, 1.7, settle=5)
+    iters = 52
+    counts = {}
+    runs = {}
+    for route in ("k6", "torch", "eager"):
+        steps, launches = step.FUSED_STEPS, k6.KERNEL_LAUNCHES
+        ctx = {"k6": contextlib.nullcontext, "torch": k6.torch_route,
+               "eager": graphs.eager}[route]
+        with ctx():
+            runs[route] = step.run_chunk(config, data, state, iters)
+        torch.cuda.synchronize()
+        counts[route] = (step.FUSED_STEPS - steps, k6.KERNEL_LAUNCHES - launches)
+        graphs.release()
+    for route in ("torch", "eager"):
+        for name, a, b in zip(state._fields, runs["k6"], runs[route]):
+            assert torch.equal(a, b), (route, name)
+    assert counts == {"k6": (iters, k6.LAUNCHES * (iters + 1)), "torch": (0, 0),
+                      "eager": (0, 0)}
+
+
+@pytest.mark.parametrize("n, precision, nit", [(64, "float32", 10_000), (200, "float32", 120),
+                                               (200, "float64", 120)],
+                         ids=["n64-f32-to-tolerance", "n200-f32", "n200-f64"])
+def test_solver_through_k6_equals_the_torch_route(n, precision, nit):
+    """One whole `solver` call on K6's route against the same call inside
+    `ialm_step.torch_route()` (plane n64 to tol 1e-4; n200 in float32 and
+    float64 for `nit` iterations): every returned array bit for bit, the
+    same validation points and iteration count, and every iteration
+    counted in `step.fused_steps` on K6's route."""
+    _need_cuda()
+    from dots_socp_torch.cli import load_geometry
+    from dots_socp_torch.ops import ialm_step as k6
+    from dots_socp_torch.solver import solver, step
+
+    geometry = load_geometry("plane", n)
+    out = {}
+    for route in ("k6", "torch"):
+        steps = step.FUSED_STEPS
+        with contextlib.nullcontext() if route == "k6" else k6.torch_route():
+            solution, history = solver(31, geometry, nit=nit, tol=1e-4, time_limit=3000,
+                                       precision=precision, device="cuda")
+        out[route] = (solution, np.asarray(history.kkt_iteration), step.FUSED_STEPS - steps)
+    (sol_k, its_k, steps_k), (sol_t, its_t, steps_t) = out["k6"], out["torch"]
+    arrays = [key for key, value in sol_t.items() if isinstance(value, np.ndarray)]
+    assert {"phi", "mu", "E"} <= set(arrays)
+    for key in arrays:
+        np.testing.assert_array_equal(sol_k[key], sol_t[key], err_msg=key)
+    np.testing.assert_array_equal(its_k, its_t)
+    assert steps_k == int(its_k[-1]) + 1 and steps_t == 0
+    if nit == 10_000:
+        assert int(its_k[-1]) + 1 < nit  # converged
