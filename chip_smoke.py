@@ -2,29 +2,18 @@
 
     python3 chip_smoke.py
 
+The checks that need a whole process or several, and every kernel against
+its plain version at the main path's shapes (phase 23, through
+`dots_socp_torch.kernel_checks`, whose checks tests/test_torch_cuda.py runs
+case by case). A kernel's time is `python -m dots_socp_torch.bench_kernels`.
+The numbers 3, 6, 19, 21 and 22 are not reused, so that earlier records
+still name the phases they mean.
 Phases, in order; each prints one JSON line, and a failing phase raises
 (exit code != 0, no result line):
 
 1. device   -- CUDA must be present; the card's name and power limit.
 2. build    -- nvcc builds the kernels from the sources (B1 / B2, K4, K6,
                one nvcc per source, all started together).
-3. kernel   -- at plane n200 (V=46,431, T+1=32 modes, float32), with the
-               tiles the main path's `build_cg_operator` makes: the kernel
-               against its plain PyTorch version on the card and against
-               scipy's float64 L @ x on the host (L from the problem's
-               float64 ELL arrays, not the window format), each within
-               1e-5 * max|y|. Times: device time per call over 50+ calls
-               (torch.profiler kernel durations) of the wrapper, which must
-               be one launch of the kernel and nothing else, of the plain
-               version and of the library call (torch.sparse.mm of the same
-               operator as CSR with the vertex-major x), beside the bound
-               (every input and output moved once at 3.35 TB/s) and the
-               kernel events the profiler recorded for each; and the
-               median latency of one call (CUDA events, host launch
-               overhead included). Then B1 at the ntime 32 problem, 33
-               modes (two mode groups per tile, the second with one live
-               lane), the shape phase 12's unsharded and 2x1 runs give it,
-               checked and timed the same way.
 4. slice    -- the main path: the port's CLI (`dots_socp_torch.cli.main`,
                which runs the port's `interface.run_dot_surface` with the
                port's solver) on plane n200, ntime 31, tol 1e-4, 100
@@ -32,29 +21,22 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                with f64 refinement ran, every inner matvec launched the
                kernel, every inner iteration after it was K4's STAGES
                launches (`count_k4`: so in phases 8, 10, 12's unsharded
-               run, 14, 15, 17, 18 and 19 too; on a mesh, none), the KKT
+               run, 14, 15, 17 and 18 too; on a mesh, none), the KKT
                values are finite, the stop-set error at the
                last validation is at most half the first, the mass
                conservation error (RMS over time layers of total mass
-               minus 1) is finite.
+               minus 1) is finite, and every iteration was K6's LAUNCHES
+               launches (one more call at the capture's warm-up). Then the
+               same 100 iterations in float64 (the CG without refinement):
+               B1-f64's launches equal the window matvecs, K4-f64's are
+               STAGES for each fused inner iteration, every inner iteration
+               went through K4-f64, no float32 kernel launched, and K6 as
+               in float32.
 5. spectral -- the flagship problem (plane n64, V=4,810, ntime 31, float32,
                200 iterations) on the dense spectral path: finite KKT, and
                no TF32 on its GEMMs (the pins are set, and an f32 spectral
                solve on the card agrees with its f64 counterpart to 1e-4;
                TF32 would be ~1e-3 off).
-6. sharded_kernel -- kernel B2 at plane n200 in 2 blocked shards (the
-               main path's shapes) and in 4 (the port's `build_problem`, in
-               this process): on every shard the kernel, which gathers its
-               window from the shard's state and the export buffer, against
-               its plain version on the window vector, and the shards
-               assembled through the inverse window permute against the f64
-               ELL L @ x on the host, each within 1e-5 * max|y|. The
-               exports' all-gather is a concatenation here: the phase tests
-               the kernel, not the collective. Times, bound and library call
-               per shard-call as phase 3. Then B2 at 2 shards of the
-               ntime 32 problem, 33 modes (two mode groups per tile, the
-               second with one live lane), the shapes of phase 12, checked
-               the same way.
 7. sharded_slice -- the sharded main path: 2 ranks (spawned processes,
                torchrun's environment) run the port's CLI on plane n200,
                ntime 31, float32, --mesh_shape 1x2, 100 iterations; backend
@@ -128,9 +110,9 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                package was imported.
 15. wide_slice -- the JAX package's widest configuration (plane n200,
                ntime 127, float32, CG + f64 refinement: 128 modes, four mode
-               groups per tile, B1's limit): B1 on its tiles checked and
-               timed as in phase 3, then 100 iterations of the CLI checked as
-               in phase 4 (B1's launches equal the window matvecs); then
+               groups per tile, B1's limit): 100 iterations of the CLI
+               checked as in phase 4 (B1's launches equal the window
+               matvecs); then
                `scripts.records` runs ring at congestion 0.00 to tol 1e-4
                (a row of the `make main` sweep) and its own comparison must
                find the row in agreement with the JAX package's record.
@@ -175,29 +157,6 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                iterations' own replays, however many kernels the KKT table
                launches.
 
-19. cg_step -- kernel K4, the single-device CG's inner iteration after the
-               matvec (`ops/cg_step.py`): on plane n200's operator and a
-               settled inner state (`scripts.common.settled_cg_state`) with
-               one frozen row, one with p = 0 (den = 0, the breakdown guard)
-               and the null row, every stage's outputs (the wrapper's trace)
-               against `cg_step_plain`'s within KERNEL_TOL * max|.|; with
-               live false every output keeps its bits; two launches on the
-               same inputs bit-equal. Times per call (device, profiler): K4
-               with the GEMMs between its launches, its plain version, the
-               whole inner iteration (B1 + K4) live and as a no-op, and on
-               the torch route, beside the byte bound (`cg_step_bound`);
-               K4's five launches one by one beside each one's bound, and
-               the walks' split plan (`cg_step.split_plan`). At
-               CG_STEP_SHAPES (128 modes, n290, n410) on seeded random
-               states (`scripts.k4_sweep`): the plan, every stage bit-equal
-               to the plain version, µs by stage. Then n200 to tol 1e-4
-               (fresh factors, as phase 18) on K4's route and inside
-               `cg_step.torch_route()`: both
-               ADAPTIVE_ITERATIONS[200] iterations at the same validation
-               points, final KKT within SLICE_KKT_RTOL, the transport cost
-               within the records' rule (`scripts.records.COST_RTOL`,
-               `COST_ATOL`).
-
 20. mesh_loops -- the JAX package's device-resident loops on a mesh (the
                CG's latched blocks, the iteration, table and adaptive
                segments over each rank's graph workspace): on a 1x2 mesh of
@@ -222,53 +181,22 @@ Phases, in order; each prints one JSON line, and a failing phase raises
                per shard-call inside the solve. With four cards, the same
                legs' checks on 2x2 at ntime 32.
 
-21. float64 -- the float64 CG path (plane n200, `precision="float64"`: no
-               refinement, kernels B1-f64 and K4-f64): on the window operator
-               the main path's `build_problem` makes at 32 and 128 modes,
-               B1-f64 against its plain version on the card and SciPy's
-               float64 L @ x within F64_TOL * max|y|, one call one launch
-               counted in B1-f64's counter alone, timed as in phase 3 beside
-               its bound at 8 bytes a value; from the settled float64 inner
-               state (`settled_cg_state(..., dtype="float64")`) K4-f64
-               (`fused_step`) against the float64 torch route (`gated_step`)
-               one latched iteration after another until the latch falls, x,
-               r, p, rz, rr, it and live bit for bit after every one, with
-               the launch counters set to 0 before and read after (B1-f64
-               twice and K4-f64 STAGES times a step, no float32 launch); K4-f64
-               and the whole inner iteration timed on each route beside
-               `cg_step_bound(..., value_bytes=8)`; then `solver` on n200 in
-               float64 for F64_SOLVE_NIT iterations (the automatic phi solve,
-               CUDA graphs) on K4-f64's route and inside `torch_route()`:
-               float64 arrays back, B1-f64's launches equal to the window
-               matvecs, K4-f64's to STAGES per fused step and every live
-               inner iteration counted in `f64_fused_steps` (none on the torch
-               route), no float32 kernel, the same validation points and
-               final KKT within SLICE_KKT_RTOL.
-
-22. ialm_step -- kernel K6, the iALM step after phi (`ops.ialm_step`):
-               on plane n64 float32 (spectral, float32 phi), n200 float32
-               (CG, float64 phi) and n200 float64, from a state settled by
-               IALM_SETTLE host iterations, at each of IALM_CASES
-               (congestion, scale_z), one step through K6 (three launches,
-               counted from 0) against the torch route (`_after_phi`), every
-               one of its 13 arrays bit for bit; K6's device time per call
-               (its three launches alone, each stage, and with the torch ops
-               of its scalars) beside `ialm_step_bound` and the torch route's
-               time; then `solver` on n64 and n200 float32 for
-               IALM_SOLVE_NIT iterations on K6's route and inside
-               `ialm_step.torch_route()`: every returned array bit for bit,
-               the same validation points, `step.fused_steps` equal to the
-               iterations on K6's route (0 on the torch route), and K6's
-               launches three per iteration and per capture's warm-up.
+23. kernels -- every kernel wrapper against its plain version or torch
+               route at the main path's shapes (`kernel_checks`): B1 and
+               B1-f64 on plane n200's window (B1_CASES), B2 on its
+               blocked shards (B2_CASES), K4 stage by stage on n200's
+               settled inner state, K4-f64 latched against the float64 torch
+               route over a solve, K6 on IALM_SETUPS x IALM_CASES; each
+               B1 / B2 call one launch and nothing else (one kernel node in
+               a captured graph). One line with each check's errors,
+               launches and bound.
 
 The sharded phases (7, 11, 12, 13) run through the same mesh loops, and
 phases 7, 11 and 12 report per rank the backend, the card count and
 whether the rank's segments were captured (over nccl they must be, over
 gloo they must not).
 
-Then the kernel summary line (a kernel's `launches` is the sum over the
-paths that drive it, each counted from 0: `launches_by_path`), the `nvidia-smi` name and power-limit line,
-and the result line
+Then the `nvidia-smi` name and power-limit line, and the result line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Only the port (`dots_socp_torch`) is imported here. The port keeps its own
 copies of the host modules (geometry, data loading, interface), so neither
@@ -278,11 +206,10 @@ of phases 7, 11, 12, 13 and 20, or by the drivers of phase 14: the script checks
 
     python3 chip_smoke.py --phase time_sharded_slice
 
-runs phases 1 and 2 and then the one phase named (12, 15, 16, 17, 18, 19, 20 or 21; 7 and 11
-after phases 4 and 5, whose results they are held to) with its checks, and prints no
-result line and no kernel line (phase 21 alone: the kernel line of its two kernels): phase
-12 alone on a machine with four cards is the check of a `TxS` mesh over nccl, phases 7, 11
-and 20 alone on two or more the check of the captured mesh loops.
+runs phases 1 and 2 and then the one phase named (12, 15, 16, 17, 18, 20 or 23; 7 and 11 after
+phases 4 and 5, whose results they are held to) with its checks, and prints no result line:
+phase 12 alone on a machine with four cards is the check of a `TxS` mesh over nccl, phases 7,
+11 and 20 alone on two or more the check of the captured mesh loops.
 """
 
 from __future__ import annotations
@@ -307,20 +234,9 @@ import torch
 import dots_socp_torch.ops.cg_step as cg_step
 import dots_socp_torch.ops.sharded_window as sharded_window
 import dots_socp_torch.ops.window_spmv as window_spmv
-from dots_socp_torch import bench, cli, dryrun, interface, profile_slice
-from dots_socp_torch.kernel_timing import (
-    cg_step_bound,
-    device_ms,
-    ell_laplacian,
-    ialm_step_bound,
-    launch_times_us,
-    library_ms,
-    median_call_ms,
-    nvidia_smi_line,
-    shard_bound,
-    shard_inputs,
-    window_bound,
-)
+import dots_socp_torch.ops.ialm_step as ialm_step
+from dots_socp_torch import bench, cli, dryrun, interface, kernel_checks, profile_slice
+from dots_socp_torch.kernel_timing import f64_launches, nvidia_smi_line, reset_counts
 from dots_socp_torch.ops import _build, graphs
 from dots_socp_torch.ops.collectives import COUNTS
 from dots_socp_torch.ops.laplacian import CG_COUNTERS, SpectralFactor, spectral_solve
@@ -328,9 +244,7 @@ from dots_socp_torch.replication import log2table, main_versus_exact, sweep
 from dots_socp_torch.scripts import (
     bench_large,
     bench_sharded_cg,
-    common,
     bench_matvec,
-    k4_sweep,
     profile_large,
     records,
     refine_cost_bench,
@@ -338,15 +252,14 @@ from dots_socp_torch.scripts import (
     spectral_floor,
     steady_state_configs,
 )
+from dots_socp_torch.solver import step
 from dots_socp_torch.solver.problem import build_problem
 
 N_TIME = 31
 KERNEL_TOL = 1e-5  # max |diff| / max |y|: float32 sums in another order
 TF32_TOL = 1e-4  # f32 vs f64 spectral solve; TF32 GEMMs give ~6e-4
 STOP_SET = [0, 2, 4, 5]
-REPS = 50
 SHARDS_SLICE = 2  # ranks of the sharded_slice phase (the main path)
-SHARDS_KERNEL = (SHARDS_SLICE, 4)  # shard counts of the sharded_kernel phase
 RANK_TIMEOUT = 600  # seconds a rank of the sharded slice may take
 # Largest relative difference allowed between the sharded slice's final KKT
 # entries and phase 4's: the two f32 solves reduce in other orders (B1 vs
@@ -364,7 +277,7 @@ RESUME_RTOL = 1e-6
 # 0.0032 on an H100 (gloo, one card); the bound leaves 4x room.
 SPECTRAL_KKT_RTOL = 0.013
 N_TIME_MESH = 32  # ntime of the time-sharded slice: 2 blocks of 16 slices
-N_TIME_WIDE = 127  # ntime of phase 15: 128 modes, B1's four mode groups
+N_TIME_WIDE = 127  # ntime of phase 15: 128 modes, B1's limit
 # (--mesh_shape, ranks, the count of the window kernel its ranks launch: B2 on
 # space shards, B1 on one) of phase 12
 TIME_MESHES = (("2x2", 4, "launches"), ("2x1", 2, "b1_launches"))
@@ -392,28 +305,6 @@ GRAPH_LAUNCH_CALL_RATIO = 0.1
 # replay, and room for a segment boundary in the window).
 ADAPTIVE_ITERATIONS = {64: 1272, 200: 1131}
 ADAPTIVE_LAUNCH_CALLS = 3
-# Phase 19: plane n200's settled inner CG state with these rows changed: one
-# frozen (its threshold above its residual) and one with p = 0 (den = 0, the
-# breakdown guard); the null row (shift 0) is the last, as built.
-CG_STEP_FROZEN_ROW, CG_STEP_BREAKDOWN_ROW = 5, 9
-# K4 on seeded random states at the main path's other shapes (phase 19):
-# plane n200 at 128 modes, n290 and n410 at 32.
-CG_STEP_SHAPES = ((128, 46_431), (32, 97_485), (32, 194_814))
-CG_STEP_SHAPE_REPS = 20
-# Kernel K4's launches on each path that drives the single-device CG, each
-# counted from 0 (`count_k4`).
-K4_PATHS = {}
-# Phase 21: the float64 CG path's kernels (B1-f64, K4-f64) at these mode
-# counts, B1-f64 within F64_TOL * max|y| of its plain version and of SciPy
-# (float64 sums in another order), and the iALM iterations of its main-path
-# solve on each route.
-F64_MODES = (32, 128)
-F64_TOL = 1e-13
-F64_SOLVE_NIT = 100
-IALM_SETUPS = (("n64", 64, "float32"), ("n200", 200, "float32"), ("n200_f64", 200, "float64"))
-IALM_CASES = ((0.0, 1.0), (0.05, 1.7))  # (congestion, scale_z)
-IALM_SETTLE = 15
-IALM_SOLVE_NIT = 60
 # Phase 20: the legs (name, plane n, ntime, iterations at most, tol) that every
 # rank of the 1x2 mesh solves inside `graphs.eager()` and then through the
 # mesh loops: over nccl (a card per rank) 100 iterations of n200, n200 to tol
@@ -449,31 +340,16 @@ TIME_KEY = re.compile(r"(_ms|_us|_sec|^value|iters_per_sec|^repeats|^variants|^c
 NOT_TIMES = ("cg_fixed_overhead_ms", "unattributed_ms", "kernel_build_sec")
 
 
-def reset_counts():
-    """B1's and K4's launch counts (float32 and float64) and the CG's
-    counters to 0: what follows is one path's."""
-    window_spmv.KERNEL_LAUNCHES = cg_step.KERNEL_LAUNCHES = 0
-    window_spmv.KERNEL_LAUNCHES_F64 = cg_step.KERNEL_LAUNCHES_F64 = 0
-    CG_COUNTERS.reset()
-
-
-def f64_launches():
-    """(B1-f64's, K4-f64's, B1's, K4's) launches since `reset_counts`."""
-    return (window_spmv.KERNEL_LAUNCHES_F64, cg_step.KERNEL_LAUNCHES_F64,
-            window_spmv.KERNEL_LAUNCHES, cg_step.KERNEL_LAUNCHES)
-
-
 def count_k4(path, expected=True):
-    """K4's launches since `reset_counts`, added to K4_PATHS[path]; on a
-    single-device CG path (`expected`) there must be some, STAGES for each
-    fused inner iteration, elsewhere none."""
+    """K4's launches since `reset_counts`; on a single-device CG path
+    (`expected`) there must be some, STAGES for each fused inner iteration,
+    elsewhere none."""
     n = cg_step.KERNEL_LAUNCHES
     if expected and not (n > 0 and n == cg_step.STAGES * CG_COUNTERS.fused_steps):
         raise AssertionError(f"{path}: K4 launches {n} against {CG_COUNTERS.fused_steps} fused "
                              f"inner iterations")
     if not expected and n:
         raise AssertionError(f"{path}: K4 launched {n} times off the single-device CG path")
-    K4_PATHS[path] = K4_PATHS.get(path, 0) + n
     return n
 
 
@@ -493,27 +369,6 @@ def forbidden_imports():
                   if m.split(".")[0] in ("jax", "jaxlib", "dots_socp_tpu"))
 
 
-def kernel_times(kernel, plain, kernel_name, library):
-    """Device and call times of a wrapper, its plain version and the library
-    call (`library` = (operator, x, rows) of `library_ms`); the wrapper must
-    be one launch of `kernel_name` and nothing else (no transpose, no
-    gather). `profiler_events` holds, for each, the calls made, the kernel
-    events the profiler recorded and the sessions it took."""
-    ms_kernel, kernels, ev_kernel = device_ms(kernel, REPS)
-    ms_plain, _, ev_plain = device_ms(plain, REPS)
-    ms_library, ev_library = library_ms(*library)
-    if len(kernels) != 1 or kernel_name not in next(iter(kernels)):
-        raise AssertionError(f"the wrapper launched {sorted(kernels)}, not {kernel_name} alone")
-    return {
-        "device_us": {"wrapper": ms_kernel * 1e3, "plain": ms_plain * 1e3,
-                      "by_kernel": {k[:60]: t * 1e3 for k, t in kernels.items()}},
-        "call_us": {"wrapper": median_call_ms(kernel, REPS) * 1e3,
-                    "plain": median_call_ms(plain, REPS) * 1e3},
-        "library_us": ms_library * 1e3,
-        "profiler_events": {"wrapper": ev_kernel, "plain": ev_plain, "library": ev_library},
-    }
-
-
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py needs an NVIDIA GPU")
@@ -530,51 +385,9 @@ def phase_build():
     emit("build", library=str(path.name), compile_seconds=round(seconds, 3), ptxas=ptxas)
 
 
-def phase_kernel(card, n_time=N_TIME, phase="kernel"):
-    geometry = cli.load_geometry("plane", 200)
-    lanes = n_time + 1
-    config, data, _ = build_problem(n_time, geometry, dtype="float32", device="cuda")
-    wop = data.cg_op.window if data.cg_op is not None else None
-    if config.laplacian_mode != "cg" or wop is None or data.cg_op.ell_w_hi is None:
-        raise RuntimeError(f"n200 did not build the refined window CG ({config.laplacian_mode})")
-    lap = ell_laplacian(data.cg_op)
-    v = lap.shape[0]
-    x = np.random.default_rng(0).standard_normal((lanes, v)).astype(np.float32)
-    perm = wop.perm.cpu().numpy()
-    iperm = wop.iperm.cpu().numpy()
-    xp = torch.from_numpy(np.ascontiguousarray(x[:, perm])).cuda()
-
-    y_kernel = window_spmv.window_matvec(wop, xp)
-    y_plain = window_spmv.window_matvec_plain(wop, xp)
-    torch.cuda.synchronize()
-    y_ref = (lap @ x.astype(np.float64).T).T  # host scipy, float64
-    yk = y_kernel.cpu().numpy().astype(np.float64)[:, iperm]
-    yp = y_plain.cpu().numpy().astype(np.float64)[:, iperm]
-    err_kp = float(np.abs(yk - yp).max())
-    err_kr = float(np.abs(yk - y_ref).max())
-    err_pr = float(np.abs(yp - y_ref).max())
-    scale = float(np.abs(y_ref).max())
-    times = kernel_times(lambda: window_spmv.window_matvec(wop, xp),
-                         lambda: window_spmv.window_matvec_plain(wop, xp), "window_spmv_kernel",
-                         (wop, xp, v))
-    bound = window_bound(wop, v, lanes, v)
-    emit(phase, shape=[lanes, v], meta={"tile_rows": wop.tile_rows, "width": wop.width,
-         "nnz_width": wop.nnz_width, "nnz_pad": int(wop.lcol.shape[1]),
-         "tiles": -(-v // wop.tile_rows)},
-         max_abs_err_vs_plain=err_kp, max_abs_err_kernel_vs_f64=err_kr,
-         max_abs_err_plain_vs_f64=err_pr, max_abs_y=scale, **times,
-         bound_us=bound["ms"] * 1e3, bound=bound, card=card)
-    tol = KERNEL_TOL * scale
-    if not (err_kp <= tol and err_kr <= tol and err_pr <= tol):
-        raise AssertionError(f"window kernel disagrees: {err_kp}, {err_kr}, {err_pr} > {tol}")
-    return {"max_abs_err": err_kp, "ms": times["device_us"]["wrapper"] / 1e3,
-            "plain_ms": times["device_us"]["plain"] / 1e3, "bound_ms": bound["ms"],
-            "bound_by": bound["by"], "library_ms": times["library_us"] / 1e3}
-
-
-def run_cli(n_space, nit, extra=(), n_time=N_TIME):
+def run_cli(n_space, nit, extra=(), n_time=N_TIME, precision="float32"):
     argv = ["--example", "plane", "--n_space", str(n_space), "--ntime", str(n_time),
-            "--tol", "1e-4", "--nit", str(nit), "--precision", "float32", "--device", "cuda",
+            "--tol", "1e-4", "--nit", str(nit), "--precision", precision, "--device", "cuda",
             *extra]
     t0 = time.perf_counter()
     solution, geometry, history = cli.main(argv)
@@ -594,8 +407,21 @@ def run_cli(n_space, nit, extra=(), n_time=N_TIME):
     }
 
 
+def k6_counted(path, steps, launches, iterations):
+    """K6's route took every iteration of a single-device solve:
+    `step.fused_steps` and K6's launches since `steps` and `launches` were
+    read are one and LAUNCHES per iteration, and one more call at the
+    capture's warm-up. Returns K6's launches."""
+    steps, launches = step.FUSED_STEPS - steps, ialm_step.KERNEL_LAUNCHES - launches
+    if not (steps == iterations and launches == ialm_step.LAUNCHES * (iterations + 1)):
+        raise AssertionError(f"{path}: K6 launches {launches}, fused steps {steps} over "
+                             f"{iterations} iterations")
+    return launches
+
+
 def phase_slice(card, n_time=N_TIME, phase="slice"):
     reset_counts()  # count the main path's launches only
+    k6_steps, k6_launches = step.FUSED_STEPS, ialm_step.KERNEL_LAUNCHES
     solution, history, stats = run_cli(200, 100, n_time=n_time)
     launches = window_spmv.KERNEL_LAUNCHES
     k4 = count_k4(phase)
@@ -616,7 +442,33 @@ def phase_slice(card, n_time=N_TIME, phase="slice"):
         raise AssertionError(f"stop-set error {stop[0]} -> {stop[-1]}: not halved")
     if not np.isfinite(mass_err):
         raise AssertionError("mass conservation error is not finite")
-    return launches, history.kkt_errors[-1], solution
+    if phase == "slice":
+        k6_counted(phase, k6_steps, k6_launches, stats["iterations"])
+        slice_f64(card)
+    return history.kkt_errors[-1], solution
+
+
+def slice_f64(card):
+    """Phase 4's float64 leg: the CG path without refinement, on B1-f64,
+    K4-f64 and K6 alone."""
+    reset_counts()
+    k6_steps, k6_launches = step.FUSED_STEPS, ialm_step.KERNEL_LAUNCHES
+    _, _, stats = run_cli(200, 100, precision="float64")
+    b1_f64, k4_f64, b1, k4 = f64_launches()
+    counters = dict(vars(CG_COUNTERS))
+    k6 = k6_counted("slice float64", k6_steps, k6_launches, stats["iterations"])
+    emit("slice", precision="float64", **stats, b1_f64_launches=b1_f64, k4_f64_launches=k4_f64,
+         k6_launches=k6, cg=counters, card=card)
+    if not (CG_COUNTERS.solves > 0 and CG_COUNTERS.refined_solves == 0):
+        raise AssertionError("the float64 n200 solve did not run the CG phi-solve unrefined")
+    if not (b1_f64 > 0 and b1_f64 == CG_COUNTERS.window_matvecs):
+        raise AssertionError(f"B1-f64 launches {b1_f64} != window matvecs "
+                             f"{CG_COUNTERS.window_matvecs}")
+    if not (k4_f64 > 0 and k4_f64 == cg_step.STAGES * CG_COUNTERS.fused_steps
+            and CG_COUNTERS.f64_fused_steps == CG_COUNTERS.iterations):
+        raise AssertionError(f"K4-f64 launches {k4_f64}: {counters}")
+    if b1 or k4:
+        raise AssertionError(f"the float64 solve launched B1 {b1} and K4 {k4} times")
 
 
 def tf32_pins():
@@ -655,58 +507,6 @@ def phase_spectral(card):
     if not rel <= TF32_TOL:
         raise AssertionError(f"f32 spectral solve off by {rel} (> {TF32_TOL}): TF32 on the GEMMs?")
     return history.kkt_errors[-1]
-
-
-def phase_sharded_kernel(card, n_shards, n_time=N_TIME):
-    geometry = cli.load_geometry("plane", 200)
-    lanes = n_time + 1
-    # The window tiles do not depend on the deflation vectors: none are made.
-    config, data, _ = build_problem(
-        n_time, geometry, dtype="float32", space_partitions=n_shards,
-        mesh_axes=(1, n_shards), cg_deflation_k=0, device="cpu",
-    )
-    sw_all = data.cg_op.swindow
-    if sw_all is None or data.cg_op.ell_w_hi is None:
-        raise RuntimeError("the blocked n200 problem did not build the sharded window")
-    lap = ell_laplacian(data.cg_op)
-    v_pad = lap.shape[0]
-    v_chunk = v_pad // n_shards
-    # Every shard's state in window order, and the exports as the all-gather
-    # would concatenate them.
-    x, shards, xs, buf = shard_inputs(sw_all, n_shards, lanes)
-    y_ref = (lap @ x.astype(np.float64).T).T
-    scale = float(np.abs(y_ref).max())
-    per_shard, ys, err_kp = [], [], 0.0
-    for sw, xl in zip(shards, xs):
-        xw = sharded_window.window_vector(sw, xl, buf)
-        y_kernel = sharded_window.shard_spmv(sw, xl, buf)
-        y_plain = sharded_window.sharded_window_matvec_plain(sw, xw)
-        torch.cuda.synchronize()
-        err_kp = max(err_kp, float((y_kernel - y_plain).abs().max()))
-        ys.append(sharded_window.window_permute(sw, y_kernel, inverse=True).cpu().numpy())
-        times = kernel_times(lambda: sharded_window.shard_spmv(sw, xl, buf),
-                             lambda: sharded_window.sharded_window_matvec_plain(sw, xw),
-                             "sharded_window_spmv_kernel", (sw, xw, v_chunk))
-        bound = shard_bound(sw, lanes, buf.shape[-1])
-        per_shard.append({
-            "rows": v_chunk, "Nw": int(sw.win_codes.shape[0]), "Wb": int(sw.exp_codes.shape[0]),
-            **times, "bound_us": bound["ms"] * 1e3, "bound": bound,
-        })
-    err_kr = float(np.abs(np.concatenate(ys, axis=-1) - y_ref).max())
-    emit("sharded_kernel", shards=n_shards, shape=[lanes, v_pad],
-         meta={"tile_rows": shards[0].tile_rows, "width": shards[0].width,
-               "nnz_width": shards[0].nnz_width, "nnz_pad": int(shards[0].lcol.shape[1]),
-               "tiles": -(-v_chunk // shards[0].tile_rows)},
-         per_shard=per_shard, max_abs_err_vs_plain=err_kp, max_abs_err_kernel_vs_f64=err_kr,
-         max_abs_y=scale, card=card)
-    tol = KERNEL_TOL * scale
-    if not (err_kp <= tol and err_kr <= tol):
-        raise AssertionError(f"sharded window kernel disagrees: {err_kp}, {err_kr} > {tol}")
-    mean = lambda pick: float(np.mean([pick(p) for p in per_shard])) / 1e3
-    return {"max_abs_err": err_kp, "ms": mean(lambda p: p["device_us"]["wrapper"]),
-            "plain_ms": mean(lambda p: p["device_us"]["plain"]),
-            "bound_ms": mean(lambda p: p["bound_us"]), "bound_by": per_shard[0]["bound"]["by"],
-            "library_ms": mean(lambda p: p["library_us"])}
 
 
 def _free_port() -> int:
@@ -853,12 +653,10 @@ def phase_sharded_slice(card, kkt_unsharded):
             raise AssertionError(f"rank {rank}: mass conservation error is not finite")
         if not out["kkt_rel_vs_unsharded"] <= SLICE_KKT_RTOL:
             raise AssertionError(f"rank {rank}: KKT {out['kkt'][-1]} vs unsharded {kkt_unsharded}")
-    return sum(out["launches"] for out in outs)
 
 
 def phase_time_sharded_slice(card):
-    """Phase 12. Returns the launches of (B1 unsharded at ntime 32, B2 on
-    2x2, B1 on 2x1), each counted from 0."""
+    """Phase 12."""
     reset_counts()
     _, history, stats = run_cli(200, 100, n_time=N_TIME_MESH)
     b1_unsharded = window_spmv.KERNEL_LAUNCHES
@@ -868,7 +666,6 @@ def phase_time_sharded_slice(card):
          cg=dict(vars(CG_COUNTERS)), card=card)
     if not (b1_unsharded > 0 and b1_unsharded == CG_COUNTERS.window_matvecs):
         raise AssertionError(f"B1 launches {b1_unsharded} != window matvecs at ntime {N_TIME_MESH}")
-    launches = []
     for mesh_shape, world, kernel in TIME_MESHES:
         other = "b1_launches" if kernel == "launches" else "launches"
         t0 = time.perf_counter()
@@ -904,8 +701,6 @@ def phase_time_sharded_slice(card):
             if not (out["phi_bit_equal_rank0"] or out["phi_rel_vs_rank0"] <= PHI_DRIFT_RTOL):
                 raise AssertionError(f"{mesh_shape} rank {rank}: phi is {out['phi_rel_vs_rank0']} "
                                      f"off rank 0's (> {PHI_DRIFT_RTOL})")
-        launches.append(sum(out[kernel] for out in outs))
-    return (b1_unsharded, *launches)
 
 
 def phase_dryrun(card):
@@ -983,7 +778,6 @@ def phase_resume(card, kkt_full, solution_full):
     if not max(kkt_rel, mu_rel, e_rel, phi_rel) <= RESUME_RTOL:
         raise AssertionError(f"the resumed run left the uninterrupted one: KKT {kkt_rel}, "
                              f"mu {mu_rel}, E {e_rel}, phi {phi_rel} > {RESUME_RTOL}")
-    return sum(leg["launches"] for leg in legs)
 
 
 def phase_replication(card):
@@ -1047,7 +841,6 @@ def phase_profile(card):
     if not (launches == CG_COUNTERS.window_matvecs and len(b1) < launches):
         raise AssertionError(f"{len(b1)} traced of {launches} launches, "
                              f"{CG_COUNTERS.window_matvecs} window matvecs: the trace did not stop")
-    return launches
 
 
 def times_in(result, path=""):
@@ -1068,7 +861,7 @@ def times_in(result, path=""):
 
 
 def phase_bench(card):
-    """Phase 14; returns B1's launches in it."""
+    """Phase 14."""
     reset_counts()
     t0 = time.perf_counter()
     results = {}
@@ -1106,14 +899,11 @@ def phase_bench(card):
                              f"{CG_COUNTERS.window_matvecs} + chained {chained}")
     if forbidden_imports():
         raise AssertionError(f"the drivers imported {forbidden_imports()}")
-    return launches
 
 
 def phase_wide_slice(card):
-    """Phase 15. Returns B1's kernel fields at 128 modes and its launches on
-    the 100-iteration run."""
-    kernel = phase_kernel(card, N_TIME_WIDE, phase="wide_slice")
-    launches, _, _ = phase_slice(card, N_TIME_WIDE, phase="wide_slice")
+    """Phase 15."""
+    phase_slice(card, N_TIME_WIDE, phase="wide_slice")
     with tempfile.TemporaryDirectory() as tmp:
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
@@ -1123,7 +913,6 @@ def phase_wide_slice(card):
     emit("wide_slice", record=summary["lines"], card=card)
     if not (summary["rows"] == 1 and summary["agrees"]):
         raise AssertionError(f"ring at congestion 0.00 disagrees with its record: {summary}")
-    return kernel, launches
 
 
 def phase_spectral_records(card):
@@ -1169,8 +958,7 @@ def host_calls_per_iteration(n_space, eager):
 
 
 def phase_graphs(card):
-    """Phase 17. Returns B1's launches in it."""
-    b1 = 0
+    """Phase 17."""
     for n_space in (200, 64):
         legs, phis = {}, {}
         for mode in ("graphed", "eager"):
@@ -1181,7 +969,6 @@ def phase_graphs(card):
                           "k4_launches": count_k4("graphs", expected=n_space == 200),
                           "cg": dict(vars(CG_COUNTERS))}
             phis[mode] = solution["phi"]
-            b1 += window_spmv.KERNEL_LAUNCHES
         bit_equal = bool(np.array_equal(phis["graphed"], phis["eager"]))
         rel = _rel_diff(phis["graphed"], phis["eager"])
         emit("graphs", n_space=n_space, **legs, phi_bit_equal=bit_equal, phi_rel=rel, card=card)
@@ -1197,7 +984,6 @@ def phase_graphs(card):
     if not (ratios["host_syncs"] <= GRAPH_SYNC_RATIO
             and ratios["host_launch_calls"] <= GRAPH_LAUNCH_CALL_RATIO):
         raise AssertionError(f"graphed n200 iteration: host calls over eager {ratios}")
-    return b1
 
 
 def converge(n_space):
@@ -1215,8 +1001,8 @@ def converge(n_space):
 
 
 def phase_adaptive(card):
-    """Phase 18. Returns B1's launches in it."""
-    t0, b1 = time.perf_counter(), 0
+    """Phase 18."""
+    t0 = time.perf_counter()
     with bench.fresh_cache_dir():
         for n_space, expect in ADAPTIVE_ITERATIONS.items():
             legs, runs = {}, {}
@@ -1225,7 +1011,6 @@ def phase_adaptive(card):
                 with graphs.eager() if mode == "eager" else contextlib.nullcontext():
                     solution, history, reads = converge(n_space)
                 k4 = count_k4("adaptive", expected=n_space == 200)
-                b1 += window_spmv.KERNEL_LAUNCHES
                 runs[mode] = (solution["phi"], np.asarray(history.kkt_iteration))
                 legs[mode] = {"iterations": int(history.kkt_iteration[-1]),
                               "validations": len(history.kkt_iteration),
@@ -1264,462 +1049,6 @@ def phase_adaptive(card):
     if not (d["validations"] > 0 and per_validation["host_syncs"] <= 1
             and per_validation["host_launch_calls"] <= ADAPTIVE_LAUNCH_CALLS):
         raise AssertionError(f"n64 near tolerance: host calls per validation {per_validation}")
-    return b1
-
-
-def _stage_errors(kernel, plain, null_rows):
-    """Per stage output of `cg_step`'s trace: max |kernel - plain| over
-    max |plain|; the mean on the null rows only (where the kernel keeps it),
-    over the largest term it averages (max |r1| there: the mean of a
-    deflated row is ~0); the step mask, it and live equal (0.0) or not
-    (1.0)."""
-    errors = {}
-    for key, k in kernel.items():
-        ref = plain.get(key)
-        if ref is None:
-            continue
-        scale = ref
-        if key == "mean":
-            k, ref, scale = k[null_rows], ref[null_rows], plain["r1"][null_rows]
-        if k.dtype == torch.bool or not k.is_floating_point():
-            errors[key] = 0.0 if torch.equal(k, ref) else 1.0
-        else:
-            errors[key] = float((k - ref).abs().max()) / (float(scale.abs().max()) or 1.0)
-    return errors
-
-
-def phase_cg_step(card):
-    """Phase 19. Returns K4's fields of the kernel line."""
-    t0 = time.perf_counter()
-    cg, st = common.settled_cg_state(200, N_TIME, "cuda")
-    names = ("x", "r", "p", "rz", "rr", "it", "live")
-    rows, n = st["x"].shape
-    k = cg.leaves.defl_q.shape[-1]
-    null_rows = torch.nonzero(cg.null_w > 0).flatten()
-    thresh = st["thresh"].clone()
-    thresh[CG_STEP_FROZEN_ROW] = 2 * st["rr"][CG_STEP_FROZEN_ROW]
-    st["p"][CG_STEP_BREAKDOWN_ROW] = 0.0
-    max_iters = 2**31 - 1
-    lap = window_spmv.window_matvec(cg.wop, st["p"])
-
-    def fresh():
-        return tuple(st[key].clone() for key in names)
-
-    # Each stage against the plain version, on the same inputs.
-    traced = {"kernel": {}, "plain": {}}
-    cg_step.cg_step(lap, *fresh(), thresh, max_iters, cg.leaves, trace=traced["kernel"])
-    cg_step.cg_step_plain(lap, *fresh(), thresh, max_iters, cg.leaves, trace=traced["plain"])
-    torch.cuda.synchronize()
-    errors = _stage_errors(traced["kernel"], traced["plain"], null_rows)
-
-    def pair(key):  # the mean is kept on the null rows only
-        k, p = traced["kernel"][key], traced["plain"][key]
-        return (k[null_rows], p[null_rows]) if key == "mean" else (k, p)
-
-    bit_equal = {key: bool(torch.equal(*pair(key))) for key in errors}
-    step = traced["kernel"]["step"].flatten().tolist()
-    # With live false, every output keeps its bits.
-    idle = fresh()
-    idle[names.index("live")].fill_(False)
-    kept = [t.clone() for t in idle]
-    cg_step.cg_step(lap, *idle, thresh, max_iters, cg.leaves)
-    # Two launches on the same inputs.
-    once, twice = fresh(), fresh()
-    cg_step.cg_step(lap, *once, thresh, max_iters, cg.leaves)
-    cg_step.cg_step(lap, *twice, thresh, max_iters, cg.leaves)
-    torch.cuda.synchronize()
-    noop_bits = all(torch.equal(a, b) for a, b in zip(idle, kept))
-    repeat_bits = all(torch.equal(a, b) for a, b in zip(once, twice))
-
-    # Device time per call: K4's launches and the GEMMs between them, the
-    # plain version, and the whole inner iteration (B1 + K4) live, no-op
-    # and on the torch route; each state advances as it is timed.
-    on_k, on_p, on_it, on_noop, on_torch = fresh(), fresh(), fresh(), fresh(), fresh()
-    on_noop[names.index("live")].fill_(False)
-    ms_k, by_kernel, ev_k = device_ms(
-        lambda: cg_step.cg_step(lap, *on_k, thresh, max_iters, cg.leaves), REPS)
-    ms_p, _, ev_p = device_ms(
-        lambda: cg_step.cg_step_plain(lap, *on_p, thresh, max_iters, cg.leaves), REPS)
-    ms_it, _, _ = device_ms(lambda: cg.fused_step(*on_it, thresh, max_iters), REPS)
-    ms_noop, by_noop, _ = device_ms(lambda: cg.fused_step(*on_noop, thresh, max_iters), REPS)
-    on_stages = fresh()
-    by_stage = launch_times_us(
-        lambda: cg_step.cg_step(lap, *on_stages, thresh, max_iters, cg.leaves),
-        "cg_step_", cg_step.STAGES)
-    by_stage = None if by_stage is None else dict(zip(cg_step.STAGE_NAMES, by_stage))
-    # The other shapes, on seeded random states: the plan the kernel takes,
-    # bit-equality to the plain version stage by stage, µs by stage.
-    shapes = {}
-    for shape in CG_STEP_SHAPES:
-        t_shape = time.perf_counter()
-        timed = k4_sweep.time_plan(k4_sweep.random_cg_state(*shape, "cuda"),
-                                   reps=CG_STEP_SHAPE_REPS, call=False)
-        shapes["x".join(map(str, shape))] = {
-            "plan": k4_sweep.default_plan(*shape), **timed,
-            "bound_us": cg_step_bound(*shape, k4_sweep.DEFLATION_K)["ms"] * 1e3,
-            "stage_bound_us": k4_sweep.stage_bounds_us(*shape),
-            "seconds": time.perf_counter() - t_shape}
-    ms_torch, by_torch, _ = device_ms(lambda: cg.gated_step(*on_torch, thresh, max_iters), REPS)
-    bound = cg_step_bound(rows, n, k)
-    it_bound = cg_step_bound(rows, n, k, cg.wop)
-
-    # A whole solve on each route, in one process, from fresh factors.
-    legs, runs = {}, {}
-    with bench.fresh_cache_dir():
-        for route in ("cg_step", "torch"):
-            reset_counts()
-            with cg_step.torch_route() if route == "torch" else contextlib.nullcontext():
-                solution, history, _ = converge(200)
-            k4 = count_k4("cg_step", expected=route == "cg_step")
-            runs[route] = (np.asarray(history.kkt_iteration), history.kkt_errors[-1],
-                           solution["phi"])
-            legs[route] = {"iterations": int(history.kkt_iteration[-1]),
-                           "validations": len(history.kkt_iteration),
-                           "converged": bool(np.all(history.get_current_kkt_errors()
-                                                    < bench.CONVERGE_TOL)),
-                           "cost": float(history.history["Transportation cost"][-1]),
-                           "solve_sec": history.running_time, "k4_launches": k4,
-                           "b1_launches": window_spmv.KERNEL_LAUNCHES,
-                           "inner_cg_iterations": CG_COUNTERS.iterations}
-    kkt_k, kkt_t = runs["cg_step"][1], runs["torch"][1]
-    ref = np.where(kkt_t != 0, kkt_t, np.nan)
-    kkt_rel = float(np.nanmax(np.abs(kkt_k - ref) / np.abs(ref)))
-    cost_k, cost_t = legs["cg_step"]["cost"], legs["torch"]["cost"]
-    cost_ok = abs(cost_k - cost_t) <= records.COST_RTOL * abs(cost_t) + records.COST_ATOL
-    phi_bits = bool(np.array_equal(runs["cg_step"][2], runs["torch"][2]))
-    emit("cg_step", shape=[rows, n], deflation_rank=k, null_rows=null_rows.tolist(),
-         plan=k4_sweep.default_plan(rows, n), stage_bound_us=k4_sweep.stage_bounds_us(rows, n),
-         other_shapes=shapes, step=step, stage_rel_err=errors, stage_bit_equal=bit_equal,
-         noop_bit_equal=noop_bits, rerun_bit_equal=repeat_bits,
-         device_us={"cg_step": ms_k * 1e3, "plain": ms_p * 1e3,
-                    "by_kernel": {name[:80]: t * 1e3 for name, t in by_kernel.items()},
-                    "k4_by_stage": by_stage,
-                    "iteration": ms_it * 1e3, "iteration_noop": ms_noop * 1e3,
-                    "iteration_noop_by_kernel": {name[:80]: t * 1e3 for name, t in by_noop.items()},
-                    "iteration_torch_route": ms_torch * 1e3,
-                    "iteration_torch_route_kernels": len(by_torch)},
-         bound_us={"cg_step": bound["ms"] * 1e3, "iteration": it_bound["ms"] * 1e3},
-         bound=bound, iteration_bound=it_bound,
-         profiler_events={"cg_step": ev_k, "plain": ev_p}, solves=legs,
-         kkt_rel_kernel_vs_torch=kkt_rel, phi_bit_equal_kernel_vs_torch=phi_bits,
-         phase_seconds=time.perf_counter() - t0, card=card)
-    if not all(e <= KERNEL_TOL for e in errors.values()):
-        raise AssertionError(f"K4 disagrees with its plain version by stage: {errors}")
-    if not all(entry["bit_equal"] for entry in shapes.values()):
-        raise AssertionError("K4 is not bit-equal to its plain version at "
-                             f"{[key for key, entry in shapes.items() if not entry['bit_equal']]}")
-    if step[CG_STEP_FROZEN_ROW] or step[CG_STEP_BREAKDOWN_ROW] or not any(step):
-        raise AssertionError(f"the frozen and breakdown rows stepped, or none did: {step}")
-    if not (noop_bits and repeat_bits):
-        raise AssertionError(f"K4 with live false kept its inputs {noop_bits}; "
-                             f"two launches bit-equal {repeat_bits}")
-    if not np.array_equal(runs["cg_step"][0], runs["torch"][0]):
-        raise AssertionError("the kernel and torch routes validate at other iterations")
-    for route, leg in legs.items():
-        if not (leg["converged"] and leg["iterations"] == ADAPTIVE_ITERATIONS[200]):
-            raise AssertionError(f"{route} route: {leg['iterations']} iterations (converged "
-                                 f"{leg['converged']}), expected {ADAPTIVE_ITERATIONS[200]}")
-    if not (kkt_rel <= SLICE_KKT_RTOL and cost_ok):
-        raise AssertionError(f"kernel against torch route: KKT {kkt_rel}, cost {cost_k} "
-                             f"against {cost_t}")
-    max_abs = max(float((traced["kernel"][key] - traced["plain"][key]).abs().max())
-                  for key in ("x", "r", "p", "z", "rr", "rz"))
-    return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p,
-            "bound_ms": bound["ms"], "bound_by": bound["by"], "library_ms": None}
-
-
-def f64_kernel_rows(fields):
-    """The kernel line's rows of B1-f64 and K4-f64 from phase 21's fields."""
-    return [{
-        "name": "window_spmv_f64",
-        "route": "cuda",
-        "source": "dots_socp_torch/ops/csrc/window_spmv.cu",
-        "replaces": "dots_socp_tpu/ops/laplacian.py::ell_matvec",
-        "replaces_kind": "the float64 padded-ELL gather (the window kernel is float32 only), "
-                         "not a Pallas call",
-        **fields["window_spmv_f64"],
-    }, {
-        "name": "cg_step_f64",
-        "route": "cuda",
-        "source": "dots_socp_torch/ops/csrc/cg_step.cu",
-        "replaces": "dots_socp_tpu/ops/laplacian.py:928-955",
-        "replaces_kind": "XLA fusion of the float64 inner CG while_loop body, not a Pallas call",
-        **fields["cg_step_f64"],
-    }]
-
-
-def phase_float64(card):
-    """Phase 21. Returns the kernel line's fields of B1-f64 and K4-f64 and
-    their launches by path."""
-    t0 = time.perf_counter()
-    geometry = cli.load_geometry("plane", 200)
-    b1, b1_paths = {}, {}
-    for lanes in F64_MODES:
-        config, data, _ = build_problem(lanes - 1, geometry, dtype="float64", device="cuda")
-        op = data.cg_op
-        wop = op.window if op is not None else None
-        if (config.laplacian_mode != "cg" or wop is None or wop.vals.dtype != torch.float64
-                or op.ell_w_hi is not None):
-            raise RuntimeError(f"n200 float64 at {lanes} modes did not build the float64 window "
-                               f"CG without refinement ({config.laplacian_mode})")
-        lap = ell_laplacian(op)
-        v = lap.shape[0]
-        x = np.random.default_rng(lanes).standard_normal((lanes, v))
-        xp = torch.from_numpy(np.ascontiguousarray(x[:, wop.perm.cpu().numpy()])).cuda()
-        iperm = wop.iperm.cpu().numpy()
-        reset_counts()
-        y_kernel = window_spmv.window_matvec(wop, xp)
-        torch.cuda.synchronize()
-        once = f64_launches()
-        y_plain = window_spmv.window_matvec_plain(wop, xp)
-        y_ref = (lap @ x.T).T  # host scipy, float64
-        yk = y_kernel.cpu().numpy()[:, iperm]
-        yp = y_plain.cpu().numpy()[:, iperm]
-        scale = float(np.abs(y_ref).max())
-        abs_kp = float(np.abs(yk - yp).max())
-        err_kp, err_kr = abs_kp / scale, float(np.abs(yk - y_ref).max()) / scale
-        reset_counts()
-        times = kernel_times(lambda: window_spmv.window_matvec(wop, xp),
-                             lambda: window_spmv.window_matvec_plain(wop, xp),
-                             "window_spmv_f64_kernel", (wop, xp, v))
-        b1_paths[f"kernel_{lanes}"] = 1 + window_spmv.KERNEL_LAUNCHES_F64
-        bound = window_bound(wop, v, lanes, v)
-        b1[lanes] = {"shape": [lanes, v], "max_abs_err_vs_plain": abs_kp, "max_abs_y": scale,
-                     "rel_err_vs_plain": err_kp, "rel_err_vs_scipy": err_kr,
-                     "launches_one_call": once, **times, "bound_us": bound["ms"] * 1e3,
-                     "bound": bound}
-        if once != (1, 0, 0, 0):
-            raise AssertionError(f"one B1-f64 call counted (B1-f64, K4-f64, B1, K4) {once}")
-        if not (err_kp <= F64_TOL and err_kr <= F64_TOL):
-            raise AssertionError(f"B1-f64 at {lanes} modes: {err_kp}, {err_kr} > {F64_TOL}")
-        del data, op, wop
-
-    # K4-f64 against the float64 torch route over a latched solve from the
-    # main path's settled state, each on its own copy, on the same B1-f64.
-    cg, st = common.settled_cg_state(200, N_TIME, "cuda", settle=20, inner=0, rtol=1e-8,
-                                     dtype="float64")
-    if not (cg.work == torch.float64 and cg.use_window and cg.fused):
-        raise RuntimeError("n200 float64 did not put its inner CG on B1-f64 and K4-f64")
-    names = ("x", "r", "p", "rz", "rr", "it", "live")
-    rows, n = st["x"].shape
-    k = cg.leaves.defl_q.shape[-1]
-    thresh, max_iters = st["thresh"], 2**31 - 1
-    ref = tuple(st[key].clone() for key in names)
-    ker = tuple(st[key].clone() for key in names)
-    reset_counts()
-    steps, unequal = 0, None
-    while bool(ref[6]) and steps < 5000 and unequal is None:
-        ref = cg.gated_step(*ref, thresh, max_iters)
-        ker = cg.fused_step(*ker, thresh, max_iters)
-        steps += 1
-        unequal = next((name for name, a, b in zip(names, ref, ker) if not torch.equal(a, b)),
-                       None)
-    latched = f64_launches()
-    latch_fell = not bool(ker[6]) and int(ker[5]) == steps
-    # Device time per call: K4-f64 with the GEMMs between its launches, its
-    # plain version, and the whole inner iteration on each route, every row
-    # live (threshold 0); each state advances as it is timed.
-    zero = torch.zeros_like(thresh)
-    lap = window_spmv.window_matvec(cg.wop, st["p"])
-    on_k, on_p, on_it, on_torch = ([st[key].clone() for key in names] for _ in range(4))
-    reset_counts()
-    ms_k, by_kernel, ev_k = device_ms(
-        lambda: cg_step.cg_step(lap, *on_k, zero, max_iters, cg.leaves), REPS)
-    k4_timed = cg_step.KERNEL_LAUNCHES_F64
-    ms_p, _, ev_p = device_ms(
-        lambda: cg_step.cg_step_plain(lap, *on_p, zero, max_iters, cg.leaves), REPS)
-    ms_it, by_it, _ = device_ms(lambda: cg.fused_step(*on_it, zero, max_iters), REPS)
-    ms_torch, _, _ = device_ms(lambda: cg.gated_step(*on_torch, zero, max_iters), REPS)
-    timed = f64_launches()
-    bound = cg_step_bound(rows, n, k, value_bytes=8)
-    it_bound = cg_step_bound(rows, n, k, cg.wop, value_bytes=8)
-    del cg, st, ref, ker, lap, on_k, on_p, on_it, on_torch
-
-    # The main path: `solver` on plane n200 in float64 (the automatic phi
-    # solve, CUDA graphs), on K4-f64's route and inside `torch_route()`.
-    from dots_socp_torch.solver import solver
-
-    legs, runs = {}, {}
-    for route in ("cg_step", "torch"):
-        reset_counts()
-        with cg_step.torch_route() if route == "torch" else contextlib.nullcontext():
-            solution, history = solver(N_TIME, geometry, nit=F64_SOLVE_NIT, tol=1e-4,
-                                       time_limit=3000, precision="float64", device="cuda")
-        torch.cuda.synchronize()
-        counts = f64_launches()
-        runs[route] = (np.asarray(history.kkt_iteration), history.kkt_errors[-1],
-                       solution["phi"])
-        legs[route] = {"iterations": int(history.kkt_iteration[-1]) + 1,
-                       "validations": len(history.kkt_iteration),
-                       "dtypes": sorted({str(np.asarray(solution[key]).dtype)
-                                         for key in ("phi", "mu", "E")}),
-                       "kkt": [float(e) for e in history.kkt_errors[-1]],
-                       "solve_sec": history.running_time,
-                       "launches": dict(zip(("b1_f64", "k4_f64", "b1", "k4"), counts)),
-                       "window_matvecs": CG_COUNTERS.window_matvecs,
-                       "fused_steps": CG_COUNTERS.fused_steps,
-                       "inner_cg_iterations": CG_COUNTERS.iterations,
-                       "f64_fused_steps": CG_COUNTERS.f64_fused_steps}
-    b1_paths["solve"] = legs["cg_step"]["launches"]["b1_f64"]
-    b1_paths["solve_torch_route"] = legs["torch"]["launches"]["b1_f64"]
-    k4_paths = {"latched_solve": latched[1], "timed": k4_timed,
-                "solve": legs["cg_step"]["launches"]["k4_f64"]}
-    kkt_k, kkt_t = runs["cg_step"][1], runs["torch"][1]
-    phi_bits = bool(np.array_equal(runs["cg_step"][2], runs["torch"][2]))
-    emit("float64", b1_f64=b1, latched_steps=steps, latched_unequal=unequal,
-         latched_launches=dict(zip(("b1_f64", "k4_f64", "b1", "k4"), latched)),
-         shape=[rows, n], deflation_rank=k,
-         device_us={"cg_step": ms_k * 1e3, "plain": ms_p * 1e3,
-                    "by_kernel": {name[:80]: t * 1e3 for name, t in by_kernel.items()},
-                    "iteration": ms_it * 1e3,
-                    "iteration_by_kernel": {name[:80]: t * 1e3 for name, t in by_it.items()},
-                    "iteration_torch_route": ms_torch * 1e3},
-         bound_us={"cg_step": bound["ms"] * 1e3, "iteration": it_bound["ms"] * 1e3},
-         bound=bound, iteration_bound=it_bound,
-         timed_launches=dict(zip(("b1_f64", "k4_f64", "b1", "k4"), timed)),
-         profiler_events={"cg_step": ev_k, "plain": ev_p}, solves=legs,
-         phi_bit_equal_kernel_vs_torch=phi_bits,
-         launches_by_path={"window_spmv_f64": b1_paths, "cg_step_f64": k4_paths},
-         phase_seconds=time.perf_counter() - t0, card=card)
-    if unequal is not None or not latch_fell or steps <= 10:
-        raise AssertionError(f"K4-f64 against the float64 torch route: {unequal} differs at "
-                             f"step {steps}, or the latch did not fall")
-    if latched != (2 * steps, cg_step.STAGES * steps, 0, 0):
-        raise AssertionError(f"the latched solve counted (B1-f64, K4-f64, B1, K4) {latched} "
-                             f"for {steps} steps on each route")
-    if timed[2:] != (0, 0) or timed[1] < REPS * cg_step.STAGES:
-        raise AssertionError(f"timing counted (B1-f64, K4-f64, B1, K4) {timed}")
-    for route, leg in legs.items():
-        got = leg["launches"]
-        fused_route = route == "cg_step"
-        if not (got["b1_f64"] == leg["window_matvecs"] > 0 and got["b1"] == got["k4"] == 0
-                and got["k4_f64"] == cg_step.STAGES * leg["fused_steps"] * fused_route
-                and leg["f64_fused_steps"] == leg["inner_cg_iterations"] * fused_route
-                and leg["dtypes"] == ["float64"]):
-            raise AssertionError(f"float64 solve on the {route} route: {leg}")
-        if not np.all(np.isfinite(leg["kkt"])):
-            raise AssertionError(f"float64 solve on the {route} route: KKT {leg['kkt']}")
-    if not np.array_equal(runs["cg_step"][0], runs["torch"][0]):
-        raise AssertionError("the K4-f64 and torch routes validate at other iterations")
-    ref_kkt = np.where(kkt_t != 0, kkt_t, np.nan)
-    if not float(np.nanmax(np.abs(kkt_k - ref_kkt) / np.abs(ref_kkt))) <= SLICE_KKT_RTOL:
-        raise AssertionError(f"K4-f64 against the torch route: KKT {kkt_k} against {kkt_t}")
-    b1_row = b1[F64_MODES[0]]
-    return {
-        "window_spmv_f64": {
-            "max_abs_err": max(e["max_abs_err_vs_plain"] for e in b1.values()),
-            "ms": b1_row["device_us"]["wrapper"] / 1e3,
-            "plain_ms": b1_row["device_us"]["plain"] / 1e3, "bound_ms": b1_row["bound"]["ms"],
-            "bound_by": b1_row["bound"]["by"], "library_ms": b1_row["library_us"] / 1e3,
-            "launches": sum(b1_paths.values()), "launches_by_path": b1_paths},
-        "cg_step_f64": {
-            "max_abs_err": 0.0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound["ms"],
-            "bound_by": bound["by"], "library_ms": None,
-            "launches": sum(k4_paths.values()), "launches_by_path": k4_paths},
-    }
-
-
-def phase_ialm_step(card):
-    """Phase 22. Returns the kernel line's fields of K6."""
-    from dots_socp_torch.ops import ialm_step
-    from dots_socp_torch.solver import solver, step
-
-    t0 = time.perf_counter()
-    setups, paths, failed = {}, {}, []
-    for name, n_space, precision in IALM_SETUPS:
-        cases = {}
-        for congestion, scale_z in IALM_CASES:
-            config, data, state, phi = common.settled_ialm_state(
-                n_space, N_TIME, precision, "cuda", settle=IALM_SETTLE, congestion=congestion,
-                scale_z=scale_z)
-            ref = step._after_phi(config, data, state, phi)
-            ker = state._replace(**{k: getattr(state, k).clone() for k in ialm_step.OUTPUTS})
-            ialm_step.KERNEL_LAUNCHES = 0
-            step._after_phi(config, data, ker, phi, fused=True)
-            torch.cuda.synchronize()
-            unequal = [k for k in ialm_step.OUTPUTS if not torch.equal(getattr(ker, k),
-                                                                       getattr(ref, k))]
-            cases[f"congestion={congestion},scale_z={scale_z}"] = {
-                "unequal": unequal, "launches": ialm_step.KERNEL_LAUNCHES}
-            if unequal or ialm_step.KERNEL_LAUNCHES != ialm_step.LAUNCHES:
-                failed.append((name, congestion, scale_z, unequal))
-            paths[f"step_{name}"] = paths.get(f"step_{name}", 0) + ialm_step.KERNEL_LAUNCHES
-        # Device time per call on the last case's inputs, each state advancing as it is timed.
-        T, V = state.A.shape
-        F, D = data.ops.tri.shape[0], data.ops.inc_table.shape[-1]
-        on_k, on_t = (state._replace(**{k: getattr(state, k).clone() for k in ialm_step.OUTPUTS})
-                      for _ in range(2))
-        ialm_step.KERNEL_LAUNCHES = 0
-        ms_k, by_k, ev_k = device_ms(
-            lambda: step._after_phi(config, data, on_k, phi, fused=True), REPS)
-        stages = launch_times_us(lambda: step._after_phi(config, data, on_k, phi, fused=True),
-                                 "ialm_", ialm_step.LAUNCHES)
-        paths[f"timed_{name}"] = ialm_step.KERNEL_LAUNCHES
-        ms_t, by_t, ev_t = device_ms(lambda: step._after_phi(config, data, on_t, phi), REPS)
-        k6_ms = sum(t for k, t in by_k.items() if "ialm_" in k)
-        bound = ialm_step_bound(T, V, F, D, state.A.element_size(), phi.element_size())
-        setups[name] = {
-            "shape": {"T": T, "V": V, "F": F, "D": D}, "work": str(state.A.dtype),
-            "phi": str(phi.dtype), "cases": cases,
-            "device_us": {"ialm_step": k6_ms * 1e3, "with_scalars": ms_k * 1e3,
-                          "stages": dict(zip(ialm_step.STAGE_NAMES, stages or [None] * 3)),
-                          "torch_route": ms_t * 1e3,
-                          "torch_route_kernels": sum(round(ev_t["seen"][k[:80]] / ev_t["calls"])
-                                                     for k in by_t)},
-            "bound_us": bound["ms"] * 1e3, "bound": bound,
-            "profiler_events": {"ialm_step": ev_k, "torch_route": ev_t}}
-        del config, data, state, phi, ref, ker, on_k, on_t
-
-    # The main path: `solver` on K6's route and inside `torch_route()`.
-    legs = {}
-    for name, n_space in (("n64", 64), ("n200", 200)):
-        geometry = cli.load_geometry("plane", n_space)
-        runs = {}
-        for route in ("ialm_step", "torch"):
-            ialm_step.KERNEL_LAUNCHES = 0
-            steps = step.FUSED_STEPS
-            with ialm_step.torch_route() if route == "torch" else contextlib.nullcontext():
-                solution, history = solver(N_TIME, geometry, nit=IALM_SOLVE_NIT, tol=1e-4,
-                                           time_limit=3000, precision="float32", device="cuda")
-            torch.cuda.synchronize()
-            runs[route] = (solution, np.asarray(history.kkt_iteration))
-            legs.setdefault(name, {})[route] = {
-                "iterations": int(history.kkt_iteration[-1]) + 1,
-                "validations": len(history.kkt_iteration), "solve_sec": history.running_time,
-                "fused_steps": step.FUSED_STEPS - steps, "launches": ialm_step.KERNEL_LAUNCHES}
-        paths[f"solve_{name}"] = legs[name]["ialm_step"]["launches"]
-        arrays = [k for k, v in runs["torch"][0].items() if isinstance(v, np.ndarray)]
-        legs[name]["unequal_arrays"] = [k for k in arrays if not np.array_equal(
-            runs["ialm_step"][0][k], runs["torch"][0][k])]
-        legs[name]["same_validation_points"] = bool(np.array_equal(runs["ialm_step"][1],
-                                                                   runs["torch"][1]))
-    emit("ialm_step", setups=setups, solves=legs, launches_by_path=paths,
-         phase_seconds=time.perf_counter() - t0, card=card)
-    if failed:
-        raise AssertionError(f"K6 against the torch route (setup, congestion, scale_z, "
-                             f"unequal arrays): {failed}")
-    for name, leg in legs.items():
-        k6, torch_leg = leg["ialm_step"], leg["torch"]
-        if (leg["unequal_arrays"] or not leg["same_validation_points"]
-                or k6["fused_steps"] != k6["iterations"] or torch_leg["fused_steps"]
-                or torch_leg["launches"]
-                or k6["launches"] != ialm_step.LAUNCHES * (k6["iterations"] + 1)):
-            raise AssertionError(f"solver on plane {name}, K6 against the torch route: {leg}")
-    n200 = setups["n200"]
-    return {"max_abs_err": 0.0, "ms": n200["device_us"]["ialm_step"] / 1e3,
-            "plain_ms": n200["device_us"]["torch_route"] / 1e3, "bound_ms": n200["bound"]["ms"],
-            "bound_by": n200["bound"]["by"], "library_ms": None,
-            "launches": sum(paths.values()), "launches_by_path": paths}
-
-
-def ialm_kernel_row(fields):
-    """The kernel line's row of K6 from phase 22's fields."""
-    return {"name": "ialm_step", "route": "cuda",
-            "source": "dots_socp_torch/ops/csrc/ialm_step.cu",
-            "replaces": "dots_socp_tpu/solver/step.py (steps 1b, 2 and 3 of `iteration`)",
-            "replaces_kind": "XLA fusions of the SOC projection, the q/lambda solve and the "
-                             "multiplier ascent, not a Pallas call",
-            **fields}
 
 
 def _loops_rank(rank, world, port, backend, mesh_shape, legs, profile, results):
@@ -1782,7 +1111,7 @@ def _loops_rank(rank, world, port, backend, mesh_shape, legs, profile, results):
 
 
 def phase_mesh_loops(card):
-    """Phase 20. Returns B2's launches in it."""
+    """Phase 20."""
     t0, b2 = time.perf_counter(), 0
     backend = mesh_backend(SHARDS_SLICE)
     meshes = [(f"1x{SHARDS_SLICE}", SHARDS_SLICE, MESH_LOOP_LEGS[backend], backend == "nccl")]
@@ -1836,22 +1165,33 @@ def phase_mesh_loops(card):
     if backend == "gloo" and seconds > MESH_LOOPS_GLOO_SECONDS:
         raise AssertionError(f"mesh_loops over gloo took {seconds} s, more than "
                              f"{MESH_LOOPS_GLOO_SECONDS}")
-    return b2
+
+
+def phase_kernels(card):
+    """Phase 23: `kernel_checks` at the main path's shapes."""
+    t0 = time.perf_counter()
+    checks = {}
+    for dtype, lanes in kernel_checks.B1_CASES:
+        checks[f"b1.{dtype}.{lanes}"] = kernel_checks.b1(dtype, lanes)
+    for shards, lanes in kernel_checks.B2_CASES:
+        checks[f"b2.{shards}_shards.{lanes}"] = kernel_checks.b2(shards, lanes)
+    checks["k4.float32.n200"] = kernel_checks.k4(200)
+    checks["k4.float64.n200"] = kernel_checks.k4_f64_latched()
+    for n, precision in kernel_checks.IALM_SETUPS:
+        for congestion, scale_z in kernel_checks.IALM_CASES:
+            checks[f"k6.n{n}.{precision}.congestion{congestion}"] = kernel_checks.k6(
+                n, precision, congestion, scale_z)
+    emit("kernels", checks=checks, launches=sum(c["launches"] for c in checks.values()),
+         phase_seconds=time.perf_counter() - t0, card=card)
 
 
 def main(argv=None):
     alone = {"time_sharded_slice": phase_time_sharded_slice, "wide_slice": phase_wide_slice,
              "spectral_records": phase_spectral_records, "graphs": phase_graphs,
-             "adaptive": phase_adaptive, "cg_step": phase_cg_step,
-             "mesh_loops": phase_mesh_loops,
-             # Phase 21 alone prints its two rows of the kernel line.
-             "float64": lambda card: print(json.dumps({"kernels": f64_kernel_rows(
-                 phase_float64(card))}), flush=True),
-             # Phase 22 alone prints its row of the kernel line.
-             "ialm_step": lambda card: print(json.dumps({"kernels": [ialm_kernel_row(
-                 phase_ialm_step(card))]}), flush=True),
+             "adaptive": phase_adaptive, "mesh_loops": phase_mesh_loops,
+             "kernels": phase_kernels,
              # The sharded phases 7 and 11 after the unsharded runs they are held to.
-             "sharded_slice": lambda card: phase_sharded_slice(card, phase_slice(card)[1]),
+             "sharded_slice": lambda card: phase_sharded_slice(card, phase_slice(card)[0]),
              "sharded_spectral": lambda card: phase_sharded_spectral(card, phase_spectral(card))}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=sorted(alone),
@@ -1862,66 +1202,24 @@ def main(argv=None):
     if args.phase:
         alone[args.phase](card)
         return 0
-    # The kernel line reports B1 at the main path's shape (32 modes), and its
-    # worst error over every mode count checked (32, 33 and, in phase 15, 128).
-    kernel = phase_kernel(card)
-    kernel_33 = phase_kernel(card, N_TIME_MESH)  # 33 modes
-    kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_33["max_abs_err"])
-    launches, kkt_unsharded, solution_unsharded = phase_slice(card)
+    kkt_unsharded, solution_unsharded = phase_slice(card)
     kkt_spectral = phase_spectral(card)
-    # The kernel line reports B2 at the main path's shapes, and its worst
-    # error over every shard count checked.
-    sharded, *others = (phase_sharded_kernel(card, n) for n in SHARDS_KERNEL)
-    others.append(phase_sharded_kernel(card, SHARDS_SLICE, N_TIME_MESH))  # 33 modes
-    sharded["max_abs_err"] = max(r["max_abs_err"] for r in [sharded, *others])
-    sharded_launches = phase_sharded_slice(card, kkt_unsharded)
-    b1_paths = {"slice": launches}
-    b1_paths["resume"] = phase_resume(card, kkt_unsharded, solution_unsharded)
+    phase_sharded_slice(card, kkt_unsharded)
+    phase_resume(card, kkt_unsharded, solution_unsharded)
     phase_replication(card)
-    b1_paths["profile"] = phase_profile(card)
+    phase_profile(card)
     phase_sharded_spectral(card, kkt_spectral)
-    b1_paths["time_slice_unsharded"], b2_time, b1_paths["time_sharded_slice_2x1"] = (
-        phase_time_sharded_slice(card))
+    phase_time_sharded_slice(card)
     phase_dryrun(card)
-    b1_paths["bench"] = phase_bench(card)
-    kernel_128, b1_paths["wide_slice"] = phase_wide_slice(card)
+    phase_bench(card)
+    phase_wide_slice(card)
     phase_spectral_records(card)
-    b1_paths["graphs"] = phase_graphs(card)
-    b1_paths["adaptive"] = phase_adaptive(card)
-    fused = phase_cg_step(card)
-    b2_loops = phase_mesh_loops(card)
-    f64 = phase_float64(card)
-    k6 = phase_ialm_step(card)
-    kernel["max_abs_err"] = max(kernel["max_abs_err"], kernel_128["max_abs_err"])
+    phase_graphs(card)
+    phase_adaptive(card)
+    phase_mesh_loops(card)
+    phase_kernels(card)
     if forbidden_imports():
         raise AssertionError(f"jax or the JAX package was imported: {forbidden_imports()}")
-    print(json.dumps({"kernels": [{
-        "name": "window_spmv",
-        "route": "cuda",
-        "source": "dots_socp_torch/ops/csrc/window_spmv.cu",
-        "replaces": "dots_socp_tpu/ops/pallas_spmv.py:333",
-        "launches": sum(b1_paths.values()),
-        "launches_by_path": b1_paths,
-        **kernel,
-    }, {
-        "name": "sharded_window_spmv",
-        "route": "cuda",
-        "source": "dots_socp_torch/ops/csrc/window_spmv.cu",
-        "replaces": "dots_socp_tpu/ops/sharded_window.py:430",
-        "launches": sharded_launches + b2_time + b2_loops,
-        "launches_by_path": {"sharded_slice": sharded_launches, "time_sharded_slice": b2_time,
-                             "mesh_loops": b2_loops},
-        **sharded,
-    }, {
-        "name": "cg_step",
-        "route": "cuda",
-        "source": "dots_socp_torch/ops/csrc/cg_step.cu",
-        "replaces": "dots_socp_tpu/ops/laplacian.py:928-955",
-        "replaces_kind": "XLA fusion of the inner CG while_loop body, not a Pallas call",
-        "launches": sum(K4_PATHS.values()),
-        "launches_by_path": dict(K4_PATHS),
-        **fused,
-    }, *f64_kernel_rows(f64), ialm_kernel_row(k6)]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

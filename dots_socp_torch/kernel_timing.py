@@ -1,5 +1,6 @@
 """Timing helpers for the port's hand-written kernels on one NVIDIA GPU:
-what `chip_smoke.py` and `bench_kernels.py` share.
+what `bench_kernels.py`, `scripts/k4_sweep.py`, `chip_smoke.py` and the card
+tests share.
 
   device_ms       -- device time per call, from torch.profiler's kernel durations
   median_call_ms  -- latency of one call, host launch overhead included
@@ -8,6 +9,7 @@ what `chip_smoke.py` and `bench_kernels.py` share.
   cg_step_bound   -- the same for one fused CG iteration (K4, B1's matvec aside or in)
   library_ms      -- device time of torch.sparse.mm on the same operator and x
   operator_csr, ell_laplacian, shard_inputs -- the inputs of those
+  reset_counts, f64_launches -- B1's and K4's launch counters, both dtypes
 """
 
 from __future__ import annotations
@@ -30,6 +32,25 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_counts():
+    """B1's and K4's launch counters (float32 and float64) and the CG's
+    counters to 0: what follows is one path's."""
+    from dots_socp_torch.ops import cg_step, window_spmv
+    from dots_socp_torch.ops.laplacian import CG_COUNTERS
+
+    window_spmv.KERNEL_LAUNCHES = cg_step.KERNEL_LAUNCHES = 0
+    window_spmv.KERNEL_LAUNCHES_F64 = cg_step.KERNEL_LAUNCHES_F64 = 0
+    CG_COUNTERS.reset()
+
+
+def f64_launches():
+    """(B1-f64's, K4-f64's, B1's, K4's) launches since `reset_counts`."""
+    from dots_socp_torch.ops import cg_step, window_spmv
+
+    return (window_spmv.KERNEL_LAUNCHES_F64, cg_step.KERNEL_LAUNCHES_F64,
+            window_spmv.KERNEL_LAUNCHES, cg_step.KERNEL_LAUNCHES)
 
 
 def median_call_ms(fn, reps=REPS):
@@ -56,9 +77,10 @@ def device_ms(fn, reps=REPS, tries=3):
     kernel's launches per call, summed. Returns (total ms, {kernel name:
     ms}, events); `events` says how good the measurement is: {"calls": calls
     made in a session, "sessions": profiler sessions it took, "seen":
-    {kernel name: events recorded}, "timed_by": "torch.profiler" or "cuda
-    events"}. The profiler now and then loses events of a session (a fifth
-    of them, seen on an H100 late in a long process), so a session makes
+    {kernel name: events recorded}, "launches_per_call": kernel launches in
+    one call, "timed_by": "torch.profiler" or "cuda events"}. The profiler
+    now and then loses events of a session (a fifth of them, seen on an
+    H100 late in a long process), so a session makes
     reps + reps // 2 calls and a kernel needs the events of `reps` of them;
     a session with fewer, or with a kernel seen off any multiple of the
     calls, is measured again. After `tries` such sessions the same calls are
@@ -81,9 +103,9 @@ def device_ms(fn, reps=REPS, tries=3):
             if e.device_type == DeviceType.CUDA:
                 total_us[e.name] = total_us.get(e.name, 0.0) + e.time_range.elapsed_us()
                 seen[e.name] = seen.get(e.name, 0) + 1
-        events = {"calls": calls, "sessions": session, "seen": {k[:80]: n for k, n in seen.items()},
-                  "timed_by": "torch.profiler"}
         per_call = {name: max(round(n / calls), 1) for name, n in seen.items()}
+        events = {"calls": calls, "sessions": session, "seen": {k[:80]: n for k, n in seen.items()},
+                  "launches_per_call": sum(per_call.values()), "timed_by": "torch.profiler"}
         if seen and all(k * reps <= seen[name] <= k * calls + 2 for name, k in per_call.items()):
             by_name = {name: total_us[name] / seen[name] * per_call[name] / 1e3 for name in seen}
             return sum(by_name.values()), by_name, events

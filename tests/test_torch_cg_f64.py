@@ -239,36 +239,26 @@ def test_kernel_entry_points_reject_a_dtype_mix():
         tw.check_kernel_tiles("window kernel", op64, v, op64.vals.device)
 
 
-def test_chip_smoke_float64_phase_needs_a_card(capsys):
-    """`chip_smoke.py --phase float64` fails at the device phase without a
-    card, and prints no line."""
-    import chip_smoke
-
-    if torch.cuda.is_available():
-        pytest.skip("this host has CUDA")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        chip_smoke.main(["--phase", "float64"])
-    assert capsys.readouterr().out == ""
-
-
 def test_chip_smoke_reset_counts_zeroes_the_f64_launches(monkeypatch):
-    """The smoke's `reset_counts` sets both float64 launch counters to 0
-    with the float32 ones, and `f64_launches` reads all four."""
-    import chip_smoke
+    """`kernel_timing.reset_counts` (which the smoke, `bench_kernels` and
+    the card tests call) sets both float64 launch counters to 0 with the
+    float32 ones, and `f64_launches` reads all four."""
+    from dots_socp_torch import kernel_timing
 
     for module in (tw, k4):
         monkeypatch.setattr(module, "KERNEL_LAUNCHES", 3)
         monkeypatch.setattr(module, "KERNEL_LAUNCHES_F64", 5)
-    assert chip_smoke.f64_launches() == (5, 5, 3, 3)
-    chip_smoke.reset_counts()
-    assert chip_smoke.f64_launches() == (0, 0, 0, 0)
+    assert kernel_timing.f64_launches() == (5, 5, 3, 3)
+    kernel_timing.reset_counts()
+    assert kernel_timing.f64_launches() == (0, 0, 0, 0)
 
 
 def test_smoke_reference_laplacian_of_the_f64_operator():
-    """The smoke's float64 reference L of the float64 CG operator (no
-    refinement: from `ell_w`) is the float32 operator's (from `ell_w_hi`)
-    bit for bit, and the float64 operator carries the float64 window."""
-    import chip_smoke
+    """The card tests' float64 reference L (`kernel_timing.ell_laplacian`)
+    of the float64 CG operator (no refinement: from `ell_w`) is the float32
+    operator's (from `ell_w_hi`) bit for bit, and the float64 operator
+    carries the float64 window."""
+    from dots_socp_torch.kernel_timing import ell_laplacian
 
     geometry = load_geometry("plane", 12)
     ops = {}
@@ -278,5 +268,5 @@ def test_smoke_reference_laplacian_of_the_f64_operator():
         ops[dtype] = data.cg_op
     assert ops["float64"].ell_w_hi is None and ops["float32"].ell_w_hi is not None
     assert ops["float64"].window.vals.dtype == torch.float64
-    lap64, lap32 = (chip_smoke.ell_laplacian(ops[d]) for d in ("float64", "float32"))
+    lap64, lap32 = (ell_laplacian(ops[d]) for d in ("float64", "float32"))
     assert lap64.shape == lap32.shape and abs(lap64 - lap32).max() == 0.0

@@ -7,8 +7,8 @@ slots; the latch; whole single-device solves driven through it against the
 JAX package's `cg_solve` (its window kernel in interpret mode); the wrapper's
 input contract and its refusal without a card; and the graph counts a solve
 makes (`ops.graphs.STATS`) and `profile_slice`'s launch-site table. The
-kernel itself runs on the card (tests/test_torch_cuda.py, chip_smoke.py
-phase 19)."""
+kernel itself runs on the card (tests/test_torch_cuda.py, `-k "cg_step or
+k4"`)."""
 
 from collections import Counter
 from types import SimpleNamespace
@@ -20,7 +20,6 @@ from hypothesis import given, settings, strategies
 from test_torch_graphs import PATH_IDS, PATHS, X_TOL, _jax_solve, problems  # noqa: F401
 from torch.autograd import DeviceType
 
-import chip_smoke
 from dots_socp_torch import cli
 from dots_socp_torch.ops import cg_step as k4
 from dots_socp_torch.ops import graphs
@@ -66,7 +65,7 @@ def _seeded_state(p, seed, inner=3):
 
 def _padded_state():
     """Plane n12 padded to 192 slots (10 padding slots), settled
-    (`settled_cg_state`, the state phase 19 uses on the card), changed as
+    (`settled_cg_state`, the state the card test uses at n200), changed as
     `_seeded_state` changes it."""
     cg, st = settled_cg_state(12, 5, "cpu", settle=2, inner=3, pad_multiple=64)
     assert float(cg.real_w.sum()) < cg.real_w.numel() and float(cg.null_w[-1]) == 1.0
@@ -139,7 +138,7 @@ def test_plain_step_with_live_false_is_a_no_op(problems, refine, window):  # noq
 
 def test_plain_step_trace_names_every_stage():
     """The trace holds each stage's values under the names the kernel's
-    wrapper copies them to (phase 19 compares the two by name)."""
+    wrapper copies them to (the card test compares the two by name)."""
     cg, st = _padded_state()
     trace = {}
     ins = tuple(st[k].clone() for k in NAMES)
@@ -214,16 +213,6 @@ def test_cg_step_checks_its_inputs_and_needs_a_card():
         k4._cg_step_cuda(lap, *ins, st["thresh"], 600, cg.leaves, None)
 
 
-def test_chip_smoke_cg_step_phase_needs_a_card(capsys):
-    """`chip_smoke.py --phase cg_step` fails at the device phase without a
-    card, and prints no line."""
-    if torch.cuda.is_available():
-        pytest.skip("this host has CUDA")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        chip_smoke.main(["--phase", "cg_step"])
-    assert capsys.readouterr().out == ""
-
-
 def test_repeated_solves_count_their_graph_cache_misses():
     """`graphs.STATS`: each solve of plane n13 on the CG path misses the
     graph cache for its iteration and its CG (the solve releases both at
@@ -288,7 +277,7 @@ def test_row_sum_config_is_pytorchs(rows, n, expect):
 @pytest.mark.parametrize("lost_sessions, expect", [(0, [1.0, 2.0, 3.0]), (2, [1.0, 2.0, 3.0]),
                                                    (3, None)])
 def test_launch_times_retry_a_session_that_lost_events(monkeypatch, lost_sessions, expect):
-    """`kernel_timing.launch_times_us` (phase 19's time per stage): each of
+    """`kernel_timing.launch_times_us` (`bench_kernels`' time per stage): each of
     a call's launches in launch order, the mean over the calls; a session
     whose profiler lost an event is made again, and after three such
     sessions the stages are not measured (None) rather than misassigned."""

@@ -15,17 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from dots_socp_torch import kernel_checks
+from dots_socp_torch.kernel_checks import CG_STEP_NAMES, cg_step_system
+from dots_socp_torch.kernel_checks import plane_operators as _plane
 from dots_socp_torch.ops import laplacian as tl
 from dots_socp_torch.ops import mesh_ops as t_mesh
 from dots_socp_torch.ops import sharded_window as tsw
 from dots_socp_torch.ops import window_spmv as tw
 from dots_socp_torch.parallel.partition import blocked_layout
-from dots_socp_torch.geometry.generators import generate_plane_mesh
-from dots_socp_torch.geometry.surface import (
-    cotan_laplacian,
-    triangle_quantities,
-    vertex_areas,
-)
+from dots_socp_torch.geometry.surface import cotan_laplacian, triangle_quantities
 
 pytestmark = pytest.mark.cuda
 
@@ -35,11 +33,17 @@ def _need_cuda():
         pytest.skip("needs an NVIDIA GPU")
 
 
-def _plane(n):
-    vertices, triangles, _ = generate_plane_mesh(n=n)
-    area_f, angles, _ = triangle_quantities(vertices, triangles)
-    av = vertex_areas(triangles, area_f, vertices.shape[0]) / 3.0
-    return vertices, triangles, av, cotan_laplacian(triangles, angles, vertices.shape[0])
+def _kernels_recorded(fn):
+    """The names of the CUDA kernels torch.profiler records while `fn()`
+    runs, in the order it lists them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def _widened(lap):
@@ -124,67 +128,22 @@ def test_kernel_rejects_what_it_cannot_read():
     assert tw.KERNEL_LAUNCHES == before
 
 
-def _ell_f64(lap, device="cuda"):
-    """The float64 padded-ELL arrays of `lap`, as `ell_matvec` reads them."""
-    from types import SimpleNamespace
-
-    idx, w = tl._ell_arrays(lap)
-    return SimpleNamespace(ell_idx=torch.from_numpy(idx).long().to(device),
-                           ell_w=torch.from_numpy(w).to(device))
-
-
-@pytest.mark.parametrize("lanes", [32, 33, 128])
-def test_b1_f64_matches_the_f64_ell_gather_at_n200(lanes):
-    """Kernel B1-f64 on plane n200 with the tiles cut for its block, at 32,
-    33 (two mode groups) and 128 modes: within 1e-13 relative of the float64
-    ELL gather on the card and of SciPy's product; one launch counted in
-    KERNEL_LAUNCHES_F64, none in B1's KERNEL_LAUNCHES."""
+@pytest.mark.parametrize("dtype, lanes", kernel_checks.B1_CASES)
+def test_b1_on_the_main_paths_n200_operator(dtype, lanes):
+    """`kernel_checks.b1`: B1 (float32) and B1-f64 (float64) on plane n200's
+    window operator at 32, 33 and 128 modes against the plain version, SciPy
+    and (float64) the ELL gather; one launch and nothing else."""
     _need_cuda()
-    vertices, _, av, lap = _plane(200)
-    tiles = tw.build_window_tiles(lap, coords=vertices, n_modes=lanes, value_bytes=8)
-    v = av.shape[0]
-    op = tw.window_operator(tiles, av, np.ones((1, v)), av, np.zeros((v, 0)), device="cuda",
-                            dtype=torch.float64)
-    x = np.random.default_rng(lanes).standard_normal((lanes, v))
-    xp = torch.from_numpy(np.ascontiguousarray(x[:, tiles.perm])).cuda()
-    before = (tw.KERNEL_LAUNCHES, tw.KERNEL_LAUNCHES_F64)
-    y = tw.window_matvec(op, xp)
-    torch.cuda.synchronize()
-    assert (tw.KERNEL_LAUNCHES, tw.KERNEL_LAUNCHES_F64) == (before[0], before[1] + 1)
-    got = y.cpu().numpy()[:, tiles.iperm]
-    ell = tl.ell_matvec(_ell_f64(lap), torch.from_numpy(x).cuda()).cpu().numpy()
-    ref = (lap @ x.T).T
-    scale = np.abs(ref).max()
-    assert np.abs(got - ell).max() <= 1e-13 * scale
-    assert np.abs(got - ref).max() <= 1e-13 * scale
+    kernel_checks.b1(dtype, lanes)
 
 
 def test_k4_f64_is_bit_equal_to_the_f64_torch_route_over_a_solve():
-    """Kernel K4-f64 against the float64 torch route (`gated_step`) from
-    plane n200's settled float64 phi solve, one latched iteration after
-    another on the same B1-f64 matvec until the latch falls: x, r, p, rz,
-    rr and it bit for bit after every iteration's step, STAGES launches a
-    call counted in KERNEL_LAUNCHES_F64, none in K4's KERNEL_LAUNCHES."""
+    """`kernel_checks.k4_f64_latched`: K4-f64 bit for bit against the float64
+    torch route after every latched step of plane n200's settled float64
+    phi solve, with B1-f64's and K4-f64's launches counted, no float32
+    kernel."""
     _need_cuda()
-    from dots_socp_torch.ops import cg_step as k4
-    from dots_socp_torch.scripts.common import settled_cg_state
-
-    cg, st = settled_cg_state(200, 31, "cuda", settle=20, inner=0, rtol=1e-8, dtype="float64")
-    assert cg.work == torch.float64 and cg.use_window and cg.fused
-    names = ("x", "r", "p", "rz", "rr", "it", "live")
-    ref = tuple(st[k].clone() for k in names)
-    ker = tuple(st[k].clone() for k in names)
-    before = (k4.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES_F64)
-    steps = 0
-    while bool(ref[6]) and steps < 5000:
-        ref = cg.gated_step(*ref, st["thresh"], 10_000)
-        ker = cg.fused_step(*ker, st["thresh"], 10_000)
-        steps += 1
-        for name, a, b in zip(names, ref, ker):
-            assert torch.equal(a, b), (name, steps, float((a.double() - b.double()).abs().max()))
-    assert steps > 10 and not bool(ker[6]) and int(ker[5]) == steps
-    assert (k4.KERNEL_LAUNCHES, k4.KERNEL_LAUNCHES_F64) == (
-        before[0], before[1] + steps * k4.STAGES)
+    kernel_checks.k4_f64_latched()
 
 
 def test_graphed_f64_cg_solve_equals_eager():
@@ -313,6 +272,15 @@ def test_sharded_kernel_matches_plain_and_f64(tile_rows, widen):
             assert (y - plain).abs().max().item() <= 1e-5 * scale
             ys.append(tsw.window_permute(sw, y, inverse=True).cpu().numpy())
         assert np.abs(np.concatenate(ys, axis=-1) - ref).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("shards, lanes", kernel_checks.B2_CASES)
+def test_b2_on_the_main_paths_n200_shards(shards, lanes):
+    """`kernel_checks.b2`: B2 on every shard of plane n200 blocked in 2 and 4
+    shards at 32 modes and 2 at 33, against the plain version and, the
+    shards assembled, SciPy; one launch and nothing else per shard-call."""
+    _need_cuda()
+    kernel_checks.b2(shards, lanes)
 
 
 def test_sharded_kernel_rejects_what_it_cannot_read():
@@ -716,9 +684,6 @@ def test_validate_segment_launches_the_same_kernels_as_its_replay():
     the kernels and copies that its CUDA graph replays (the same names, as
     many of each), and both write the same flags."""
     _need_cuda()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from dots_socp_torch.ops import graphs
     from dots_socp_torch.solver import step
 
@@ -729,11 +694,8 @@ def test_validate_segment_launches_the_same_kernels_as_its_replay():
     def validate():
         runner.load(state)
         runner.load_segment(step.segment_scalars(config, 0, 50, 1, aux, 8))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            runner.run("validate", lambda b: step._validate(config, data, b, 8))
-            torch.cuda.synchronize()
-        names = sorted(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+        names = sorted(_kernels_recorded(
+            lambda: runner.run("validate", lambda b: step._validate(config, data, b, 8))))
         return names, runner.bufs["flags"].tolist()
 
     with graphs.uncaptured():
@@ -748,77 +710,18 @@ def test_validate_segment_launches_the_same_kernels_as_its_replay():
 
 # ---- kernel K4: the fused inner CG iteration (ops/cg_step.py) ---------------
 
-CG_STEP_NAMES = ("x", "r", "p", "rz", "rr", "it", "live")
-
-
-def _cg_step_system(n, deflation_k, T=7):
-    """Plane n's refined window CG system on the card (deflation rank
-    `deflation_k`, 0 for none) and an inner PCG state from a seeded
-    right-hand side, 3 torch-route iterations in, with row 1 frozen (its
-    threshold above its residual) and row 2 at p = 0 (den = 0); the null
-    row is the last."""
-    vertices, triangles, av, lap = _plane(n)
-    ops = t_mesh.build_surface_ops(vertices, triangles, dtype=torch.float64, device="cuda")
-    op = tl.build_cg_operator(T, 1.0 / T, av, lap, dtype=torch.float64, deflation_k=deflation_k,
-                              refine=True, coords=vertices, device="cuda")
-    cg = tl._CGSystem(ops, op, torch.float64)
-    assert cg.fused and cg.use_window and (cg.leaves.defl_q.shape[1] > 0) == (deflation_k > 0)
-    rhs = torch.from_numpy(np.random.default_rng(n).standard_normal((T + 1, av.shape[0])))
-    b = cg.deflate(rhs.cuda().to(torch.float32))
-    x, r, z, rz, rr = cg.pcg_start(b, torch.zeros_like(b))
-    thresh = cg.row_thresh(b, torch.tensor(1e-12, device="cuda"))
-    state = (x, r, z, rz, rr, torch.zeros((), dtype=torch.int64, device="cuda"),
-             torch.ones((), dtype=torch.bool, device="cuda"))
-    for _ in range(3):
-        state = cg.gated_step(*state, thresh, 600)
-    state = dict(zip(CG_STEP_NAMES, (t.clone() for t in state)))
-    thresh = thresh.clone()
-    thresh[1] = 2 * state["rr"][1]
-    state["p"][2] = 0.0
-    return cg, state, thresh
-
-
-@pytest.mark.parametrize("n", [7, 24])
-@pytest.mark.parametrize("deflation_k", [16, 0], ids=["deflated", "jacobi_only"])
+@pytest.mark.parametrize("n, deflation_k", [
+    (7, 16), (24, 16), (7, 0), (24, 0), (200, None)],
+    ids=["deflated-7", "deflated-24", "jacobi_only-7", "jacobi_only-24", "main_path-200"])
 def test_cg_step_kernel_matches_plain(n, deflation_k):
-    """K4 against its plain version on the same inputs: every output within
-    1e-5 max|.| (float32 row sums in another order), the step mask, it and
-    live equal; the frozen and den = 0 rows hold still; STAGES counted
-    launches per call; with live false every output keeps its bits; two
-    launches on the same inputs are bit-equal."""
+    """K4 against its plain version on the same inputs, on small planes
+    with and without deflation and on the main path's own inputs (plane
+    n200's settled inner state, 32 modes, deflation rank 181): every
+    stage's outputs and every output within 1e-5 max|.|, the frozen and
+    den = 0 rows hold still, STAGES launches per call, live false keeps
+    every bit, two launches bit-equal (`kernel_checks.k4`)."""
     _need_cuda()
-    from dots_socp_torch.ops import cg_step as k4
-
-    cg, st, thresh = _cg_step_system(n, deflation_k)
-    lap = tw.window_matvec(cg.wop, st["p"])
-
-    def run(fn, **kw):
-        ins = tuple(st[k].clone() for k in CG_STEP_NAMES)
-        fn(lap, *ins, thresh, 600, cg.leaves, **kw)
-        return ins
-
-    before = k4.KERNEL_LAUNCHES
-    trace_k, trace_p = {}, {}
-    out_k = run(k4.cg_step, trace=trace_k)
-    out_p = run(k4.cg_step_plain, trace=trace_p)
-    torch.cuda.synchronize()
-    assert k4.KERNEL_LAUNCHES == before + k4.STAGES
-    for name, a, b in zip(CG_STEP_NAMES, out_k, out_p):
-        if a.is_floating_point():
-            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
-        else:
-            assert torch.equal(a, b), name
-    assert torch.equal(trace_k["step"], trace_p["step"])
-    assert trace_k["step"].flatten().tolist()[1:3] == [False, False]
-    for row in (1, 2):
-        assert torch.equal(out_k[0][row], st["x"][row]) and torch.equal(out_k[2][row], st["p"][row])
-    assert all(torch.equal(a, b) for a, b in zip(out_k, run(k4.cg_step)))
-    idle = tuple(st[k].clone() for k in CG_STEP_NAMES)
-    idle[6].fill_(False)
-    kept = [t.clone() for t in idle]
-    k4.cg_step(lap, *idle, thresh, 600, cg.leaves)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(idle, kept))
+    kernel_checks.k4(n, deflation_k)
 
 
 def test_cg_step_kernel_rejects_what_it_cannot_read():
@@ -827,7 +730,7 @@ def test_cg_step_kernel_rejects_what_it_cannot_read():
     _need_cuda()
     from dots_socp_torch.ops import cg_step as k4
 
-    cg, st, thresh = _cg_step_system(7, 16)
+    cg, st, thresh = cg_step_system(7, 16)
     ins = tuple(st[k] for k in CG_STEP_NAMES)
     lap = tw.window_matvec(cg.wop, st["p"])
     before = k4.KERNEL_LAUNCHES
@@ -967,41 +870,27 @@ def _row_sums_case(rows, n, dtype):
 @pytest.mark.parametrize("rows, n", [(32, 46_431), (33, 46_431), (32, 194_814)])
 def test_cg_step_every_split_is_bit_equal_and_leaves_counters_at_zero(rows, n):
     """Every split `split_plan` accepts (lane rows per block, load depth,
-    hand-over through a cluster or device memory) at
-    n200 (32 and 33 rows) and n410 (rows split over 17 blocks): one call
-    launches STAGES kernels of K4 (profiler), every stage's outputs equal
-    the plain version's bit for bit, and every handshake counter is 0 after
-    the call."""
+    hand-over through a cluster or device memory) at n200 (32 and 33 rows)
+    and n410 (rows split over 17 blocks): one call launches STAGES kernels
+    of K4, every stage's outputs equal the plain version's bit for bit, and
+    every handshake counter is 0 after the call (`kernel_checks.
+    k4_every_split`). It counts the launches with torch.profiler, in a
+    process of its own: on an H100 the profiler's sessions lost launches
+    in a process that had run this file's earlier card tests."""
     _need_cuda()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    import subprocess
+    import sys
+    from pathlib import Path
 
-    from dots_socp_torch.ops import cg_step as k4
-    from dots_socp_torch.scripts import k4_sweep
-
-    lap, state, thresh, leaves = k4_sweep.random_cg_state(rows, n, "cuda", k=16)
-    trace_p = {}
-    k4.cg_step_plain(lap, *(t.clone() for t in state), thresh, 600, leaves, trace=trace_p)
-    splits = k4_sweep.plans(rows, n)
-    assert len(splits) >= 4
-    for lanes, depth, cluster in splits:
-        trace_k = {}
-        with k4.walk_plan(lanes, depth, cluster), \
-                profile(activities=[ProfilerActivity.CUDA]) as prof:
-            k4.cg_step(lap, *(t.clone() for t in state), thresh, 600, leaves, trace=trace_k)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and "cg_step_" in e.name]
-        split = (lanes, depth, cluster)
-        assert len(names) == k4.STAGES, (split, names)
-        assert int(k4._COUNTER[torch.device("cuda", torch.cuda.current_device())]
-                   .abs().sum()) == 0, split
-        for key in k4_sweep.TRACE_KEYS:
-            assert torch.equal(trace_k[key], trace_p[key]), (split, key)
-        assert torch.equal(trace_k["mean"][-1], trace_p["mean"][-1]), split
+    repo = Path(__file__).resolve().parents[1]
+    code = ("import sys; from dots_socp_torch.kernel_checks import k4_every_split; "
+            "k4_every_split(int(sys.argv[1]), int(sys.argv[2]))")
+    run = subprocess.run([sys.executable, "-c", code, str(rows), str(n)], cwd=repo,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
 
 
-IALM_SETUPS = [(64, "float32"), (200, "float32"), (200, "float64")]
+IALM_SETUPS = kernel_checks.IALM_SETUPS
 IALM_IDS = ["n64-f32-spectral", "n200-f32-cg-f64phi", "n200-f64-cg"]
 
 
@@ -1012,33 +901,16 @@ def _ialm_inputs(n, precision, congestion=None, scale_z=None, settle=15):
                               scale_z=scale_z)
 
 
-@pytest.mark.parametrize("congestion, scale_z", [(0.0, 1.0), (0.05, 1.7)],
+@pytest.mark.parametrize("congestion, scale_z", kernel_checks.IALM_CASES,
                          ids=["congestion0", "congestion0.05-scale_z1.7"])
 @pytest.mark.parametrize("n, precision", IALM_SETUPS, ids=IALM_IDS)
 def test_ialm_step_is_bit_equal_to_the_torch_route(n, precision, congestion, scale_z):
-    """Kernel K6, one step after phi from a settled state: its three
-    launches give every one of the 13 arrays of the torch route
-    (`_after_phi`) bit for bit, written in place into the state's own
-    tensors; plane n64 float32 (spectral, float32 phi), n200 float32 (CG,
-    float64 phi) and n200 float64, without and with congestion and scale_z,
-    on states where some cones project and some do not."""
+    """`kernel_checks.k6`: one K6 step after phi from a settled state gives
+    every array of the torch route bit for bit, in place; plane n64 float32
+    (spectral), n200 float32 (CG, float64 phi) and n200 float64, without and
+    with congestion and scale_z."""
     _need_cuda()
-    from dots_socp_torch.ops import ialm_step as k6
-    from dots_socp_torch.solver import step
-
-    config, data, state, phi = _ialm_inputs(n, precision, congestion, scale_z)
-    ref = step._after_phi(config, data, state, phi)
-    ker = state._replace(**{name: getattr(state, name).clone() for name in k6.OUTPUTS})
-    ptrs = {name: getattr(ker, name).data_ptr() for name in k6.OUTPUTS}
-    before = k6.KERNEL_LAUNCHES
-    out = step._after_phi(config, data, ker, phi, fused=True)
-    torch.cuda.synchronize()
-    assert k6.KERNEL_LAUNCHES - before == k6.LAUNCHES and out.phi is phi
-    for name in k6.OUTPUTS:
-        assert getattr(out, name).data_ptr() == ptrs[name], name
-        assert torch.equal(getattr(out, name), getattr(ref, name)), name
-    inside = ref.z_fst == state.constant_d - state.scale_z * state.A - state.beta_fst
-    assert 0 < int(inside.sum()) < inside.numel()  # some cones project, some do not
+    kernel_checks.k6(n, precision, congestion, scale_z)
 
 
 @pytest.mark.parametrize("n, precision", IALM_SETUPS, ids=IALM_IDS)
@@ -1075,34 +947,67 @@ def test_graphed_ialm_iterations_equal_the_torch_route(n, precision):
                       "eager": (0, 0)}
 
 
-@pytest.mark.parametrize("n, precision, nit", [(64, "float32", 10_000), (200, "float32", 120),
-                                               (200, "float64", 120)],
-                         ids=["n64-f32-to-tolerance", "n200-f32", "n200-f64"])
-def test_solver_through_k6_equals_the_torch_route(n, precision, nit):
-    """One whole `solver` call on K6's route against the same call inside
-    `ialm_step.torch_route()` (plane n64 to tol 1e-4; n200 in float32 and
-    float64 for `nit` iterations): every returned array bit for bit, the
-    same validation points and iteration count, and every iteration
-    counted in `step.fused_steps` on K6's route."""
+@pytest.mark.parametrize(
+    "kernel, n, precision, nit",
+    [("k6", 64, "float32", 10_000), ("k6", 200, "float32", 120), ("k6", 200, "float64", 120),
+     ("k4", 200, "float32", 10_000), ("k4", 200, "float64", 100)],
+    ids=["k6-n64-f32-to-tolerance", "k6-n200-f32", "k6-n200-f64", "k4-n200-f32-to-tolerance",
+         "k4-n200-f64"])
+def test_solver_through_the_kernel_equals_the_torch_route(kernel, n, precision, nit):
+    """One whole `solver` call on the kernel's route against the same call
+    inside its `torch_route()`: K6 (`ialm_step`) on plane n64 to tol 1e-4
+    and on n200 in float32 and float64 for `nit` iterations; K4 and K4-f64
+    (`cg_step`) on n200 to tol 1e-4 in float32 and for `nit` iterations in
+    float64. Every returned array and the KKT history bit for bit, the same
+    validation points and iteration count. On K6's route every iteration
+    counted in `step.fused_steps` and three K6 launches per iteration and
+    per capture's warm-up; on K4's, STAGES launches of K4 (K4-f64 in
+    float64) per fused inner iteration, B1 (B1-f64) once per window matvec
+    on both routes, and in float64 every live inner iteration counted in
+    `f64_fused_steps`, no float32 kernel and float64 arrays back. The torch
+    route launches neither kernel."""
     _need_cuda()
     from dots_socp_torch.cli import load_geometry
+    from dots_socp_torch.kernel_timing import f64_launches, reset_counts
+    from dots_socp_torch.ops import cg_step as k4
     from dots_socp_torch.ops import ialm_step as k6
     from dots_socp_torch.solver import solver, step
 
     geometry = load_geometry("plane", n)
+    module = k6 if kernel == "k6" else k4
     out = {}
-    for route in ("k6", "torch"):
-        steps = step.FUSED_STEPS
-        with contextlib.nullcontext() if route == "k6" else k6.torch_route():
+    for route in ("kernel", "torch"):
+        steps, k6_launches = step.FUSED_STEPS, k6.KERNEL_LAUNCHES
+        reset_counts()
+        with contextlib.nullcontext() if route == "kernel" else module.torch_route():
             solution, history = solver(31, geometry, nit=nit, tol=1e-4, time_limit=3000,
                                        precision=precision, device="cuda")
-        out[route] = (solution, np.asarray(history.kkt_iteration), step.FUSED_STEPS - steps)
-    (sol_k, its_k, steps_k), (sol_t, its_t, steps_t) = out["k6"], out["torch"]
-    arrays = [key for key, value in sol_t.items() if isinstance(value, np.ndarray)]
+        torch.cuda.synchronize()
+        out[route] = {"solution": solution, "points": np.asarray(history.kkt_iteration),
+                      "kkt": history.kkt_errors, "fused_steps": step.FUSED_STEPS - steps,
+                      "k6": k6.KERNEL_LAUNCHES - k6_launches, "cg": dict(vars(tl.CG_COUNTERS)),
+                      "launches": dict(zip(("b1_f64", "k4_f64", "b1", "k4"), f64_launches()))}
+    run, ref = out["kernel"], out["torch"]
+    arrays = [key for key, value in ref["solution"].items() if isinstance(value, np.ndarray)]
     assert {"phi", "mu", "E"} <= set(arrays)
     for key in arrays:
-        np.testing.assert_array_equal(sol_k[key], sol_t[key], err_msg=key)
-    np.testing.assert_array_equal(its_k, its_t)
-    assert steps_k == int(its_k[-1]) + 1 and steps_t == 0
+        np.testing.assert_array_equal(run["solution"][key], ref["solution"][key], err_msg=key)
+    np.testing.assert_array_equal(run["points"], ref["points"])
+    np.testing.assert_array_equal(run["kkt"], ref["kkt"])
+    iterations = int(run["points"][-1]) + 1
     if nit == 10_000:
-        assert int(its_k[-1]) + 1 < nit  # converged
+        assert iterations < nit  # converged
+    if kernel == "k6":
+        assert run["fused_steps"] == iterations and ref["fused_steps"] == 0
+        assert run["k6"] == k6.LAUNCHES * (iterations + 1) and ref["k6"] == 0
+        return
+    f64 = precision == "float64"
+    b1, k4_name = ("b1_f64", "k4_f64") if f64 else ("b1", "k4")
+    assert run["cg"]["fused_steps"] > 0
+    for on_kernel, r in ((True, run), (False, ref)):
+        assert r["launches"][b1] == r["cg"]["window_matvecs"] > 0
+        assert r["launches"][k4_name] == k4.STAGES * r["cg"]["fused_steps"] * on_kernel
+        if f64:
+            assert r["launches"]["b1"] == r["launches"]["k4"] == 0
+            assert r["cg"]["f64_fused_steps"] == r["cg"]["iterations"] * on_kernel
+            assert {str(r["solution"][key].dtype) for key in ("phi", "mu", "E")} == {"float64"}

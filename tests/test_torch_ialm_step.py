@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from dots_socp_torch import cli
 from dots_socp_torch.kernel_timing import ialm_step_bound
 from dots_socp_torch.ops import graphs
@@ -181,13 +180,3 @@ def test_the_bound_moves_each_array_of_the_step_once(mode, precision):
     bound = ialm_step_bound(T, V, F, D, state.A.element_size(), state.phi.element_size())
     assert bound["bytes"] == n_bytes and bound["by"] == "bytes"
     assert bound["reads_twice_bytes"] == n_bytes + state.beta_mid.nbytes
-
-
-def test_chip_smoke_ialm_step_phase_needs_a_card(capsys):
-    """`chip_smoke.py --phase ialm_step` fails at the device phase without
-    a card, and prints no line."""
-    if torch.cuda.is_available():
-        pytest.skip("this host has CUDA")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        chip_smoke.main(["--phase", "ialm_step"])
-    assert capsys.readouterr().out == ""

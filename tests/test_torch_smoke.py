@@ -1,7 +1,9 @@
-"""CPU checks of the helpers `chip_smoke.py` and `dots_socp_torch.profile_slice`
-use on the card: the smoke script imports only the port, its float64
-reference Laplacian and mass check equal the JAX package's, and the
-profiler's kernel groups name the kernels they should."""
+"""CPU checks of the card tools `chip_smoke.py`, `dots_socp_torch.bench_kernels`
+and `dots_socp_torch.profile_slice` and of the helpers they use: the smoke
+script imports only the port, both tools fail without a card and print
+nothing, the float64 reference Laplacian (`kernel_timing.ell_laplacian`)
+and the smoke's mass check equal the JAX package's, and the profiler's
+kernel groups name the kernels they should."""
 
 import ast
 from pathlib import Path
@@ -10,7 +12,8 @@ import numpy as np
 import pytest
 
 import chip_smoke
-from dots_socp_torch import cli
+from dots_socp_torch import bench_kernels, cli
+from dots_socp_torch.kernel_timing import ell_laplacian
 from dots_socp_torch.profile_slice import group_of
 from dots_socp_torch.solver.problem import build_problem
 from dots_socp_tpu.geometry.surface import cotan_laplacian, triangle_quantities
@@ -36,9 +39,10 @@ def test_chip_smoke_imports_only_the_port():
 
 
 @pytest.mark.parametrize("argv", [[], ["--phase", "time_sharded_slice"], ["--phase", "wide_slice"],
-                                  ["--phase", "spectral_records"], ["--phase", "mesh_loops"]],
+                                  ["--phase", "spectral_records"], ["--phase", "mesh_loops"],
+                                  ["--phase", "kernels"]],
                          ids=["all", "time_sharded_slice", "wide_slice", "spectral_records",
-                              "mesh_loops"])
+                              "mesh_loops", "kernels"])
 def test_chip_smoke_without_a_card_fails_at_phase_one(argv, capsys):
     """The whole run and each phase that runs alone fail at the device phase
     when there is no card, and print no line."""
@@ -51,19 +55,31 @@ def test_chip_smoke_without_a_card_fails_at_phase_one(argv, capsys):
     assert capsys.readouterr().out == ""
 
 
+def test_bench_kernels_without_a_card_fails_and_prints_nothing(capsys):
+    """`python -m dots_socp_torch.bench_kernels` stops before it builds or
+    times anything when there is no card, and prints no line."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        bench_kernels.main([])
+    assert capsys.readouterr().out == ""
+
+
 def test_chip_smoke_runs_alone_only_phases_12_and_15():
     with pytest.raises(SystemExit):
         chip_smoke.main(["--phase", "slice"])
 
 
 def test_smoke_reference_laplacian_is_the_cotan_laplacian():
-    """The smoke's float64 reference L (from the CG operator's ELL arrays)
-    is exactly the JAX package's cotan Laplacian, on the geometry the
-    solver receives."""
+    """The float64 reference L of the card tests (from the CG operator's
+    ELL arrays, `kernel_timing.ell_laplacian`) is exactly the JAX package's
+    cotan Laplacian, on the geometry the solver receives."""
     geometry = cli.load_geometry("plane", 12)
     config, data, _ = build_problem(7, geometry, laplacian_mode="cg", dtype="float32", device="cpu")
     assert config.phi_refine and data.cg_op.window is not None
-    lap = chip_smoke.ell_laplacian(data.cg_op)
+    lap = ell_laplacian(data.cg_op)
     _, angles, _ = triangle_quantities(geometry["vertices"], geometry["triangles"])
     ref = cotan_laplacian(geometry["triangles"], angles, geometry["vertices"].shape[0])
     assert abs(lap - ref).max() == 0.0
